@@ -1,0 +1,179 @@
+"""Fused DFT tail (levels 2 and 3, inner untwist) + Stokes detection,
+written in the filterbank product layout.
+
+Counterpart of ``blit/ops/pallas_detect.py:tail2_detect``.  On a CUDA
+tensor :func:`tail2_detect` launches the hand-written Hopper kernel
+``blit_torch/csrc/tail2_detect.cu``; on a CPU tensor it runs the plain
+twin :func:`tail2_detect_plain`.  Output contract as ``blit``'s: f32
+``(nframes, nif, nchan, f1·f2·f3)`` in natural frequency order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from blit_torch import kernels
+from blit_torch.ops.dft import as_tensors, dft_matrices, dft_tail, twiddles
+from blit_torch.ops.pfb import HOPPER_SMEM_MAX
+
+STOKES_NIF = {"I": 1, "XX": 1, "YY": 1, "XXYY": 2, "full": 4, "IQUV": 4}
+_STOKES_CODE = {"I": 0, "XX": 1, "YY": 2, "XXYY": 3, "full": 4, "IQUV": 5}
+
+# Kernel geometry (mirrors csrc/tail2_detect.cu; checked when it loads).
+KERNEL_F2 = 128
+KERNEL_F3 = 64
+KERNEL_K1_TILE = 8
+
+
+def kernel_smem_bytes(nif: int) -> int:
+    """Dynamic shared memory of one tail2_detect block: the f2 table, the
+    f3 matrix, the twiddled rows and the staged input tile of both pols,
+    and the staged output."""
+    f2, f3, g2, tk1, at = KERNEL_F2, KERNEL_F3, 16, KERNEL_K1_TILE, 16
+    return ((2 * f2 + 2 * f3 * f3) * 4 + (2 * g2 * f3 + 2 * at * f3) * 8
+            + nif * f3 * (g2 * tk1 + 1) * 4)
+
+
+def detect_stokes_planar(sr: torch.Tensor, si: torch.Tensor, stokes: str
+                         ) -> torch.Tensor:
+    """Planar spectra ``(..., npol, nframes, n)`` → power products
+    ``(..., nif, nframes, n)`` f32 (rawspec conventions: I, XX, YY, XXYY,
+    full = [XX, YY, Re XY*, Im XY*], IQUV)."""
+    npol = sr.shape[-3]
+    if npol == 1:
+        if stokes not in ("I", "XX"):
+            raise ValueError(f"stokes={stokes!r} needs 2 pols, got 1")
+        return (sr**2 + si**2)[..., 0:1, :, :]
+    xr, yr = sr[..., 0, :, :], sr[..., 1, :, :]
+    xi, yi = si[..., 0, :, :], si[..., 1, :, :]
+    xx = xr**2 + xi**2
+    yy = yr**2 + yi**2
+    if stokes == "I":
+        return (xx + yy)[..., None, :, :]
+    if stokes == "XX":
+        return xx[..., None, :, :]
+    if stokes == "YY":
+        return yy[..., None, :, :]
+    if stokes == "XXYY":
+        return torch.stack([xx, yy], dim=-3)
+    xy_re = xr * yr + xi * yi
+    xy_im = xi * yr - xr * yi
+    if stokes == "full":
+        return torch.stack([xx, yy, xy_re, xy_im], dim=-3)
+    if stokes == "IQUV":
+        return torch.stack([xx + yy, xx - yy, 2 * xy_re, -2 * xy_im], dim=-3)
+    raise ValueError(f"unknown stokes {stokes!r}")
+
+
+def _check(ur: torch.Tensor, f2: int, f3: int, stokes: str):
+    if ur.ndim != 5:
+        raise ValueError("tail2_detect: (nchan, npol, nframes, f1, m) input")
+    nchan, npol, nframes, f1, m = ur.shape
+    if m != f2 * f3:
+        raise ValueError(f"tail2_detect: last axis {m} != {f2}*{f3}")
+    if stokes not in STOKES_NIF:
+        raise ValueError(f"unknown stokes {stokes!r}")
+    if npol == 1 and stokes not in ("I", "XX"):
+        raise ValueError(f"stokes={stokes!r} needs 2 pols, got 1")
+    return nchan, npol, nframes, f1, m
+
+
+def fits(factors, npol: int = 2, stokes: str = "I") -> bool:
+    """Hopper fit gate of the CUDA kernel: exactly three factors
+    ``(f1, 128, 64)`` with ``f1`` a multiple of the k1 tile, two pols,
+    and the staged output of ``stokes``'s planes inside shared memory."""
+    if len(factors) != 3 or stokes not in STOKES_NIF or npol != 2:
+        return False
+    f1, f2, f3 = factors
+    return (f2 == KERNEL_F2 and f3 == KERNEL_F3 and f1 % KERNEL_K1_TILE == 0
+            and kernel_smem_bytes(STOKES_NIF[stokes]) <= HOPPER_SMEM_MAX)
+
+
+def tail2_detect(ur: torch.Tensor, ui: torch.Tensor, f2: int, f3: int, *,
+                 stokes: str = "I") -> torch.Tensor:
+    """Stage-1 spectra ``(nchan, npol, nframes, f1, f2·f3)`` (f32 or bf16)
+    → f32 ``(nframes, nif, nchan, f1·f2·f3)`` natural-order products."""
+    if ur.device.type == "cpu":
+        return tail2_detect_plain(ur, ui, f2, f3, stokes=stokes)
+    if ur.device.type != "cuda":
+        raise ValueError(f"tail2_detect: unsupported device {ur.device}")
+    return _tail2_detect_cuda(ur, ui, f2, f3, stokes)
+
+
+tail2_detect.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def tail2_detect_i(ur, ui, f2: int, f3: int) -> torch.Tensor:
+    """Stokes-I :func:`tail2_detect` returning ``(nframes, nchan, n)``."""
+    return tail2_detect(ur, ui, f2, f3, stokes="I")[:, 0]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("tail2_detect")
+    if lib.tail2_detect_launch.argtypes is None:
+        lib.tail2_detect_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.tail2_detect_launch.restype = ctypes.c_int
+        lib.tail2_detect_smem_bytes.argtypes = [ctypes.c_int]
+        geom = (lib.tail2_detect_f2(), lib.tail2_detect_f3(),
+                lib.tail2_detect_k1_tile(),
+                lib.tail2_detect_smem_bytes(1), lib.tail2_detect_smem_bytes(4))
+        want = (KERNEL_F2, KERNEL_F3, KERNEL_K1_TILE, kernel_smem_bytes(1),
+                kernel_smem_bytes(4))
+        if geom != want:
+            raise RuntimeError(f"tail2_detect.cu geometry {geom} disagrees "
+                               "with blit_torch/ops/detect.py")
+    return lib
+
+
+def _tail2_detect_cuda(ur, ui, f2, f3, stokes):
+    nchan, npol, nframes, f1, m = _check(ur, f2, f3, stokes)
+    dev = ur.device
+    if ur.dtype not in (torch.float32, torch.bfloat16) or ui.dtype != ur.dtype:
+        raise ValueError("tail2_detect: ur/ui must both be float32 or bfloat16")
+    if ui.shape != ur.shape or ui.device != dev:
+        raise ValueError("tail2_detect: ur/ui shape or device mismatch")
+    if not (ur.is_contiguous() and ui.is_contiguous()):
+        raise ValueError("tail2_detect: ur/ui must be contiguous")
+    if not fits((f1, f2, f3), npol, stokes):
+        raise ValueError(
+            f"tail2_detect: the Hopper kernel takes factors (f1, "
+            f"{KERNEL_F2}, {KERNEL_F3}) with f1 % {KERNEL_K1_TILE} == 0 and "
+            f"2 pols (got ({f1}, {f2}, {f3}), npol={npol})")
+    if ur.data_ptr() % 16 or ui.data_ptr() % 16:
+        raise ValueError("tail2_detect: misaligned input")
+    nif = STOKES_NIF[stokes]
+    w2r, w2i = as_tensors(dft_matrices(f2), dev)
+    w3r, w3i = as_tensors(dft_matrices(f3), dev)
+    t2r, t2i = as_tensors(twiddles(f2, f3), dev)
+    out = torch.empty((nframes, nif, nchan, f1 * m), dtype=torch.float32,
+                      device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tail2_detect_launch(
+            ur.data_ptr(), ui.data_ptr(), w2r[1].data_ptr(), w2i[1].data_ptr(),
+            w3r.data_ptr(), w3i.data_ptr(), t2r.data_ptr(), t2i.data_ptr(),
+            out.data_ptr(), nchan, nframes, f1, _STOKES_CODE[stokes], nif,
+            int(ur.dtype == torch.bfloat16), stream)
+    kernels.check(lib, rc, "tail2_detect")
+    tail2_detect.launches += 1
+    return out
+
+
+def tail2_detect_plain(ur: torch.Tensor, ui: torch.Tensor, f2: int, f3: int,
+                       *, stokes: str = "I") -> torch.Tensor:
+    """Plain PyTorch twin of :func:`tail2_detect`, one coarse channel at a
+    time.  bf16 input takes the TPU kernel's rounding points: matrices
+    and post-twiddle intermediates rounded to bf16, sums in f32."""
+    nchan, npol, nframes, f1, m = _check(ur, f2, f3, stokes)
+    bf16 = ur.dtype == torch.bfloat16
+    out = torch.empty((nframes, STOKES_NIF[stokes], nchan, f1 * m),
+                      dtype=torch.float32, device=ur.device)
+    for c in range(nchan):
+        sr, si = dft_tail(ur[c].to(torch.float32), ui[c].to(torch.float32),
+                          (f1, f2, f3), bf16=bf16)  # (npol, nframes, n)
+        out[:, :, c] = detect_stokes_planar(sr, si, stokes).transpose(0, 1)
+    return out

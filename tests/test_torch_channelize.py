@@ -1,0 +1,126 @@
+"""The port's channelize (blit_torch.ops.channelize) held against blit's.
+
+At the 0000 shape (nfft = 2^20, factors 128·128·64) the port's CPU path
+runs the fused plan — the plain twins of pfb_dft1 and tail2_detect —
+and is compared with blit's channelize on its fused Pallas plan
+(pfb_kernel="fused1", tail/detect "pallas", interpret mode on the CPU)
+and with blit's numpy golden channelize_np, at the bounds of
+tests/test_pallas_detect.py:150-198 (rtol 1e-4, atol 1e-2·max) and, for
+bf16, tests/test_channelize.py:225-246 (atol 2e-2 of the peak).
+Small-nfft shapes take the port's unfused plain path, held against
+channelize_np at tests/test_channelize.py:106's rtol 1e-4 / atol 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from blit.ops import channelize as bch  # noqa: E402
+from blit_torch.ops import channelize as tch  # noqa: E402
+
+NFFT = 1 << 20
+NTAP = 4
+FUSED = dict(fft_method="matmul", pfb_kernel="fused1", tail_kernel="pallas",
+             detect_kernel="pallas")
+
+
+def _volts(nchan, nblk, nfft=NFFT, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-40, 40, (nchan, nblk * nfft, 2, 2), np.int8)
+
+
+def _close(got, want, rtol=1e-4, atol_frac=1e-2):
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol_frac * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", [
+    dict(nchan=1, nblk=NTAP + 1, stokes="I", nint=2),
+    dict(nchan=1, nblk=NTAP + 2, stokes="IQUV", nint=1),
+    dict(nchan=2, nblk=NTAP + 1, stokes="XXYY", nint=1, fqav_by=4,
+         channel_block=1),
+], ids=["I-nint2", "IQUV", "XXYY-fqav4-blocked"])
+def test_fused_plan_matches_blit_fused_and_numpy(case):
+    case = dict(case)
+    nchan, nblk = case.pop("nchan"), case.pop("nblk")
+    fqav_by = case.get("fqav_by", 1)
+    channel_block = case.pop("channel_block", 0)
+    v = _volts(nchan, nblk, seed=nblk)
+    h = bch.pfb_coeffs(NTAP, NFFT)
+    want = np.asarray(bch.channelize(jnp.asarray(v), jnp.asarray(h), nfft=NFFT,
+                                     **case, **FUSED))
+    assert bch.last_kernel_plan()["tail_kernel"] == "tail2_detect"
+    got = tch.channelize(v, h, nfft=NFFT, channel_block=channel_block,
+                         device="cpu", **case)
+    plan = tch.last_kernel_plan()
+    assert (plan["pfb_kernel"], plan["tail_kernel"], plan["impl"]) == (
+        "fused1", "tail2_detect", "plain")
+    got = got.numpy()
+    _close(got, want)
+    gold = bch.channelize_np(v, h, nfft=NFFT, ntap=NTAP, nint=case["nint"],
+                             stokes=case["stokes"])
+    if fqav_by > 1:
+        gold = gold.reshape(gold.shape[:-1] + (-1, fqav_by)).sum(-1)
+    _close(got, gold)
+
+
+def test_fused_plan_bf16_matches_blit_and_golden():
+    v = _volts(1, NTAP + 1, seed=9)
+    h = bch.pfb_coeffs(NTAP, NFFT)
+    want = np.asarray(bch.channelize(jnp.asarray(v), jnp.asarray(h), nfft=NFFT,
+                                     dtype="bfloat16", **FUSED))
+    got = tch.channelize(v, h, nfft=NFFT, dtype="bfloat16", device="cpu").numpy()
+    assert got.dtype == np.float32
+    _close(got, want, rtol=0.05, atol_frac=0.05)
+    gold = bch.channelize_np(v, h, nfft=NFFT, ntap=NTAP)
+    np.testing.assert_allclose(got / gold.max(), gold / gold.max(), atol=2e-2)
+
+
+@pytest.mark.parametrize("stokes", ["I", "XX", "YY", "XXYY", "full", "IQUV"])
+def test_unfused_plain_path_matches_numpy(stokes):
+    nfft, nint = 64, 2
+    v = _volts(3, NTAP - 1 + 2 * nint, nfft=nfft, seed=3)
+    h = bch.pfb_coeffs(NTAP, nfft)
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes=stokes,
+                         device="cpu").numpy()
+    assert tch.last_kernel_plan()["pfb_kernel"] == "xla"
+    want = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes=stokes)
+    assert got.shape == want.shape == (2, bch.STOKES_NIF[stokes], 3 * nfft)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+
+
+def test_unfused_matches_blit_default_path():
+    nfft = 1024
+    v = _volts(2, NTAP + 3, nfft=nfft, seed=4)
+    h = bch.pfb_coeffs(NTAP, nfft)
+    want = np.asarray(bch.channelize(jnp.asarray(v), jnp.asarray(h), nfft=nfft,
+                                     nint=4, fqav_by=8))
+    got = tch.channelize(v, h, nfft=nfft, nint=4, fqav_by=8, device="cpu").numpy()
+    _close(got, want)
+
+
+def test_header_and_frame_accounting_match_blit():
+    raw = dict(OBSNCHAN=64, OBSFREQ=8437.5, OBSBW=-187.5, TBIN=3.4e-7,
+               SRC_NAME="SYNTH", STT_IMJD=59897, STT_SMJD=21221, STT_OFFS=0.5)
+    for stokes in ("I", "IQUV"):
+        assert tch.output_header(raw, nfft=NFFT, nint=2, stokes=stokes) == \
+            bch.output_header(raw, nfft=NFFT, nint=2, stokes=stokes)
+    for args in ((11 * NFFT, NFFT, 4, 1), (8 * 64 + 5, 64, 4, 2), (100, 64, 4, 1)):
+        assert tch.usable_frames(*args) == bch.usable_frames(*args)
+
+
+def test_guards():
+    v = np.zeros((1, 6 * 64, 2, 2), np.int8)
+    h = bch.pfb_coeffs(NTAP, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        tch.channelize(v, h, nfft=64, dtype="float16", device="cpu")
+    with pytest.raises(ValueError, match="fqav_by"):
+        tch.channelize(v, h, nfft=64, fqav_by=3, device="cpu")
+    with pytest.raises(ValueError, match="nint"):
+        tch.channelize(v, h, nfft=64, nint=2, device="cpu")
+    assert isinstance(tch.channelize(torch.from_numpy(v), h, nfft=64,
+                                     device="cpu"), torch.Tensor)
