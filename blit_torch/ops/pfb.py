@@ -65,7 +65,8 @@ def pfb_dft1(
     ``(ur, ui)``, each ``(nchan, 2, nframes, n1, nfft//n1)`` in ``dtype``.
 
     ``coeffs``: f32 ``(ntap, nfft)`` sign-folded window; ``w1r, w1i``:
-    the ``n1``-point DFT matrix (:func:`blit_torch.ops.dft.dft_matrices`);
+    the ``n1``-point DFT matrix (:func:`blit_torch.ops.dft.dft_matrices`;
+    the CUDA kernel reads only its row 1, as ``W[k, j] = W[1, k*j mod n1]``);
     ``tr, ti``: f32 ``(n1, nfft//n1)`` stage-1 twiddles.
     """
     if dtype not in _DTYPES:
@@ -94,15 +95,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _is_dft_matrix(wr: torch.Tensor, wi: torch.Tensor) -> bool:
-    """The kernel reads W[k, j] as W[1, (k*j) mod n]; true of every DFT
-    matrix built by ``dft_matrices``."""
-    n = wr.shape[0]
-    k = torch.arange(n, device=wr.device)
-    idx = (k[:, None] * k[None, :]) % n
-    return bool(torch.equal(wr, wr[1][idx]) and torch.equal(wi, wi[1][idx]))
-
-
 def _pfb_dft1_cuda(voltages, coeffs, w1r, w1i, tr, ti, dtype):
     n1 = w1r.shape[0]
     nchan, nfft, ntap, nblk, nframes = _geometry(voltages, coeffs, n1)
@@ -126,8 +118,6 @@ def _pfb_dft1_cuda(voltages, coeffs, w1r, w1i, tr, ti, dtype):
             f"nfft={nfft})")
     if tr.data_ptr() % 16 or ti.data_ptr() % 16 or voltages.data_ptr() % 4:
         raise ValueError("pfb_dft1: misaligned input")
-    if not _is_dft_matrix(w1r, w1i):
-        raise ValueError("pfb_dft1: w1r/w1i must be dft_matrices(n1)")
     out_dtype = _DTYPES[dtype]
     ur = torch.empty((nchan, 2, nframes, n1, m), dtype=out_dtype, device=dev)
     ui = torch.empty_like(ur)
