@@ -5,11 +5,15 @@ contracts: the same module names, array layouts, product headers and
 ``.fil`` bytes.  It imports ``torch`` and numpy only — never ``jax`` and
 never a module of ``blit`` — and keeps its own copies of what it needs.
 
-This slice carries the main path: one bank's GUPPI RAW recording in,
-the rawspec ``0000`` high-resolution filterbank product out
-(:func:`blit_torch.pipeline.reducer_for_product`).  On a CUDA device the
-channelizer runs two hand-written Hopper kernels (``blit_torch/csrc``);
-on the CPU it runs their plain PyTorch twins.
+The main path: one bank's GUPPI RAW recording in, rawspec's three
+filterbank products out — ``0000`` (nfft 2^20), ``0001`` (nfft 8, nint
+128) and ``0002`` (nfft 1024, nint 2048) — through
+:func:`blit_torch.pipeline.reducer_for_product`, or any two-pol nfft
+that ``default_factors`` splits through ``RawReducer(nfft=...)``.  On a
+CUDA device the channelizer runs six hand-written Hopper kernels
+(``blit_torch/csrc``: ``pfb_dft1``, ``tail2_detect``, ``pfb_dequant``,
+``dft_stage``, ``dft_last``, ``dft_tail2``); on the CPU it runs their
+plain PyTorch twins.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -8,15 +8,25 @@ Counterpart of ``blit/ops/channelize.py``::
       → integrate by nint → fqav epilogue
       → (ntime_out, nif, nchan_coarse*nfft) float32, channel fastest
 
-On a CUDA device the plan is ``blit``'s fused one: ``fused1`` (dequant +
-PFB + DFT stage 1, :func:`blit_torch.ops.pfb.pfb_dft1`) then
-``tail2_detect`` (DFT levels 2 and 3 + detect,
-:func:`blit_torch.ops.detect.tail2_detect`), both hand-written Hopper
-kernels.  It needs ``default_factors(nfft)`` to have exactly three
-factors and both kernels' fit gates to pass; any other shape raises on
-CUDA.  On the CPU the same plan runs through the plain twins, and other
-shapes take the unfused plain path (dequant → FIR → ``torch.fft`` →
-detect), as ``blit`` does off the TPU.
+The plan follows ``blit``'s "fullest fusion first" order, with the Hopper
+kernels' fit gates in place of the TPU's VMEM gates.  For two-pol input
+and every nfft that :func:`default_factors` splits:
+
+- ``pfb_dft1`` (dequant + PFB + DFT stage 1, :mod:`blit_torch.ops.pfb`)
+  when nfft has >= 2 factors and its gate passes; then ``tail2_detect``
+  (levels 2 and 3 + detect, :mod:`blit_torch.ops.detect`) when the
+  factors are ``(f1, 128, 64)``, else ``dft_tail2`` (levels 2 and 3 +
+  the inner untwist, :mod:`blit_torch.ops.dft`) for three factors inside
+  its gate (2^21 to 2^23), else the remaining levels through
+  ``dft_stage``/``dft_last``; detection in torch ops after either;
+- otherwise ``pfb_dequant`` (dequant + PFB), then the whole DFT through
+  ``dft_stage``/``dft_last`` (one factor: ``dft_last`` alone — the
+  ``0001`` and ``0002`` products) and detection in torch ops.
+
+On a CUDA device every step of these rows is a hand-written Hopper
+kernel; on the CPU the same plan runs through the kernels' plain twins.
+One-pol input runs only on the CPU, through the unfused plain path
+(dequant → FIR → ``torch.fft`` → detect), as ``blit`` does off the TPU.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 
 from blit_torch.device import resolve_device
 from blit_torch.ops import detect as detect_mod
+from blit_torch.ops import dft as dft_mod
 from blit_torch.ops import pfb as pfb_mod
 from blit_torch.ops.detect import (  # noqa: F401  (re-exported names)
     STOKES_NIF,
@@ -36,9 +47,8 @@ from blit_torch.ops.detect import (  # noqa: F401  (re-exported names)
 from blit_torch.ops.dft import as_tensors, default_factors, dft_matrices, twiddles
 from blit_torch.ops.fqav import fqav as _fqav
 
-# ROADMAP item that ports the shapes the CUDA plan does not take yet.
-_ROADMAP_NEXT = ("ROADMAP.md Queue 1: 'pfb_dequant and the small-nfft "
-                 "presets (0001/0002) on CUDA'")
+# ROADMAP item that ports the input the CUDA plan does not take yet.
+_ROADMAP_NEXT = "ROADMAP.md Queue 1: 'one-pol input on CUDA'"
 
 
 def usable_frames(nsamps: int, nfft: int, ntap: int, nint: int) -> int:
@@ -108,9 +118,13 @@ _LAST_PLAN: dict = {}
 
 
 def last_kernel_plan() -> dict:
-    """The plan the most recent :func:`channelize` call ran: ``blit``'s
-    plan names plus ``impl`` — ``"cuda"`` (the Hopper kernels) or
-    ``"plain"`` (the PyTorch twins / unfused path)."""
+    """The plan the most recent :func:`channelize` call ran, under
+    ``blit``'s keys: ``pfb_kernel`` is ``"fused1"`` (``pfb_dft1``),
+    ``"pallas"`` (``pfb_dequant``, ``blit``'s name for it) or ``"torch"``;
+    ``tail_kernel`` is ``"tail2_detect"``, ``"dft_tail2"``, ``"dft_last"``,
+    ``"dft_stage+dft_last"`` or ``"torch"``; ``detect_kernel`` is
+    ``"tail2_detect"`` or ``"torch"``; ``impl`` is ``"cuda"`` (the Hopper
+    kernels) or ``"plain"`` (their PyTorch twins / the unfused path)."""
     return dict(_LAST_PLAN)
 
 
@@ -119,6 +133,41 @@ def _factors_or_none(nfft: int) -> Optional[Tuple[int, ...]]:
         return default_factors(nfft)
     except NotImplementedError:
         return None
+
+
+def _resolve_plan(nfft: int, npol: int, stokes: str, cuda: bool):
+    """→ (route, factors, plan record) for this shape, raising where no
+    route exists on the device."""
+    if npol != 2:
+        if cuda:
+            raise NotImplementedError(
+                f"channelize on CUDA takes two-pol input (got npol={npol}); "
+                f"one pol is {_ROADMAP_NEXT}")
+        return "unfused", None, dict(fft_method="fft", pfb_kernel="torch",
+                                     tail_kernel="torch", detect_kernel="torch")
+    factors = _factors_or_none(nfft)
+    if factors is None:
+        raise NotImplementedError(
+            f"channelize: no supported DFT factorization for nfft={nfft}")
+
+    def levels(fs):
+        return "dft_last" if len(fs) == 1 else "dft_stage+dft_last"
+
+    if len(factors) >= 2 and pfb_mod.fits(nfft, factors[0], npol):
+        if detect_mod.fits(factors, npol, stokes):
+            return "tail2_detect", factors, dict(
+                fft_method="matmul", pfb_kernel="fused1",
+                tail_kernel="tail2_detect", detect_kernel="tail2_detect")
+        if len(factors) == 3 and dft_mod.tail2_fits(factors[1], factors[2]):
+            return "fused1_tail2", factors, dict(
+                fft_method="matmul", pfb_kernel="fused1",
+                tail_kernel="dft_tail2", detect_kernel="torch")
+        return "fused1", factors, dict(
+            fft_method="matmul", pfb_kernel="fused1",
+            tail_kernel=levels(factors[1:]), detect_kernel="torch")
+    return "dequant", factors, dict(
+        fft_method="matmul", pfb_kernel="pallas", tail_kernel=levels(factors),
+        detect_kernel="torch")
 
 
 def channelize(
@@ -142,8 +191,9 @@ def channelize(
       coeffs: ``(ntap, nfft)`` PFB prototype from :func:`pfb_coeffs`.
       nint: spectra integrated per output sample.
       stokes: detection product (see ``detect_stokes_planar``).
-      dtype: working dtype of the stage-1 spectra ("float32" |
-        "bfloat16"); detection and integration are f32 either way.
+      dtype: working dtype of the PFB output / stage-1 spectra
+        ("float32" | "bfloat16"); the DFT levels after it, detection and
+        integration are f32 either way.
       fqav_by: sum every ``fqav_by`` consecutive fine channels (must
         divide ``nfft``); callers map the axis with ``fqav_range``.
       channel_block: if > 0 and < nchan, run groups of this many coarse
@@ -153,6 +203,23 @@ def channelize(
     Returns f32 ``(ntime_out, nif, nchan_coarse*nfft)`` on ``device``,
     fine channels fftshifted within each coarse channel.
     """
+    return _channelize(voltages, coeffs, nfft=nfft, ntap=ntap, nint=nint,
+                       stokes=stokes, dtype=dtype, fqav_by=fqav_by,
+                       channel_block=channel_block, device=device,
+                       twins=False)
+
+
+def channelize_twins(voltages, coeffs, **kw) -> torch.Tensor:
+    """:func:`channelize`'s plan run through the kernels' plain twins on
+    any device, the CUDA one included: the reference that checks the
+    kernels on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+    No entry point of the port calls it."""
+    return _channelize(voltages, coeffs, twins=True, **kw)
+
+
+def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
+                dtype="float32", fqav_by=1, channel_block=0, device=None,
+                twins=False) -> torch.Tensor:
     dev = resolve_device(device)
     if isinstance(voltages, np.ndarray):
         voltages = torch.from_numpy(voltages)
@@ -169,16 +236,8 @@ def channelize(
         raise ValueError(f"fqav_by={fqav_by} does not divide nfft={nfft}")
     if tuple(coeffs.shape) != (ntap, nfft):
         raise ValueError(f"coeffs shape {tuple(coeffs.shape)} != ({ntap}, {nfft})")
-    factors = _factors_or_none(nfft)
-    fused = (factors is not None and len(factors) == 3 and npol == 2)
-    if dev.type == "cuda":
-        if not (fused and pfb_mod.fits(nfft, factors[0], npol)
-                and detect_mod.fits(factors, npol, stokes)):
-            raise NotImplementedError(
-                f"channelize on CUDA runs the fused1 + tail2_detect kernels, "
-                f"which need nfft with 3 DFT factors (f1, 128, 64) and 2 pols "
-                f"(got nfft={nfft}, factors={factors}, npol={npol}); other "
-                f"shapes are {_ROADMAP_NEXT}")
+    route, factors, plan = _resolve_plan(nfft, npol, stokes,
+                                         dev.type == "cuda")
     voltages = voltages.to(dev)
     coeffs = coeffs.to(device=dev, dtype=torch.float32)
     # Fold the fftshift into the window (shift theorem: multiplying frame
@@ -190,15 +249,10 @@ def channelize(
     shifted = (coeffs * sign[None, :]).contiguous()
 
     _LAST_PLAN.clear()
-    if fused:
-        _LAST_PLAN.update(fft_method="matmul", pfb_kernel="fused1",
-                          tail_kernel="tail2_detect",
-                          detect_kernel="tail2_detect")
-    else:
-        _LAST_PLAN.update(fft_method="fft", pfb_kernel="xla",
-                          tail_kernel="xla", detect_kernel="xla")
-    _LAST_PLAN.update(impl="cuda" if dev.type == "cuda" else "plain",
-                      dtype=dtype)
+    _LAST_PLAN.update(plan)
+    _LAST_PLAN.update(dft_order="natural", dtype=dtype,
+                      impl="cuda" if dev.type == "cuda" and not twins
+                      else "plain")
 
     if channel_block and channel_block < nchan:
         if nchan % channel_block:
@@ -208,13 +262,11 @@ def channelize(
                   for c in range(0, nchan, channel_block)]
     else:
         groups = [voltages]
+    run = _ROUTES[route]
     outs = []
     for v in groups:
-        v = v.contiguous()
-        if fused:
-            power = _fused(v, shifted, factors, nint, stokes, dtype)
-        else:
-            power = _unfused(v, shifted, nint, stokes, dtype)
+        power = run(v.contiguous(), shifted, factors, nint, stokes, dtype,
+                    twins)
         outs.append(power.reshape(power.shape[0], power.shape[1], -1))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
     if fqav_by > 1:
@@ -222,27 +274,76 @@ def channelize(
     return out
 
 
-def _fused(v, shifted, factors, nint, stokes, dtype) -> torch.Tensor:
-    """fused1 + tail2_detect; returns ``(t, nif, cb, nfft)``."""
-    f1, f2, f3 = factors
-    nfft = f1 * f2 * f3
-    dev = v.device
-    w1r, w1i = as_tensors(dft_matrices(f1), dev)
-    t1r, t1i = as_tensors(twiddles(f1, nfft // f1), dev)
-    ur, ui = pfb_mod.pfb_dft1(v, shifted, w1r, w1i, t1r, t1i, dtype=dtype)
-    power = detect_mod.tail2_detect(ur, ui, f2, f3, stokes=stokes)
+def _integrate_frames(power, nint):
+    """Sum ``nint`` consecutive frames of frame-major ``(t, ...)`` power."""
+    if nint <= 1:
+        return power
+    if power.shape[0] % nint:
+        raise ValueError(f"integrate: nint={nint} does not divide "
+                         f"nframes={power.shape[0]}")
+    return power.reshape((power.shape[0] // nint, nint)
+                         + power.shape[1:]).sum(dim=1)
+
+
+def _detect_integrate(sr, si, nint, stokes) -> torch.Tensor:
+    """Natural-order spectra ``(cb, npol, frames, nfft)`` → integrated
+    power ``(t, nif, cb, nfft)``."""
+    power = detect_stokes_planar(sr, si, stokes)  # (cb, nif, frames, nfft)
+    return integrate(power, nint).permute(2, 1, 0, 3)
+
+
+def _stage1(v, shifted, factors, dtype, twins):
+    f1 = factors[0]
+    nfft = shifted.shape[1]
+    mats = as_tensors(dft_matrices(f1) + twiddles(f1, nfft // f1), v.device)
+    dft1 = pfb_mod.pfb_dft1_plain if twins else pfb_mod.pfb_dft1
+    return dft1(v, shifted, *mats, dtype=dtype)
+
+
+def _tail2_detect(v, shifted, factors, nint, stokes, dtype, twins):
+    """pfb_dft1 + tail2_detect; returns ``(t, nif, cb, nfft)``."""
+    ur, ui = _stage1(v, shifted, factors, dtype, twins)
+    tail = detect_mod.tail2_detect_plain if twins else detect_mod.tail2_detect
+    power = tail(ur, ui, factors[1], factors[2], stokes=stokes)
     del ur, ui
-    if nint > 1:
-        if power.shape[0] % nint:
-            raise ValueError(f"integrate: nint={nint} does not divide "
-                             f"nframes={power.shape[0]}")
-        power = power.reshape((power.shape[0] // nint, nint)
-                              + power.shape[1:]).sum(dim=1)
-    return power
+    return _integrate_frames(power, nint)
 
 
-def _unfused(v, shifted, nint, stokes, dtype) -> torch.Tensor:
-    """The plain unfused path (CPU only): dequant → FIR → torch.fft →
+def _fused1(v, shifted, factors, nint, stokes, dtype, twins):
+    """pfb_dft1 + the remaining levels (dft_stage..., dft_last) + torch
+    detect; returns ``(t, nif, cb, nfft)``."""
+    ur, ui = _stage1(v, shifted, factors, dtype, twins)
+    sr, si = dft_mod.dft_tail(ur, ui, factors, use_pallas=not twins)
+    del ur, ui
+    return _detect_integrate(sr, si, nint, stokes)
+
+
+def _fused1_tail2(v, shifted, factors, nint, stokes, dtype, twins):
+    """pfb_dft1 + dft_tail2 + the level-0 swap + torch detect; returns
+    ``(t, nif, cb, nfft)``."""
+    ur, ui = _stage1(v, shifted, factors, dtype, twins)
+    tail = dft_mod.dft_tail2_plain if twins else dft_mod.dft_tail2
+    vr, vi = tail(ur, ui, factors[1], factors[2])  # (cb, npol, frames, f1, m)
+    del ur, ui
+    batch = vr.shape[:3]
+    sr = vr.transpose(-1, -2).reshape(batch + (-1,))
+    si = vi.transpose(-1, -2).reshape(batch + (-1,))
+    del vr, vi
+    return _detect_integrate(sr, si, nint, stokes)
+
+
+def _dequant(v, shifted, factors, nint, stokes, dtype, twins):
+    """pfb_dequant + the whole DFT (dft_stage..., dft_last) + torch
+    detect; returns ``(t, nif, cb, nfft)``."""
+    front = pfb_mod.pfb_dequant_plain if twins else pfb_mod.pfb_dequant
+    fr, fi = front(v, shifted, dtype=dtype)
+    sr, si = dft_mod.dft(fr, fi, factors=factors, use_pallas=not twins)
+    del fr, fi
+    return _detect_integrate(sr, si, nint, stokes)
+
+
+def _unfused(v, shifted, factors, nint, stokes, dtype, twins):
+    """The plain unfused path (CPU, one pol): dequant → FIR → torch.fft →
     detect → integrate; returns ``(t, nif, cb, nfft)``."""
     work = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     re, im = dequantize(v, work)  # (cb, ntime, npol)
@@ -250,9 +351,11 @@ def _unfused(v, shifted, nint, stokes, dtype) -> torch.Tensor:
     fr = pfb_frontend(re.movedim(-1, 1), wc).to(torch.float32)
     fi = pfb_frontend(im.movedim(-1, 1), wc).to(torch.float32)
     z = torch.fft.fft(torch.complex(fr, fi), dim=-1)
-    power = detect_stokes_planar(z.real, z.imag, stokes)  # (cb, nif, t, nfft)
-    power = integrate(power, nint)
-    return power.permute(2, 1, 0, 3)
+    return _detect_integrate(z.real, z.imag, nint, stokes)
+
+
+_ROUTES = {"tail2_detect": _tail2_detect, "fused1_tail2": _fused1_tail2,
+           "fused1": _fused1, "dequant": _dequant, "unfused": _unfused}
 
 
 def output_header(raw_header: dict, *, nfft: int, nint: int,

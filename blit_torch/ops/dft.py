@@ -1,20 +1,35 @@
-"""Planar (real/imag) DFT helpers: the matrices, twiddles and factor
-policy the channelizer's kernels are defined in, plus a plain matmul DFT
-tail for the kernels' plain twins.
+"""Planar (real/imag) DFT: the matrices, twiddles and factor policy the
+channelizer's kernels are defined in, the DFT-level kernels and the
+multi-level DFT built from them.
 
-Counterpart of ``blit/ops/dft.py``.  The matrices are built in float64
-with numpy and then cast, exactly as there, so they are bitwise equal to
-``blit``'s: the PFB window and these matrices are this system's weights.
+Counterpart of ``blit/ops/dft.py`` and of ``blit/ops/pallas_dft.py``'s
+``dft_stage``, ``dft_last`` and ``dft_tail2``.  The matrices are built in
+float64 with numpy and then cast, exactly as there, so they are bitwise
+equal to ``blit``'s: the PFB window and these matrices are this system's
+weights.
+
+On a CUDA tensor :func:`dft_last` and :func:`dft_stage` launch the
+hand-written Hopper kernels of ``blit_torch/csrc/dft.cu``, and
+:func:`dft_tail2` (``pallas_dft.py``'s fused last two levels) that of
+``blit_torch/csrc/dft_tail2.cu``; on a CPU tensor they run their plain
+twins (:func:`dft_last_plain`, :func:`dft_stage_plain`,
+:func:`dft_tail2_plain`: f32 ``torch.matmul`` with the four real
+products).  :func:`dft` and :func:`dft_tail` walk the Cooley-Tukey levels
+with them (``use_pallas=True``, ``blit``'s name for its kernel route) or
+with the twins.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from blit_torch import kernels
 
 # Largest DFT applied as a single matmul; larger sizes decompose.
 DIRECT_DFT_MAX = 4096
@@ -75,55 +90,344 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _dft_rec(xr, xi, factors, bf16: bool):
-    """Planar DFT along the last axis over ``factors``; output in the
-    (k_first, ..., k_last) digit order flattened row-major only at the
-    leaf — callers assemble natural order."""
+def _planar_check(name: str, xr: torch.Tensor, xi: torch.Tensor):
+    if xr.dtype not in (torch.float32, torch.bfloat16) or xi.dtype != xr.dtype:
+        raise ValueError(f"{name}: xr/xi must both be float32 or bfloat16")
+    if xi.shape != xr.shape or xi.device != xr.device:
+        raise ValueError(f"{name}: xr/xi shape or device mismatch")
+    if not (xr.is_contiguous() and xi.is_contiguous()):
+        raise ValueError(f"{name}: xr/xi must be contiguous")
+    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
+        raise ValueError(f"{name}: misaligned input")
+
+
+def _f32_check(name: str, dev, **tensors):
+    for what, (t, shape) in tensors.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be float32 {shape}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous on {dev}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("dft")
+    if lib.dft_last_launch.argtypes is None:
+        lib.dft_last_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.dft_last_launch.restype = ctypes.c_int
+        lib.dft_stage_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.dft_stage_launch.restype = ctypes.c_int
+    return lib
+
+
+def dft_last(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
+             wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planar DFT along the last axis, the recursion's base case:
+    ``o[..., k] = Σ_j x[..., j] · W[j, k]``.  ``xr, xi``: f32 or bf16
+    ``(..., n)``; ``wr, wi``: the f32 ``(n, n)`` DFT matrix.  Returns f32."""
+    if xr.device.type == "cpu":
+        return dft_last_plain(xr, xi, wr, wi)
+    if xr.device.type != "cuda":
+        raise ValueError(f"dft_last: unsupported device {xr.device}")
+    out = dft_last_cuda(xr, xi, wr, wi)
+    if xr.numel():
+        dft_last.launches += 1
+    return out
+
+
+dft_last.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def dft_last_cuda(xr, xi, wr, wi, *, tiled: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/dft.cu``'s ``dft_last`` on CUDA tensors, uncounted.
+    ``tiled=True`` runs the tiled GEMM also at n = 8, where the row kernel
+    takes the call otherwise (to time the two side by side)."""
+    n = xr.shape[-1]
+    _planar_check("dft_last", xr, xi)
+    _f32_check("dft_last", xr.device, wr=(wr, (n, n)), wi=(wi, (n, n)))
+    if n > DIRECT_DFT_MAX:
+        raise ValueError(f"dft_last: n={n} > DIRECT_DFT_MAX={DIRECT_DFT_MAX}")
+    or_ = torch.empty(xr.shape, dtype=torch.float32, device=xr.device)
+    oi = torch.empty_like(or_)
+    rows = xr.numel() // n if n else 0
+    if rows == 0:
+        return or_, oi
+    lib = _lib()
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = lib.dft_last_launch(
+            xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+            or_.data_ptr(), oi.data_ptr(), rows, n,
+            int(xr.dtype == torch.bfloat16), int(tiled), stream)
+    kernels.check(lib, rc, "dft_last")
+    return or_, oi
+
+
+def dft_last_plain(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
+                   wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`dft_last`: the four f32 products
+    ``rr, ii, ri, ir`` and the combines ``rr - ii``, ``ri + ir``."""
+    xr, xi = xr.to(torch.float32), xi.to(torch.float32)
+    return xr @ wr - xi @ wi, xi @ wr + xr @ wi
+
+
+def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
+              wi: torch.Tensor, tr: Optional[torch.Tensor] = None,
+              ti: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One planar DFT stage down axis -2 of ``(..., n, m)`` panels:
+    ``o[b, k, j] = tw[k, j] · Σ_l W[k, l] · x[b, l, j]`` with the optional
+    f32 ``(n, m)`` twiddle ``tr, ti``.  ``xr, xi``: f32 or bf16; ``wr, wi``:
+    the f32 ``(n, n)`` DFT matrix.  Returns f32."""
+    if (tr is None) != (ti is None):
+        raise ValueError("dft_stage: pass both twiddle parts or neither")
+    if xr.device.type == "cpu":
+        return dft_stage_plain(xr, xi, wr, wi, tr, ti)
+    if xr.device.type != "cuda":
+        raise ValueError(f"dft_stage: unsupported device {xr.device}")
+    if xr.ndim < 2:
+        raise ValueError("dft_stage: (..., n, m) panels required")
+    n, m = xr.shape[-2], xr.shape[-1]
+    _planar_check("dft_stage", xr, xi)
+    mats = dict(wr=(wr, (n, n)), wi=(wi, (n, n)))
+    if tr is not None:
+        mats.update(tr=(tr, (n, m)), ti=(ti, (n, m)))
+    _f32_check("dft_stage", xr.device, **mats)
+    if n > DIRECT_DFT_MAX:
+        raise ValueError(f"dft_stage: n={n} > DIRECT_DFT_MAX={DIRECT_DFT_MAX}")
+    or_ = torch.empty(xr.shape, dtype=torch.float32, device=xr.device)
+    oi = torch.empty_like(or_)
+    panels = xr.numel() // (n * m) if n * m else 0
+    if panels == 0:
+        return or_, oi
+    lib = _lib()
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = lib.dft_stage_launch(
+            xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+            None if tr is None else tr.data_ptr(),
+            None if ti is None else ti.data_ptr(),
+            or_.data_ptr(), oi.data_ptr(), panels, n, m,
+            int(xr.dtype == torch.bfloat16), stream)
+    kernels.check(lib, rc, "dft_stage")
+    dft_stage.launches += 1
+    return or_, oi
+
+
+dft_stage.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def dft_stage_plain(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
+                    wi: torch.Tensor, tr: Optional[torch.Tensor] = None,
+                    ti: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`dft_stage`: four f32 matmuls, the
+    combines, then the twiddle."""
+    xr, xi = xr.to(torch.float32), xi.to(torch.float32)
+    sr = torch.matmul(wr, xr) - torch.matmul(wi, xi)
+    si = torch.matmul(wr, xi) + torch.matmul(wi, xr)
+    if tr is None:
+        return sr, si
+    return sr * tr - si * ti, sr * ti + si * tr
+
+
+# Column widths f3 compiled into csrc/dft_tail2.cu, the rows of W2 a block
+# holds (4096 // f3 of them), and the largest f2 its table takes.
+TAIL2_F3 = (128, 256, 512)
+_TAIL2_BLOCK = 4096
+TAIL2_MAX_F2 = 1024
+
+
+def tail2_fits(f2: int, f3: int) -> bool:
+    """Hopper fit gate of :func:`dft_tail2`'s kernel: ``f3`` one of its
+    compiled widths, ``f2`` a power of two from the ``4096 // f3`` rows a
+    block owns up to 1024.  The three-factor sizes it takes are 2^21,
+    2^22 and 2^23, the ones ``blit``'s VMEM gate passes."""
+    return (f3 in TAIL2_F3 and f2 > 0 and f2 & (f2 - 1) == 0
+            and _TAIL2_BLOCK // f3 <= f2 <= TAIL2_MAX_F2)
+
+
+def _tail2_lib() -> ctypes.CDLL:
+    lib = kernels.load("dft_tail2")
+    if lib.dft_tail2_launch.argtypes is None:
+        lib.dft_tail2_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.dft_tail2_launch.restype = ctypes.c_int
+        lib.dft_tail2_rows_per_block.argtypes = [ctypes.c_int]
+        lib.dft_tail2_rows_per_block.restype = ctypes.c_int
+        lib.dft_tail2_max_f2.argtypes = []
+        lib.dft_tail2_max_f2.restype = ctypes.c_int
+        geom = (lib.dft_tail2_max_f2(),
+                tuple(lib.dft_tail2_rows_per_block(f3) for f3 in TAIL2_F3))
+        want = (TAIL2_MAX_F2, tuple(_TAIL2_BLOCK // f3 for f3 in TAIL2_F3))
+        if geom != want:
+            raise RuntimeError(f"dft_tail2.cu geometry {geom} disagrees "
+                               "with blit_torch/ops/dft.py")
+    return lib
+
+
+def dft_tail2(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The last two levels of a three-factor DFT and the inner untwist,
+    as ``blit``'s ``dft_tail2``: stage-1 rows ``(..., f2·f3)`` (f32 or
+    bf16, as :func:`blit_torch.ops.pfb.pfb_dft1` emits them) → f32
+    ``(..., f2·f3)`` natural-order sub-spectra, index ``k2 + f2·k3``.
+    The caller's remaining work is the level-0 swap."""
+    m = xr.shape[-1]
+    if m != f2 * f3:
+        raise ValueError(f"dft_tail2: last axis {m} != {f2}*{f3}")
+    if xr.device.type == "cpu":
+        return dft_tail2_plain(xr, xi, f2, f3)
+    if xr.device.type != "cuda":
+        raise ValueError(f"dft_tail2: unsupported device {xr.device}")
+    _planar_check("dft_tail2", xr, xi)
+    if not tail2_fits(f2, f3):
+        raise ValueError(
+            f"dft_tail2: the Hopper kernel takes f3 in {TAIL2_F3} and f2 a "
+            f"power of two from 4096/f3 to {TAIL2_MAX_F2} (got {f2}, {f3})")
+    dev = xr.device
+    w2r, w2i = as_tensors(dft_matrices(f2), dev)
+    w3r, w3i = as_tensors(dft_matrices(f3), dev)
+    tr, ti = as_tensors(twiddles(f2, f3), dev)
+    or_ = torch.empty(xr.shape, dtype=torch.float32, device=dev)
+    oi = torch.empty_like(or_)
+    panels = xr.numel() // m
+    if panels == 0:
+        return or_, oi
+    lib = _tail2_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dft_tail2_launch(
+            xr.data_ptr(), xi.data_ptr(), w2r[1].data_ptr(), w2i[1].data_ptr(),
+            w3r.data_ptr(), w3i.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            or_.data_ptr(), oi.data_ptr(), panels, f2, f3,
+            int(xr.dtype == torch.bfloat16), stream)
+    kernels.check(lib, rc, "dft_tail2")
+    dft_tail2.launches += 1
+    return or_, oi
+
+
+dft_tail2.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def dft_tail2_plain(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`dft_tail2`: the f2-point stage with
+    the twiddle (:func:`dft_stage_plain`), the f3-point stage along the
+    rows (:func:`dft_last_plain`), then the ``(k2, k3) → (k3, k2)`` swap."""
+    m = xr.shape[-1]
+    if m != f2 * f3:
+        raise ValueError(f"dft_tail2: last axis {m} != {f2}*{f3}")
+    batch = xr.shape[:-1]
+    dev = xr.device
+    w2 = as_tensors(dft_matrices(f2), dev)
+    tw = as_tensors(twiddles(f2, f3), dev)
+    ur, ui = dft_stage_plain(xr.reshape(batch + (f2, f3)),
+                             xi.reshape(batch + (f2, f3)), *w2, *tw)
+    vr, vi = dft_last_plain(ur, ui, *as_tensors(dft_matrices(f3), dev))
+    del ur, ui
+    return (vr.transpose(-1, -2).reshape(batch + (m,)),
+            vi.transpose(-1, -2).reshape(batch + (m,)))
+
+
+def _stage_bf16(xr, xi, wr, wi, tr, ti):
+    """The bf16 rounding points of ``blit``'s fused tail kernels: bf16
+    matrix, f32 sums and twiddle, the twiddled result rounded to bf16."""
+    ur, ui = dft_stage_plain(xr, xi, round_bf16(wr), round_bf16(wi), tr, ti)
+    return round_bf16(ur), round_bf16(ui)
+
+
+def _last_bf16(xr, xi, wr, wi):
+    return dft_last_plain(xr, xi, round_bf16(wr), round_bf16(wi))
+
+
+# (stage, last) per route of the Cooley-Tukey walk.
+_LEVELS = {
+    "kernels": (dft_stage, dft_last),
+    "plain": (dft_stage_plain, dft_last_plain),
+    "bf16": (_stage_bf16, _last_bf16),
+}
+
+
+def _dft_rec(xr, xi, factors, route: str):
+    """Planar DFT along the last axis over ``factors``, natural order:
+    an ``n1``-point stage (+ twiddle) down the columns of the ``(n1, n2)``
+    view, the rest along the rows, then the ``(k1, k2) → (k2, k1)`` swap."""
+    stage, last = _LEVELS[route]
     n = xr.shape[-1]
     dev = xr.device
     if len(factors) == 1:
         wr, wi = as_tensors(dft_matrices(n), dev)
-        if bf16:
-            wr, wi = round_bf16(wr), round_bf16(wi)
-        return xr @ wr - xi @ wi, xr @ wi + xi @ wr
+        return last(xr, xi, wr, wi)
     n1 = factors[0]
     n2 = n // n1
     batch = xr.shape[:-1]
-    xr_ = xr.reshape(batch + (n1, n2))
-    xi_ = xi.reshape(batch + (n1, n2))
     wr, wi = as_tensors(dft_matrices(n1), dev)
     tr, ti = as_tensors(twiddles(n1, n2), dev)
-    if bf16:
-        wr, wi = round_bf16(wr), round_bf16(wi)
-    sr = torch.matmul(wr, xr_) - torch.matmul(wi, xi_)
-    si = torch.matmul(wi, xr_) + torch.matmul(wr, xi_)
-    ur = sr * tr - si * ti
-    ui = sr * ti + si * tr
-    if bf16:
-        ur, ui = round_bf16(ur), round_bf16(ui)
-    vr, vi = _dft_rec(ur, ui, factors[1:], bf16)
+    ur, ui = stage(xr.reshape(batch + (n1, n2)), xi.reshape(batch + (n1, n2)),
+                   wr, wi, tr, ti)
+    vr, vi = _dft_rec(ur, ui, factors[1:], route)
+    del ur, ui
     # Output index k = k1 + n1*k2: (k1, k2) → (k2, k1), then flatten.
     vr = vr.transpose(-1, -2).reshape(batch + (n,))
     vi = vi.transpose(-1, -2).reshape(batch + (n,))
     return vr, vi
 
 
+def _check_factors(factors, n: int) -> Tuple[int, ...]:
+    factors = tuple(int(f) for f in factors)
+    if int(np.prod(factors)) != n:
+        raise ValueError(f"dft: factors {factors} do not multiply to {n}")
+    if max(factors) > DIRECT_DFT_MAX:
+        raise NotImplementedError(f"dft: factor {max(factors)} > {DIRECT_DFT_MAX}")
+    return factors
+
+
+def dft(xr: torch.Tensor, xi: torch.Tensor, *,
+        factors: Optional[Tuple[int, ...]] = None, use_pallas: bool = False
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planar DFT along the last axis in natural order (matches
+    ``np.fft.fft``), f32 out; counterpart of ``blit.ops.dft.dft``.
+
+    ``factors``: the Cooley-Tukey split (each <= DIRECT_DFT_MAX, product
+    n); None → :func:`default_factors`.  ``use_pallas=True`` runs each
+    level through the kernels (:func:`dft_stage` with the twiddle, then
+    :func:`dft_last`); False through their plain twins.
+    """
+    n = xr.shape[-1]
+    factors = _check_factors(default_factors(n) if factors is None
+                             else factors, n)
+    return _dft_rec(xr, xi, factors, "kernels" if use_pallas else "plain")
+
+
 def dft_tail(ur: torch.Tensor, ui: torch.Tensor, factors: Tuple[int, ...],
-             *, bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+             *, bf16: bool = False, use_pallas: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Finish a DFT whose first stage (``n1``-point matmul + twiddle) was
     computed already, as by :func:`blit_torch.ops.pfb.pfb_dft1`: run
     ``factors[1:]`` along the last axis and assemble natural order.
 
-    ``ur, ui``: f32 ``(..., n1, m)``.  Returns f32 ``(..., n1*m)``.
-    ``bf16=True`` applies the bf16 operand rounding of the fused tail
-    kernel (matrices and post-twiddle intermediates rounded, sums f32);
-    the input is taken as already rounded.
+    ``ur, ui``: f32 or bf16 ``(..., n1, m)``.  Returns f32 ``(..., n1*m)``.
+    ``use_pallas=True`` walks the levels with :func:`dft_stage` and ends
+    with :func:`dft_last`; False with their plain twins.  ``bf16=True``
+    (plain route only) applies the bf16 operand rounding of the fused
+    tail kernel (matrices and post-twiddle intermediates rounded, sums
+    f32); the input is taken as already rounded.
     """
     n1, m = ur.shape[-2], ur.shape[-1]
     if factors[0] != n1 or int(np.prod(factors[1:])) != m:
         raise ValueError(f"dft_tail: factors {factors} mismatch ({n1}, {m})")
+    if bf16 and use_pallas:
+        raise ValueError("dft_tail: the bf16 rounding points are the plain "
+                         "route's; the kernels sum bf16 input in f32")
+    route = "kernels" if use_pallas else "bf16" if bf16 else "plain"
     batch = ur.shape[:-2]
-    vr, vi = _dft_rec(ur, ui, tuple(factors[1:]), bf16)
+    vr, vi = _dft_rec(ur, ui, _check_factors(factors[1:], m), route)
     vr = vr.transpose(-1, -2).reshape(batch + (n1 * m,))
     vi = vi.transpose(-1, -2).reshape(batch + (n1 * m,))
     return vr, vi

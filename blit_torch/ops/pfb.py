@@ -1,10 +1,12 @@
-"""Fused dequant + polyphase FIR + DFT stage 1 (+ twiddle).
+"""The channelizer's front ends: int8 dequant + polyphase FIR, alone or
+fused with DFT stage 1 (+ twiddle).
 
-Counterpart of ``blit/ops/pallas_pfb.py:pfb_dft1``.  On a CUDA tensor
-:func:`pfb_dft1` launches the hand-written Hopper kernel
-``blit_torch/csrc/pfb_dft1.cu``; on a CPU tensor it runs the plain
-PyTorch twin :func:`pfb_dft1_plain`, which repeats the kernel's
-arithmetic (and the TPU kernel's rounding points) step by step.
+Counterpart of ``blit/ops/pallas_pfb.py``: :func:`pfb_dequant` and
+:func:`pfb_dft1`.  On a CUDA tensor each launches its hand-written Hopper
+kernel (``blit_torch/csrc/pfb_dequant.cu``, ``pfb_dft1.cu``); on a CPU
+tensor it runs its plain PyTorch twin (:func:`pfb_dequant_plain`,
+:func:`pfb_dft1_plain`), which repeats the kernel's arithmetic (and the
+TPU kernel's rounding points) step by step.
 """
 
 from __future__ import annotations
@@ -173,3 +175,91 @@ def pfb_dft1_plain(
         ur[c] = (sr * tr - si * ti).to(out_dtype)
         ui[c] = (sr * ti + si * tr).to(out_dtype)
     return ur, ui
+
+
+def _dequant_geometry(voltages: torch.Tensor, coeffs: torch.Tensor):
+    if voltages.ndim != 4 or voltages.shape[2:] != (2, 2):
+        raise ValueError("pfb_dequant: npol=2 complex int8 input required")
+    nchan, ntime = voltages.shape[:2]
+    ntap, nfft = coeffs.shape
+    if ntime % nfft:
+        raise ValueError(f"ntime={ntime} not a multiple of nfft={nfft}")
+    nblk = ntime // nfft
+    nframes = nblk - ntap + 1
+    if nframes < 1:
+        raise ValueError(f"pfb_dequant: need >= {ntap} blocks of {nfft}, got {nblk}")
+    return nchan, nfft, ntap, nblk, nframes
+
+
+def pfb_dequant(voltages: torch.Tensor, coeffs: torch.Tensor, *,
+                dtype: str = "float32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 ``(nchan, ntime, 2, 2)`` voltages → planar PFB frames
+    ``(fr, fi)``, each ``(nchan, 2, nframes, nfft)`` in ``dtype``:
+    ``pfb_frontend`` of the dequantized voltages with the f32
+    ``(ntap, nfft)`` sign-folded window ``coeffs``, tap sums in f32 and
+    one rounding to ``dtype``."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype!r}")
+    if voltages.device.type == "cpu":
+        return pfb_dequant_plain(voltages, coeffs, dtype=dtype)
+    if voltages.device.type != "cuda":
+        raise ValueError(f"pfb_dequant: unsupported device {voltages.device}")
+    return _pfb_dequant_cuda(voltages, coeffs, dtype)
+
+
+pfb_dequant.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _dequant_lib() -> ctypes.CDLL:
+    lib = kernels.load("pfb_dequant")
+    if lib.pfb_dequant_launch.argtypes is None:
+        lib.pfb_dequant_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.pfb_dequant_launch.restype = ctypes.c_int
+    return lib
+
+
+def _pfb_dequant_cuda(voltages, coeffs, dtype):
+    nchan, nfft, ntap, nblk, nframes = _dequant_geometry(voltages, coeffs)
+    dev = voltages.device
+    if voltages.dtype != torch.int8 or not voltages.is_contiguous():
+        raise ValueError("pfb_dequant: voltages must be contiguous int8")
+    if (coeffs.dtype != torch.float32 or coeffs.device != dev
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"pfb_dequant: coeffs must be contiguous float32 on {dev}")
+    if voltages.data_ptr() % 4:
+        raise ValueError("pfb_dequant: misaligned input")
+    fr = torch.empty((nchan, 2, nframes, nfft), dtype=_DTYPES[dtype], device=dev)
+    fi = torch.empty_like(fr)
+    lib = _dequant_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pfb_dequant_launch(
+            voltages.data_ptr(), coeffs.data_ptr(), fr.data_ptr(),
+            fi.data_ptr(), nchan, nfft, nblk, nframes, ntap,
+            int(dtype == "bfloat16"), stream)
+    kernels.check(lib, rc, "pfb_dequant")
+    pfb_dequant.launches += 1
+    return fr, fi
+
+
+def pfb_dequant_plain(voltages: torch.Tensor, coeffs: torch.Tensor, *,
+                      dtype: str = "float32"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`pfb_dequant` (same contract), one
+    coarse channel at a time: dequantize, the f32 FIR, one cast."""
+    nchan, nfft, ntap, nblk, nframes = _dequant_geometry(voltages, coeffs)
+    w = coeffs.to(torch.float32)
+    fr = torch.empty((nchan, 2, nframes, nfft), dtype=_DTYPES[dtype],
+                     device=voltages.device)
+    fi = torch.empty_like(fr)
+    for c in range(nchan):
+        # (nblk, nfft, pol, re/im) → (re/im, pol, nblk, nfft)
+        x = voltages[c].reshape(nblk, nfft, 2, 2).permute(3, 2, 0, 1)
+        x = x.to(torch.float32)
+        acc = w[0] * x[:, :, 0:nframes]
+        for k in range(1, ntap):
+            acc = acc + w[k] * x[:, :, k:k + nframes]
+        fr[c] = acc[0]
+        fi[c] = acc[1]
+    return fr, fi

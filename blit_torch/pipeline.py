@@ -4,7 +4,9 @@ Counterpart of ``blit/pipeline.py``'s :class:`RawReducer`, synchronous
 path.  The reducer reads voltage blocks into a host staging buffer,
 carries the PFB state across chunk boundaries, feeds fixed-shape chunks
 to :func:`blit_torch.ops.channelize.channelize` on the device, and
-writes SIGPROC ``.fil`` products.
+writes SIGPROC ``.fil`` products.  Every rawspec preset runs on the card:
+``0000`` through ``pfb_dft1`` + ``tail2_detect``, ``0001`` and ``0002``
+through ``pfb_dequant`` + ``dft_last`` (the channelizer picks the plan).
 
 - A chunk of ``chunk_frames + ntap - 1`` blocks of ``nfft`` samples
   yields ``chunk_frames`` PFB frames; consecutive chunks share a
@@ -84,6 +86,8 @@ class RawReducer:
     # Working dtype of the stage-1 spectra ("float32" | "bfloat16").
     dtype: str = "float32"
     # Output frames per device call; rounded up to a multiple of nint.
+    # The default (~8M samples per coarse channel, at most 64 frames,
+    # blit's) gives 0002 2048 frames and 0001 only 128.
     chunk_frames: Optional[int] = None
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)

@@ -1,33 +1,67 @@
 #!/usr/bin/env python3
 """Smoke run of blit_torch on one CUDA GPU: builds the Hopper kernels,
-holds each against its plain PyTorch twin at the main path's shapes,
-then reduces a 64-channel GUPPI RAW recording to the rawspec ``0000``
-product (nfft = 2^20) through the kernels and checks the result.
+holds each against its plain PyTorch twin at the main paths' shapes,
+then reduces a 64-channel GUPPI RAW recording to rawspec's three
+products (``0000``: nfft 2^20; ``0002``: nfft 1024, nint 2048;
+``0001``: nfft 8, nint 128) and channelizes one chunk at nfft 2^21 and
+one at nfft 6144, all through the kernels, and checks the results.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   (a) device: name and power limit;
-  (b) build: both kernels with nvcc for sm_90a, timed;
-  (c) kernels vs twins at the chunk shape of (d) — 64 coarse channels,
-      nfft 2^20, ntap 4, chunk_frames 4 — elementwise, and for bf16 also
-      in relative rms against a control that skips the bf16 rounding,
-      with CUDA-event times (median of 7 runs after a warm-up), the least
-      time the card could take (bound), and one JSON line listing the
-      main path's kernels;
-  (d) main path: a synthetic 2.95 GB RAW file (128 MiB blocks, a tone in
-      one coarse channel) → reducer_for_product("0000", chunk_frames=4)
-      .reduce_to_file(.fil) on the GPU; checks the kernel plan, the
-      launch counts, the header, the tone's fine channel and both
-      chunks against the plain twins (the second starts from the PFB
-      state carried across); prints stage seconds, RAW GB/s and the
-      real-time factor against one bank's 0.75 GB/s.
-The last line is ``{"ok": true, "device": {...}}``.
+  (b) build: the five sources (six kernels: pfb_dft1, tail2_detect,
+      pfb_dequant, dft_stage + dft_last in dft.cu, dft_tail2) with nvcc
+      for sm_90a, started together, timed;
+  (c) kernels vs twins at the main paths' chunk shapes, elementwise
+      (bf16 outputs also in relative rms against a control that skips
+      the bf16 rounding), with CUDA-event times (median of 7 runs after
+      a warm-up), the least time the card could take for the function
+      (bound_ms: the larger of its bytes over HBM's rate and its
+      operations, a DFT counted as an FFT's 5·log2(n) flops per output,
+      over the f32 peak), the same bound for the dense products the
+      kernels compute (contract_ms) and, where one PyTorch call computes
+      the same function, its time: pfb_dft1 and tail2_detect at the 0000
+      chunk (64 coarse channels, nfft 2^20, 4 frames); pfb_dequant at the
+      0002 (2048 frames of 1024) and 0001 (2^17 frames of 8) chunks;
+      dft_last at n = 1024 and n = 8 on those chunks' PFB output (at
+      n = 8 also the tiled GEMM that the row kernel stands in for);
+      dft_tail2 in (e) and dft_stage and dft_last in (f) at their paths'
+      shapes;
+  (d) main paths: a synthetic 2.95 GB RAW file (128 MiB blocks, a tone
+      at 0.375 of one coarse channel, on the fine grid of all three
+      products) → reducer_for_product(p).reduce_to_file(.fil) on the GPU
+      for p = "0000" (chunk_frames 4), "0002" (its default 2048 frames:
+      5 chunks of 537 MB) and "0001" (chunk_frames 2^17: 11 chunks of
+      268 MB); for each, the launch counts are set to 0 just before and
+      read just after; checks the kernel plan, the launches, the header
+      bytes, shape and nsamps, the tone's fine channel, and the first two
+      chunks against the plan run through the plain twins (the second
+      starts from the PFB state carried across); prints stage seconds,
+      RAW GB/s and the real-time factor against one bank's 0.75 GB/s;
+  (e) the 2^21 path (128·128·128): channelize on 64 coarse channels × one
+      chunk of 4 frames (int8 made on the card from a seeded generator):
+      pfb_dft1, dft_tail2 (levels 2 and 3, inner untwist), the level-0
+      swap and torch detect, as blit runs it.  Device memory: 3.8 GB of
+      voltages; 8.6 GB each for the stage-1 spectra, the dft_tail2 output
+      and the swapped spectra, of which two live at once: ~25 GB at the
+      peak of the 80 GB card (the dft_tail2 check before it, with the
+      twin's four products, ~50 GB).  The first 4 channels are compared
+      with the twins;
+  (f) the 6144 path (64·96, outside pfb_dft1's gate): channelize on 64
+      coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
+      twiddle), dft_last (96 points), the swap and torch detect; all 64
+      channels compared with the twins (~30 GB at the peak).
+(e) and (f) count launches as (d) does and hold the output to rtol 1e-4
+and an atol of 1e-3 of the mean bin.  The line before the last two is
+one JSON object listing the six kernels; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -40,8 +74,18 @@ NFFT = 1 << 20           # the 0000 product
 NTAP = 4
 CHUNK_FRAMES = 4
 BLOCK_NTIME = 1 << 19    # 128 MiB RAW blocks at 64 channels
-RAW_SAMPLES = (2 * CHUNK_FRAMES + NTAP - 1) * NFFT  # two full chunks
-TONE_CHAN, TONE_FREQ = 10, 0.3125
+RAW_SAMPLES = (2 * CHUNK_FRAMES + NTAP - 1) * NFFT  # two full 0000 chunks
+# On the fine grid of all three products (3/8 of a coarse channel).
+TONE_CHAN, TONE_FREQ = 10, 0.375
+# Product → reducer_for_product keywords; "0002" keeps its default
+# chunk_frames (2048 = nint).  0001's default of 128 frames moves 268 KB
+# per device call, so the smoke takes 2^17.
+PRODUCTS = {"0000": {"chunk_frames": CHUNK_FRAMES}, "0002": {},
+            "0001": {"chunk_frames": 1 << 17}}
+NFFT_21 = 1 << 21        # the 128·128·128 path
+REF_CHANNELS_21 = 4      # channels of (e) compared with the twins
+NFFT_6144 = 6144         # the 64·96 path (a non-power-of-two nfft)
+FRAMES_6144 = 1024
 REALTIME_BANK_GBPS = 0.750
 SEED = 2026
 
@@ -59,6 +103,15 @@ BOUNDS = {
     ("pfb_dft1", "bfloat16"): (0.05, 0.05, "mean"),
     ("tail2_detect", "float32"): (1e-5, 1e-4, "peak"),
     ("tail2_detect", "bfloat16"): (0.05, 0.05, "mean"),
+    # tests/test_pallas_pfb.py:24-42: |err| / max(peak, 1).
+    ("pfb_dequant", "float32"): (0.0, 1e-6, "peak1"),
+    ("pfb_dequant", "bfloat16"): (0.0, 3e-2, "peak1"),
+    # tests/test_pallas_dft.py:22-33 (rtol 1e-4, atol 1e-3 on unit-
+    # variance input): atol scales with the input's rms, the noise.
+    ("dft_last", "float32"): (1e-4, 1e-3, "input_rms"),
+    ("dft_last", "bfloat16"): (1e-4, 1e-3, "input_rms"),
+    ("dft_stage", "float32"): (1e-4, 1e-3, "input_rms"),
+    ("dft_tail2", "float32"): (1e-4, 1e-3, "input_rms"),
 }
 # bf16 outputs are also held in aggregate, ‖got − want‖₂ / ‖want‖₂: a
 # sound kernel differs from its twin only where an f32 rounding
@@ -103,17 +156,28 @@ def check_close(torch, got, want, rtol, atol):
     return err.max().item(), ok
 
 
-def check_bound(torch, got, want, name, dtype):
+def rms(torch, tensors) -> float:
+    return (sum((t.float() ** 2).sum(dtype=torch.float64).item() for t in tensors)
+            / sum(t.numel() for t in tensors)) ** 0.5
+
+
+def check_bound(torch, got, want, name, dtype, inputs=(), grow=1.0):
     """Elementwise check of ``BOUNDS[(name, dtype)]`` over the tensors
-    of ``got`` and ``want`` → (max abs error, atol, ok)."""
+    of ``got`` and ``want``, the atol times ``grow`` → (max abs error,
+    atol, ok)."""
     rtol, frac, scale = BOUNDS[(name, dtype)]
     if scale == "peak":
         s = max(w.float().abs().max().item() for w in want)
+    elif scale == "peak1":
+        s = max(max(w.float().abs().max().item() for w in want), 1.0)
+    elif scale == "input_rms":
+        s = rms(torch, inputs)
     else:
         s = (sum(w.float().abs().sum(dtype=torch.float64).item() for w in want)
              / sum(w.numel() for w in want))
-    errs = [check_close(torch, a, b, rtol, frac * s) for a, b in zip(got, want)]
-    return max(e[0] for e in errs), frac * s, all(e[1] for e in errs)
+    atol = frac * s * grow
+    errs = [check_close(torch, a, b, rtol, atol) for a, b in zip(got, want)]
+    return max(e[0] for e in errs), atol, all(e[1] for e in errs)
 
 
 def rel_rms(torch, got, want) -> float:
@@ -130,31 +194,44 @@ def bound_ms(nbytes: float, flops_by_rate) -> tuple:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# Costs: (bytes, the function's operations, the dense-matmul operations).
+# Bytes count each input read once and each output written once.  A DFT
+# of n points costs 5·log2(n) flops per complex output, as an FFT: the
+# least work the function needs, which sets bound_ms.  The TPU kernels'
+# contract computes each level as a dense product instead, 8·n flops per
+# complex output (bf16 operands at the tensor-core rate, else f32 on the
+# CUDA cores); contract_ms is the bound for that choice of arithmetic.
+
+
+def fft_flops(nout, n) -> float:
+    return 5.0 * nout * math.log2(n)
+
+
 def pfb_cost(nchan, ntime, nframes, n1, dtype):
-    """Bytes (each input once, each output once) and operations of one
-    pfb_dft1 call: FIR 2 flops per tap per real value, 8·n1 flops per
-    complex output of the DFT stage, 6 for the twiddle."""
+    """pfb_dft1: FIR 2 flops per tap per real value, the n1-point DFT
+    stage, 6 flops per complex output for the twiddle."""
     esize = 2 if dtype == "bfloat16" else 4
     m = NFFT // n1
     nout = nchan * 2 * nframes * NFFT
     nbytes = (nchan * ntime * 4 + NTAP * NFFT * 4 + 2 * n1 * n1 * 4
               + 2 * n1 * m * 4 + 2 * nout * esize)
-    fir = nout * 2 * 2 * NTAP
-    dft = nout * 8 * n1
-    tw = nout * 6
+    rest = nout * (2 * 2 * NTAP + 6)
     dft_rate = BF16_TC_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    return nbytes, [(fir + tw, F32_FLOPS), (dft, dft_rate)]
+    return (nbytes, [(rest + fft_flops(nout, n1), F32_FLOPS)],
+            [(rest, F32_FLOPS), (nout * 8 * n1, dft_rate)])
 
 
 def tail_cost(nchan, nframes, f2, f3, stokes, dtype, nif):
+    """tail2_detect: the (f2·f3)-point DFT of levels 2 and 3, the
+    twiddle, the detection."""
     esize = 2 if dtype == "bfloat16" else 4
     nin = nchan * 2 * nframes * NFFT
     nbytes = 2 * nin * esize + (2 * f2 * f2 + 2 * f3 * f3 + 2 * f2 * f3) * 4 \
         + nframes * nif * nchan * NFFT * 4
-    dft = nin * 8 * (f2 + f3)
     rest = nin * 6 + nframes * nchan * NFFT * DETECT_FLOPS[stokes]
     dft_rate = BF16_TC_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    return nbytes, [(rest, F32_FLOPS), (dft, dft_rate)]
+    return (nbytes, [(rest + fft_flops(nin, f2 * f3), F32_FLOPS)],
+            [(rest, F32_FLOPS), (nin * 8 * (f2 + f3), dft_rate)])
 
 
 def bf16_aggregate(torch, got, want, control) -> dict:
@@ -198,16 +275,11 @@ def phase_kernels(torch, dev):
         ms = median_ms(torch, lambda: tpfb.pfb_dft1(v, h, *mats, dtype=dtype))
         plain_ms = median_ms(torch, lambda: tpfb.pfb_dft1_plain(v, h, *mats, dtype=dtype),
                              runs=5)
-        nbytes, ops = pfb_cost(NCHAN, ntime, CHUNK_FRAMES, f1, dtype)
-        bms, by = bound_ms(nbytes, ops)
-        rec = dict(name="pfb_dft1", dtype=dtype, route="cuda",
-                   source="blit_torch/csrc/pfb_dft1.cu",
-                   replaces="blit/ops/pallas_pfb.py:175",
-                   max_abs_err=err, atol=atol, ok=ok and agg.get("rel_rms_ok", True),
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=None, **agg)
-        log(f"kernel {json.dumps(rec)}")
-        records.append(rec)
+        records.append(kernel_record(
+            "pfb_dft1", dtype, "blit_torch/csrc/pfb_dft1.cu",
+            "blit/ops/pallas_pfb.py:175", err, atol,
+            ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+            pfb_cost(NCHAN, ntime, CHUNK_FRAMES, f1, dtype), None, **agg))
         spectra[dtype] = got
     for dtype in ("float32", "bfloat16"):
         ur, ui = spectra[dtype]
@@ -228,17 +300,12 @@ def phase_kernels(torch, dev):
             plain_ms = median_ms(
                 torch, lambda: tdet.tail2_detect_plain(ur, ui, f2, f3, stokes=stokes),
                 runs=5)
-            nbytes, ops = tail_cost(NCHAN, CHUNK_FRAMES, f2, f3, stokes, dtype, nif)
-            bms, by = bound_ms(nbytes, ops)
-            rec = dict(name="tail2_detect", dtype=dtype, stokes=stokes,
-                       route="cuda", source="blit_torch/csrc/tail2_detect.cu",
-                       replaces="blit/ops/pallas_detect.py:281",
-                       max_abs_err=err, atol=atol,
-                       ok=ok and agg.get("rel_rms_ok", True), ms=ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=None, **agg)
-            log(f"kernel {json.dumps(rec)}")
-            records.append(rec)
+            records.append(kernel_record(
+                "tail2_detect", dtype, "blit_torch/csrc/tail2_detect.cu",
+                "blit/ops/pallas_detect.py:281", err, atol,
+                ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+                tail_cost(NCHAN, CHUNK_FRAMES, f2, f3, stokes, dtype, nif), None,
+                stokes=stokes, **agg))
     del spectra, v
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
@@ -247,108 +314,449 @@ def phase_kernels(torch, dev):
     return records
 
 
-def phase_main_path(torch, dev, tmp):
-    """(d): the 0000 reduction of a synthetic recording through the
-    kernels.  Returns (launch counts, summary)."""
-    import numpy as np
+def kernel_record(name, dtype, source, replaces, err, atol, ok, ms, plain_ms,
+                  cost, library_ms, **extra):
+    nbytes, ops, dense = cost
+    bms, by = bound_ms(nbytes, ops)
+    contract = bound_ms(nbytes, dense)[0] if dense else None
+    rec = dict(name=name, dtype=dtype, route="cuda", source=source,
+               replaces=replaces, max_abs_err=err, atol=atol, ok=ok, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               contract_ms=contract, library_ms=library_ms, **extra)
+    log(f"kernel {json.dumps(rec)}")
+    return rec
 
-    from blit_torch.io.guppi import GuppiRaw
-    from blit_torch.io.sigproc import encode_header, read_fil
+
+def dequant_cost(nchan, nblk, nframes, nfft, dtype):
+    """pfb_dequant: each int8 sample read once (4 bytes), the window
+    once, each output written once; 2 flops per tap per real output.
+    No DFT, so no dense-matmul figure."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nout = nchan * 2 * nframes * nfft  # complex outputs, both pols
+    nbytes = nchan * nblk * nfft * 4 + NTAP * nfft * 4 + 2 * nout * esize
+    return nbytes, [(nout * 2 * 2 * NTAP, F32_FLOPS)], None
+
+
+def dft_cost(nout, n, in_esize, twiddle=0):
+    """A DFT level of n points over ``nout`` complex outputs: input and
+    output once, the matrix and the ``twiddle`` entries (if any) once;
+    6 flops per output for the twiddle."""
+    nbytes = 2 * nout * (in_esize + 4) + 2 * (n * n + twiddle) * 4
+    tw = nout * 6 if twiddle else 0
+    return (nbytes, [(fft_flops(nout, n) + tw, F32_FLOPS)],
+            [(nout * 8 * n + tw, F32_FLOPS)])
+
+
+def tail2_cost(nout, f2, f3, in_esize):
+    """dft_tail2: the (f2·f3)-point DFT of levels 2 and 3 and the twiddle
+    between them; input and output once, W2, W3 and the twiddle once."""
+    nbytes = 2 * nout * (in_esize + 4) + 2 * (f2 * f2 + f3 * f3 + f2 * f3) * 4
+    tw = nout * 6
+    return (nbytes, [(fft_flops(nout, f2 * f3) + tw, F32_FLOPS)],
+            [(nout * 8 * (f2 + f3) + tw, F32_FLOPS)])
+
+
+def phase_front_kernels(torch, dev):
+    """(c) for the 0002 and 0001 paths: pfb_dequant at both chunk shapes
+    (f32, bf16) and dft_last on their PFB output (n = 1024, n = 8)."""
     from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dft as tdft
+    from blit_torch.ops import pfb as tpfb
+    from blit_torch.pipeline import PRODUCT_PRESETS
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for product in ("0002", "0001"):
+        nfft, nint = PRODUCT_PRESETS[product]
+        frames = PRODUCTS[product].get("chunk_frames", nint)
+        nblk = frames + NTAP - 1
+        v = torch.randint(-128, 128, (NCHAN, nblk * nfft, 2, 2), generator=g,
+                          device=dev, dtype=torch.int8)
+        sign = torch.where(torch.arange(nfft, device=dev) % 2 == 0, 1.0, -1.0)
+        h = (torch.from_numpy(tch.pfb_coeffs(NTAP, nfft)).to(dev) * sign).contiguous()
+        planes = {}
+        for dtype in ("float32", "bfloat16"):
+            got = tpfb.pfb_dequant(v, h, dtype=dtype)
+            want = tpfb.pfb_dequant_plain(v, h, dtype=dtype)
+            err, atol, ok = check_bound(torch, got, want, "pfb_dequant", dtype)
+            agg = {}
+            if dtype == "bfloat16":
+                # Control: the f32 twin, without the one rounding.
+                agg = bf16_aggregate(torch, got, want,
+                                     tpfb.pfb_dequant_plain(v, h))
+            del want
+            ms = median_ms(torch, lambda: tpfb.pfb_dequant(v, h, dtype=dtype))
+            plain_ms = median_ms(
+                torch, lambda: tpfb.pfb_dequant_plain(v, h, dtype=dtype), runs=5)
+            records.append(kernel_record(
+                "pfb_dequant", dtype, "blit_torch/csrc/pfb_dequant.cu",
+                "blit/ops/pallas_pfb.py:252", err, atol,
+                ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+                dequant_cost(NCHAN, nblk, frames, nfft, dtype), None,
+                product=product, **agg))
+            planes[dtype] = got
+        del v
+        w = tdft.as_tensors(tdft.dft_matrices(nfft), dev)
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16" and product == "0001":
+                continue
+            xr, xi = planes.pop(dtype)
+            got = tdft.dft_last(xr, xi, *w)
+            want = tdft.dft_last_plain(xr, xi, *w)
+            err, atol, ok = check_bound(torch, got, want, "dft_last", dtype,
+                                        inputs=(xr, xi))
+            extra = {}
+            if nfft == 8:
+                # The row kernel against the tiled GEMM at the same call.
+                tiled = tdft.dft_last_cuda(xr, xi, *w, tiled=True)
+                terr, _, tok = check_bound(torch, tiled, want, "dft_last", dtype,
+                                           inputs=(xr, xi))
+                del tiled
+                ok = ok and tok
+                extra = dict(tiled_max_abs_err=terr, tiled_ms=median_ms(
+                    torch, lambda: tdft.dft_last_cuda(xr, xi, *w, tiled=True)))
+            del got, want
+            ms = median_ms(torch, lambda: tdft.dft_last(xr, xi, *w))
+            plain_ms = median_ms(torch, lambda: tdft.dft_last_plain(xr, xi, *w),
+                                 runs=5)
+            lib_ms = matmul_ms = None
+            if dtype == "float32":
+                z = torch.complex(xr, xi)
+                wc = torch.complex(*w)
+                lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
+                matmul_ms = median_ms(torch, lambda: torch.matmul(z, wc))
+                del z, wc
+            records.append(kernel_record(
+                "dft_last", dtype, "blit_torch/csrc/dft.cu",
+                "blit/ops/pallas_dft.py:325", err, atol, ok, ms, plain_ms,
+                dft_cost(xr.numel(), nfft, xr.element_size()), lib_ms,
+                product=product, n=nfft, library="torch.fft.fft",
+                complex_matmul_ms=matmul_ms, **extra))
+            del xr, xi
+        planes.clear()
+        torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their twins: {bad}")
+    return records
+
+
+COUNTED = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft_stage", "dft_last",
+           "dft_tail2")
+
+
+def _wrappers():
     from blit_torch.ops import detect as tdet
     from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb
-    from blit_torch.pipeline import reducer_for_product
+
+    return {"pfb_dft1": tpfb.pfb_dft1, "tail2_detect": tdet.tail2_detect,
+            "pfb_dequant": tpfb.pfb_dequant, "dft_stage": tdft.dft_stage,
+            "dft_last": tdft.dft_last, "dft_tail2": tdft.dft_tail2}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+# Plan and kernels each path must run: (pfb_kernel, tail_kernel, kernels).
+EXPECTED = {
+    "0000": ("fused1", "tail2_detect", ("pfb_dft1", "tail2_detect")),
+    "0002": ("pallas", "dft_last", ("pfb_dequant", "dft_last")),
+    "0001": ("pallas", "dft_last", ("pfb_dequant", "dft_last")),
+    "2^21": ("fused1", "dft_tail2", ("pfb_dft1", "dft_tail2")),
+    "6144": ("pallas", "dft_stage+dft_last", ("pfb_dequant", "dft_stage", "dft_last")),
+}
+
+
+def check_plan(path, plan, launches):
+    pfb, tail, names = EXPECTED[path]
+    if (plan.get("pfb_kernel"), plan.get("tail_kernel"), plan.get("impl")) != (
+            pfb, tail, "cuda"):
+        raise AssertionError(f"{path} did not run the Hopper kernels: {plan}")
+    if min(launches[k] for k in names) < 1:
+        raise AssertionError(f"a kernel of the {path} path never launched: {launches}")
+
+
+def read_span(raw, s0: int, n: int, per: int):
+    """Samples ``[s0, s0+n)`` of a gap-free RAW file of ``per``-sample
+    blocks → int8 ``(nchan, n, 2, 2)``."""
+    import numpy as np
+
+    out = np.empty((NCHAN, n, 2, 2), np.int8)
+    done = 0
+    while done < n:
+        b, t0 = divmod(s0 + done, per)
+        take = min(per - t0, n - done)
+        raw.read_block_into(b, out[:, done:done + take], t0, take)
+        done += take
+    return out
+
+
+def write_recording(tmp):
     from blit_torch.testing import synth_raw_blocks
 
     raw_path = os.path.join(tmp, "smoke.raw")
-    fil_path = os.path.join(tmp, "smoke.fil")
     t0 = time.perf_counter()
     synth_raw_blocks(raw_path, nblocks=RAW_SAMPLES // BLOCK_NTIME, obsnchan=NCHAN,
                      ntime_per_block=BLOCK_NTIME, seed=SEED,
                      tone_chan=TONE_CHAN, tone_freq=TONE_FREQ)
     log(f"main: wrote {os.path.getsize(raw_path) / 1e9:.3f} GB RAW in "
         f"{time.perf_counter() - t0:.1f} s")
+    return raw_path
 
-    red = reducer_for_product("0000", chunk_frames=CHUNK_FRAMES)
-    tpfb.pfb_dft1.launches = 0
-    tdet.tail2_detect.launches = 0
+
+def phase_product(torch, dev, raw_path, tmp, product):
+    """(d) for one product: reduce the recording through the kernels and
+    check it.  Returns (launch counts, summary)."""
+    import numpy as np
+
+    from blit_torch.io.guppi import GuppiRaw
+    from blit_torch.io.sigproc import encode_header, read_fil
+    from blit_torch.ops import channelize as tch
+    from blit_torch.pipeline import reducer_for_product
+
+    fil_path = os.path.join(tmp, f"smoke.{product}.fil")
+    red = reducer_for_product(product, **PRODUCTS[product])
+    nfft, nint, frames = red.nfft, red.nint, red.chunk_frames
+    reset_launches()
     t0 = time.perf_counter()
     hdr = red.reduce_to_file(raw_path, fil_path)
     wall = time.perf_counter() - t0
-    launches = {"pfb_dft1": tpfb.pfb_dft1.launches,
-                "tail2_detect": tdet.tail2_detect.launches}
+    launches = read_launches()
     plan = tch.last_kernel_plan()
-    log(f"main: plan {json.dumps(plan)} launches {json.dumps(launches)}")
-    if (plan.get("pfb_kernel"), plan.get("tail_kernel"), plan.get("impl")) != (
-            "fused1", "tail2_detect", "cuda"):
-        raise AssertionError(f"main path did not run the Hopper kernels: {plan}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    log(f"{product}: plan {json.dumps(plan)} launches {json.dumps(launches)}")
+    check_plan(product, plan, launches)
 
     raw = GuppiRaw(raw_path)
-    want_hdr = tch.output_header(raw.header(0), nfft=NFFT, nint=1, stokes="I")
+    want_hdr = tch.output_header(raw.header(0), nfft=nfft, nint=nint, stokes="I")
+    nchans = NCHAN * nfft
     fhdr, data = read_fil(fil_path)
     with open(fil_path, "rb") as f:
-        head = f.read(len(encode_header(want_hdr, 32, 1, NCHAN * NFFT)))
-    if head != encode_header(want_hdr, 32, 1, NCHAN * NFFT):
-        raise AssertionError("product header differs from output_header")
-    nframes = RAW_SAMPLES // NFFT - NTAP + 1
-    if data.shape != (nframes, 1, NCHAN * NFFT) or hdr["nsamps"] != nframes:
-        raise AssertionError(f"product shape {data.shape}, nsamps {hdr['nsamps']}")
+        head = f.read(len(encode_header(want_hdr, 32, 1, nchans)))
+    if head != encode_header(want_hdr, 32, 1, nchans):
+        raise AssertionError(f"{product}: product header differs from output_header")
+    nsamps = tch.usable_frames(RAW_SAMPLES, nfft, NTAP, nint) // nint
+    if data.shape != (nsamps, 1, nchans) or hdr["nsamps"] != nsamps:
+        raise AssertionError(f"{product}: product shape {data.shape}, "
+                             f"nsamps {hdr['nsamps']}, want {nsamps}")
     if not np.isfinite(data).all():
-        raise AssertionError("non-finite product values")
-    chan_bw = want_hdr["foff"] * NFFT
+        raise AssertionError(f"{product}: non-finite product values")
+    chan_bw = want_hdr["foff"] * nfft
     f_tone = (float(raw.header(0)["OBSFREQ"]) - float(raw.header(0)["OBSBW"]) / 2
               + chan_bw / 2 + TONE_CHAN * chan_bw + TONE_FREQ * chan_bw)
     predicted = int(round((f_tone - fhdr["fch1"]) / fhdr["foff"]))
     peak = int(data[0, 0].argmax())
-    log(f"main: tone peak at fine channel {peak}, header predicts {predicted}")
+    log(f"{product}: tone peak at fine channel {peak}, header predicts {predicted}")
     if peak != predicted:
-        raise AssertionError("tone peak is not where the header puts it")
+        raise AssertionError(f"{product}: tone peak is not where the header puts it")
 
-    # Both chunks against the plain twins on the same voltages; the
-    # second starts chunk_frames·nfft samples in, after the PFB state
-    # carried across.  The tone's coarse channel peaks ~3000× above the
-    # noise, so the atol scale (blit's f32 bound, 1e-2·peak) is the peak
-    # outside it.
-    sign = torch.where(torch.arange(NFFT, device=dev) % 2 == 0, 1.0, -1.0)
-    h = (red.coeffs * sign).contiguous()
-    f1, f2, f3 = tdft.default_factors(NFFT)
-    mats = tdft.as_tensors(tdft.dft_matrices(f1) + tdft.twiddles(f1, NFFT // f1), dev)
-    host = np.empty((NCHAN, (CHUNK_FRAMES + NTAP - 1) * NFFT, 2, 2), np.int8)
-    per = BLOCK_NTIME
-    noise = torch.ones(NCHAN * NFFT, dtype=torch.bool, device=dev)
-    noise[TONE_CHAN * NFFT:(TONE_CHAN + 1) * NFFT] = False
-    for k in range(nframes // CHUNK_FRAMES):
-        b0 = k * CHUNK_FRAMES * NFFT // per
-        for j in range(host.shape[1] // per):
-            raw.read_block_into(b0 + j, host[:, j * per:(j + 1) * per])
-        v = torch.from_numpy(host).to(dev)
-        ur, ui = tpfb.pfb_dft1_plain(v, h, *mats)
-        ref = tdet.tail2_detect_plain(ur, ui, f2, f3, stokes="I")
-        del ur, ui, v
-        ref = ref.reshape(CHUNK_FRAMES, 1, NCHAN * NFFT)
+    # The first two chunks against the plan run through the plain twins on
+    # the same voltages; the second starts chunk_frames·nfft samples in,
+    # after the PFB state carried across.  The tone's coarse channel peaks
+    # far above the noise, so the atol scale (blit's f32 bound, 1e-2·peak)
+    # is the peak outside it.
+    noise = torch.ones(nchans, dtype=torch.bool, device=dev)
+    noise[TONE_CHAN * nfft:(TONE_CHAN + 1) * nfft] = False
+    per_chunk = frames // nint
+    errs = []
+    for k in range(2):
+        host = read_span(raw, k * frames * nfft, (frames + NTAP - 1) * nfft,
+                         BLOCK_NTIME)
+        ref = tch.channelize_twins(torch.from_numpy(host).to(dev), red.coeffs,
+                                   nfft=nfft, ntap=NTAP, nint=nint, device=dev)
+        del host
         got = torch.from_numpy(np.array(
-            data[k * CHUNK_FRAMES:(k + 1) * CHUNK_FRAMES])).to(dev)
+            data[k * per_chunk:(k + 1) * per_chunk])).to(dev)
         atol = 1e-2 * ref[..., noise].abs().max().item()
         err, ok = check_close(torch, got, ref, 1e-4, atol)
-        log(f"main: chunk {k + 1} vs plain twins max_abs_err {err:.6g} "
-            f"(rtol 1e-4, atol {atol:.6g})")
+        rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+        log(f"{product}: chunk {k + 1} vs plain twins max_abs_err {err:.6g} "
+            f"max_rel_err {rel:.3g} (rtol 1e-4, atol {atol:.6g})")
         if not ok:
-            raise AssertionError(f"chunk {k + 1} disagrees with the plain twins")
+            raise AssertionError(f"{product}: chunk {k + 1} disagrees with the plain twins")
+        errs.append(err)
         del ref, got
     raw.close()
+    torch.cuda.empty_cache()
 
     st = red.stats
     stages = {k: {"s": round(s.seconds, 4), "GB": round(s.bytes / 1e9, 4)}
               for k, s in red.timeline.stages.items()}
     gbps = st.gbps
-    summary = dict(raw_gb=st.input_bytes / 1e9, wall_s=st.wall_seconds,
-                   reduce_to_file_s=wall, raw_gbps=gbps,
-                   realtime_factor=gbps / REALTIME_BANK_GBPS, stages=stages)
-    log(f"main: {json.dumps(summary)}")
+    summary = dict(product=product, nfft=nfft, nint=nint, chunk_frames=frames,
+                   chunks=red.timeline.stages["device"].calls,
+                   nsamps=nsamps, raw_gb=st.input_bytes / 1e9,
+                   wall_s=st.wall_seconds, reduce_to_file_s=wall, raw_gbps=gbps,
+                   realtime_factor=gbps / REALTIME_BANK_GBPS,
+                   chunk_max_abs_err=errs, stages=stages)
+    log(f"{product}: {json.dumps(summary)}")
     return launches, summary
+
+
+def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref):
+    """Drive one ``channelize`` path on the card with the launch counts
+    set to 0 just before and read just after, then hold its first
+    ``nchan_ref`` channels against the plan run through the twins:
+    rtol 1e-4 and an atol of 1e-3 of the mean bin (a kernel that lost
+    f32 precision, ~1e-3 relative, fails it).  Returns the launches."""
+    from blit_torch.ops import channelize as tch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tch.channelize(v, coeffs, nfft=nfft, ntap=NTAP, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    plan = tch.last_kernel_plan()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"{path}: plan {json.dumps(plan)} launches {json.dumps(launches)} "
+        f"channelize {wall:.4f} s, peak device memory {peak_gb:.2f} GB")
+    check_plan(path, plan, launches)
+    nframes = v.shape[1] // nfft - NTAP + 1
+    if out.shape != (nframes, 1, v.shape[0] * nfft) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{path}: output shape {tuple(out.shape)} or non-finite")
+    ref = tch.channelize_twins(v[:nchan_ref], coeffs, nfft=nfft, ntap=NTAP, device=dev)
+    got = out[..., :nchan_ref * nfft]
+    atol = 1e-3 * ref.abs().mean().item()
+    err, ok = check_close(torch, got, ref, 1e-4, atol)
+    log(f"{path}: first {nchan_ref} channels vs plain twins max_abs_err {err:.6g} "
+        f"(rtol 1e-4, atol {atol:.6g} = 1e-3 of the mean bin)")
+    if not ok:
+        raise AssertionError(f"{path}: channelize disagrees with the plain twins")
+    del out, ref, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_2pow21(torch, dev):
+    """(e): dft_tail2 against its twin at this path's shape, then the
+    2^21 path through channelize.  Returns (launch counts, record)."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dft as tdft
+    from blit_torch.ops import pfb as tpfb
+
+    nfft = NFFT_21
+    f1, f2, f3 = tdft.default_factors(nfft)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    v = torch.randint(-128, 128, (NCHAN, (CHUNK_FRAMES + NTAP - 1) * nfft, 2, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, nfft)).to(dev)
+
+    # dft_tail2 at the shape channelize gives it: the stage-1 spectra,
+    # (nchan·2·frames·f1) rows of f2·f3.
+    sign = torch.where(torch.arange(nfft, device=dev) % 2 == 0, 1.0, -1.0)
+    h = (coeffs * sign).contiguous()
+    mats = tdft.as_tensors(tdft.dft_matrices(f1) + tdft.twiddles(f1, nfft // f1), dev)
+    ur, ui = tpfb.pfb_dft1(v, h, *mats)
+    got = tdft.dft_tail2(ur, ui, f2, f3)
+    want = tdft.dft_tail2_plain(ur, ui, f2, f3)
+    # blit's bound is for its tests' panels of <= 128 points; the outputs
+    # of an m-point DFT, and the f32 rounding of their sums, grow as
+    # sqrt(m), and so does the atol (as in tests/test_torch_cuda.py).
+    err, atol, ok = check_bound(torch, got, want, "dft_tail2", "float32",
+                                inputs=(ur, ui), grow=(f2 * f3 / 128) ** 0.5)
+    del got, want
+    torch.cuda.empty_cache()
+    ms = median_ms(torch, lambda: tdft.dft_tail2(ur, ui, f2, f3))
+    plain_ms = median_ms(torch, lambda: tdft.dft_tail2_plain(ur, ui, f2, f3), runs=5)
+    torch.cuda.empty_cache()
+    # One PyTorch call for the same function: each row's (f2·f3)-point DFT.
+    z = torch.complex(ur, ui)
+    lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
+    del z
+    rec = kernel_record(
+        "dft_tail2", "float32", "blit_torch/csrc/dft_tail2.cu",
+        "blit/ops/pallas_dft.py:246", err, atol, ok, ms, plain_ms,
+        tail2_cost(ur.numel(), f2, f3, 4), lib_ms,
+        product="2^21", f2=f2, f3=f3, library="torch.fft.fft")
+    del ur, ui
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"dft_tail2 disagrees with its twin: {rec}")
+    launches = run_path(torch, dev, "2^21", v, coeffs, nfft, REF_CHANNELS_21)
+    del v
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_6144(torch, dev):
+    """(f): the non-power-of-two path, nfft 6144 = 64·96 (pfb_dft1's gate
+    refuses n1 = 64): pfb_dequant, dft_stage (64 points + twiddle) and
+    dft_last (96 points), each level against its twin at the path's
+    shape, then the path through channelize.  Returns (launch counts,
+    [dft_stage record, dft_last record])."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dft as tdft
+    from blit_torch.ops import pfb as tpfb
+
+    nfft = NFFT_6144
+    n1, n2 = tdft.default_factors(nfft)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    v = torch.randint(-128, 128, (NCHAN, (FRAMES_6144 + NTAP - 1) * nfft, 2, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, nfft)).to(dev)
+    sign = torch.where(torch.arange(nfft, device=dev) % 2 == 0, 1.0, -1.0)
+    fr, fi = tpfb.pfb_dequant(v, (coeffs * sign).contiguous())
+    records = []
+
+    # Level 1: (nchan·2·frames) panels of (n1, n2), with the twiddle.
+    xr, xi = fr.reshape(-1, n1, n2), fi.reshape(-1, n1, n2)
+    st = tdft.as_tensors(tdft.dft_matrices(n1) + tdft.twiddles(n1, n2), dev)
+    got = tdft.dft_stage(xr, xi, *st)
+    want = tdft.dft_stage_plain(xr, xi, *st)
+    err, atol, ok = check_bound(torch, got, want, "dft_stage", "float32",
+                                inputs=(xr, xi))
+    del want
+    ms = median_ms(torch, lambda: tdft.dft_stage(xr, xi, *st))
+    plain_ms = median_ms(torch, lambda: tdft.dft_stage_plain(xr, xi, *st), runs=5)
+    z = torch.complex(xr, xi)
+    wc = torch.complex(st[0], st[1])
+    lib_ms = median_ms(torch, lambda: torch.matmul(wc, z))
+    del z, wc
+    records.append(kernel_record(
+        "dft_stage", "float32", "blit_torch/csrc/dft.cu",
+        "blit/ops/pallas_dft.py:83", err, atol, ok, ms, plain_ms,
+        dft_cost(xr.numel(), n1, 4, twiddle=n1 * n2), lib_ms,
+        product="6144", n=n1, m=n2,
+        library="torch.matmul(complex W, complex panels), no twiddle"))
+    del xr, xi, fr, fi
+
+    # Level 2: the stage's rows, n2 points along the last axis.
+    ur, ui = got
+    del got
+    w = tdft.as_tensors(tdft.dft_matrices(n2), dev)
+    got = tdft.dft_last(ur, ui, *w)
+    want = tdft.dft_last_plain(ur, ui, *w)
+    err, atol, ok = check_bound(torch, got, want, "dft_last", "float32",
+                                inputs=(ur, ui))
+    del got, want
+    ms = median_ms(torch, lambda: tdft.dft_last(ur, ui, *w))
+    plain_ms = median_ms(torch, lambda: tdft.dft_last_plain(ur, ui, *w), runs=5)
+    z = torch.complex(ur, ui)
+    lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
+    del z
+    records.append(kernel_record(
+        "dft_last", "float32", "blit_torch/csrc/dft.cu",
+        "blit/ops/pallas_dft.py:325", err, atol, ok, ms, plain_ms,
+        dft_cost(ur.numel(), n2, 4), lib_ms, product="6144", n=n2,
+        library="torch.fft.fft"))
+    del ur, ui
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their twins: {bad}")
+    launches = run_path(torch, dev, "6144", v, coeffs, nfft, NCHAN)
+    del v
+    torch.cuda.empty_cache()
+    return launches, records
 
 
 def main() -> int:
@@ -388,24 +796,36 @@ def main() -> int:
                 log(f"build: {name}: {line.strip()}")
 
     # (c) kernels vs twins
-    records = phase_kernels(torch, dev)
+    records = phase_kernels(torch, dev) + phase_front_kernels(torch, dev)
 
-    # (d) main path
+    # (d) main paths, then (e) the 2^21 path and (f) the 6144 path
+    launches = {}
     tmp = tempfile.mkdtemp(prefix="blit-smoke-")
     try:
-        launches, summary = phase_main_path(torch, dev, tmp)
+        raw_path = write_recording(tmp)
+        for product in PRODUCTS:
+            launches[product], _ = phase_product(torch, dev, raw_path, tmp,
+                                                 product)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches["2^21"], tail2_rec = phase_2pow21(torch, dev)
+    records.append(tail2_rec)
+    launches["6144"], level_recs = phase_6144(torch, dev)
+    records.extend(level_recs)
 
-    main_variants = [r for r in records if r["dtype"] == "float32"
-                     and r.get("stokes", "I") == "I"]
-    line = {"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
-           "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for r in main_variants
-    ]}
+    # One record per kernel: the f32 variant at its first path's shape.
+    total = {k: sum(c[k] for c in launches.values()) for k in COUNTED}
+    log(f"launches by path: {json.dumps(launches)}")
+    line = {"kernels": []}
+    for name in COUNTED:
+        r = next(r for r in records if r["name"] == name
+                 and r["dtype"] == "float32" and r.get("stokes", "I") == "I")
+        line["kernels"].append(
+            {k: r[k] for k in ("name", "route", "source", "replaces")}
+            | {"launches": total[name], "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"]})
     print(json.dumps(line))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

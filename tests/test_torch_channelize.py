@@ -7,8 +7,14 @@ and is compared with blit's channelize on its fused Pallas plan
 and with blit's numpy golden channelize_np, at the bounds of
 tests/test_pallas_detect.py:150-198 (rtol 1e-4, atol 1e-2·max) and, for
 bf16, tests/test_channelize.py:225-246 (atol 2e-2 of the peak).
-Small-nfft shapes take the port's unfused plain path, held against
-channelize_np at tests/test_channelize.py:106's rtol 1e-4 / atol 1e-2.
+Every other two-pol nfft takes the plan's other rows (pfb_dequant or
+pfb_dft1, then dft_stage/dft_last, then torch detect), held against
+blit's channelize on the plan the TPU resolves for that shape (matmul
+DFT; pfb_kernel "pallas" where blit's VMEM gate passes, else "xla") at
+the same f32 bound, with the scale from noise-only data, and for bf16
+at tests/test_channelize.py:225-246's atol 2e-2 of the peak.  One-pol
+input takes the port's unfused plain path, held against channelize_np
+at tests/test_channelize.py:106's rtol 1e-4 / atol 1e-2.
 """
 
 import numpy as np
@@ -87,7 +93,9 @@ def test_unfused_plain_path_matches_numpy(stokes):
     h = bch.pfb_coeffs(NTAP, nfft)
     got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes=stokes,
                          device="cpu").numpy()
-    assert tch.last_kernel_plan()["pfb_kernel"] == "xla"
+    plan = tch.last_kernel_plan()
+    assert (plan["pfb_kernel"], plan["tail_kernel"], plan["detect_kernel"]) == (
+        "pallas", "dft_last", "torch")
     want = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes=stokes)
     assert got.shape == want.shape == (2, bch.STOKES_NIF[stokes], 3 * nfft)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
@@ -124,3 +132,108 @@ def test_guards():
         tch.channelize(v, h, nfft=64, nint=2, device="cpu")
     assert isinstance(tch.channelize(torch.from_numpy(v), h, nfft=64,
                                      device="cpu"), torch.Tensor)
+
+
+# rawspec's 0001 and 0002 presets (blit/pipeline.py PRODUCT_PRESETS) and
+# the pfb_dequant front end blit's TPU plan takes for each chunk: 0001's
+# 131 blocks of 8 pass pallas_pfb.fits; 0002's 2051 blocks of 1024 do not.
+SMALL = {"0001": (8, 128, "pallas"), "0002": (1024, 2048, "xla")}
+
+
+def _blit_small(v, h, product, **kw):
+    nfft, nint, front = SMALL[product]
+    out = np.asarray(bch.channelize(jnp.asarray(v), jnp.asarray(h), nfft=nfft,
+                                    nint=nint, fft_method="matmul",
+                                    pfb_kernel=front, **kw))
+    assert bch.last_kernel_plan()["pfb_kernel"] == front
+    return out
+
+
+@pytest.mark.parametrize("stokes", ["I", "XX", "YY", "XXYY", "full", "IQUV"])
+@pytest.mark.parametrize("product", ["0001", "0002"])
+def test_small_nfft_products_match_blit(product, stokes):
+    nfft, nint, _ = SMALL[product]
+    v = _volts(2, NTAP - 1 + nint, nfft=nfft, seed=nint + len(stokes))
+    h = bch.pfb_coeffs(NTAP, nfft)
+    want = _blit_small(v, h, product, stokes=stokes)
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes=stokes,
+                         device="cpu").numpy()
+    plan = tch.last_kernel_plan()
+    assert (plan["pfb_kernel"], plan["tail_kernel"], plan["detect_kernel"],
+            plan["impl"]) == ("pallas", "dft_last", "torch", "plain")
+    assert got.shape == want.shape == (1, bch.STOKES_NIF[stokes], 2 * nfft)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("product", ["0001", "0002"])
+def test_small_nfft_products_bf16_within_blit_bound(product):
+    nfft, nint, _ = SMALL[product]
+    v = _volts(2, NTAP - 1 + nint, nfft=nfft, seed=5)
+    h = bch.pfb_coeffs(NTAP, nfft)
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, dtype="bfloat16",
+                         device="cpu").numpy()
+    assert got.dtype == np.float32
+    gold = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint)
+    want = _blit_small(v, h, product, dtype="bfloat16")
+    for ref in (gold, want):
+        scale = ref.max()
+        np.testing.assert_allclose(got / scale, ref / scale, atol=2e-2)
+
+
+@pytest.mark.parametrize("nfft,nchan,nint,plan,blit_kw", [
+    (1 << 13, 2, 2, ("fused1", "dft_last"), dict(pfb_kernel="fused1")),
+    (6144, 2, 2, ("pallas", "dft_stage+dft_last"), dict(pfb_kernel="pallas")),
+    # 2^21: blit's plan on the TPU, pfb_dft1 then dft_tail2 (interpreted).
+    (1 << 21, 1, 1, ("fused1", "dft_tail2"),
+     dict(pfb_kernel="fused1", tail_kernel="pallas")),
+], ids=["2^13", "6144", "2^21"])
+def test_multi_factor_plan_rows_match_blit(nfft, nchan, nint, plan, blit_kw):
+    v = _volts(nchan, NTAP - 1 + nint, nfft=nfft, seed=nfft % 97)
+    h = bch.pfb_coeffs(NTAP, nfft)
+    want = np.asarray(bch.channelize(
+        jnp.asarray(v), jnp.asarray(h), nfft=nfft, nint=nint, stokes="IQUV",
+        fft_method="matmul", **{"tail_kernel": "xla", "detect_kernel": "xla",
+                                **blit_kw}))
+    if nfft == 1 << 21:
+        assert bch.last_kernel_plan()["tail_kernel"] == "dft_tail2"
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes="IQUV",
+                         device="cpu").numpy()
+    p = tch.last_kernel_plan()
+    assert (p["pfb_kernel"], p["tail_kernel"], p["detect_kernel"]) == plan + (
+        "torch",)
+    _close(got, want)
+    gold = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes="IQUV")
+    _close(got, gold)
+
+
+def test_channelize_twins_repeat_the_plan():
+    v = _volts(2, NTAP + 1, nfft=6144, seed=8)
+    h = bch.pfb_coeffs(NTAP, 6144)
+    got = tch.channelize(v, h, nfft=6144, nint=2, stokes="XXYY", device="cpu")
+    plan = tch.last_kernel_plan()
+    twins = tch.channelize_twins(v, h, nfft=6144, nint=2, stokes="XXYY",
+                                 device="cpu")
+    assert tch.last_kernel_plan() == plan
+    torch.testing.assert_close(got, twins, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("stokes", ["I", "XX"])
+def test_one_pol_takes_the_unfused_path_on_cpu(stokes):
+    nfft, nint = 64, 2
+    v = _volts(2, NTAP - 1 + 2 * nint, nfft=nfft, seed=6)[:, :, :1]
+    h = bch.pfb_coeffs(NTAP, nfft)
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes=stokes,
+                         device="cpu").numpy()
+    plan = tch.last_kernel_plan()
+    assert (plan["fft_method"], plan["pfb_kernel"], plan["tail_kernel"]) == (
+        "fft", "torch", "torch")
+    want = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes=stokes)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+
+
+def test_unfactorable_nfft_raises():
+    nfft = 2 * 4099  # 2 × a prime above DIRECT_DFT_MAX
+    v = np.zeros((1, 5 * nfft, 2, 2), np.int8)
+    with pytest.raises(NotImplementedError, match="factorization"):
+        tch.channelize(v, np.zeros((NTAP, nfft), np.float32), nfft=nfft,
+                       device="cpu")

@@ -12,6 +12,10 @@ then sits at ~1e-1 of a mean noise bin, and every bin, the tone's
 included, is held to it.  A reducer that carried the wrong PFB state,
 mishandled OVERLAP or the tail chunk would change the noise bins by
 about their own size.
+
+The 0001 and 0002 presets are held the same way on files of their own
+(a tone in coarse channel 1, channel 0 noise only), each reduced with a
+chunk_frames that leaves a short tail chunk.
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from blit import testing as btesting  # noqa: E402
 from blit.io import guppi as bguppi  # noqa: E402
 from blit.io.sigproc import read_fil_data, read_fil_header  # noqa: E402
 from blit.pipeline import RawReducer as BlitReducer  # noqa: E402
+from blit.pipeline import reducer_for_product as blit_reducer_for  # noqa: E402
 from blit_torch import testing as ttesting  # noqa: E402
 from blit_torch.convert import reducer_from_reference  # noqa: E402
 from blit_torch.io import guppi as tguppi  # noqa: E402
@@ -169,3 +174,61 @@ def test_presets_and_guards(tmp_path):
         red.reduce_to_file("unused.raw", str(tmp_path / "x.h5"))
     with pytest.raises(ValueError, match="fqav_by"):
         RawReducer(nfft=64, fqav_by=3, device="cpu")
+
+
+# product → (samples per block, blocks, chunk_frames, expected nsamps,
+# expected chunks): 0001 has 1021 frames → chunks of 256, 256, 256 and a
+# 253-frame tail rounded to 128; 0002 has 7165 frames → one chunk of
+# 4096 and a 3069-frame tail rounded to 2048.
+SMALL_FILES = {"0001": (4096, 2, 256, 7, 4), "0002": (1 << 20, 7, 4096, 3, 2)}
+
+
+@pytest.fixture(scope="module", params=sorted(SMALL_FILES))
+def small_products(request, tmp_path_factory):
+    product = request.param
+    per, nblocks, frames, _, _ = SMALL_FILES[product]
+    d = tmp_path_factory.mktemp(f"p{product}")
+    raw = str(d / "synth.raw")
+    ttesting.synth_raw(raw, nblocks=nblocks, obsnchan=2, ntime_per_block=per,
+                       seed=11, tone_chan=TONE_CHAN, tone_freq=0.375,
+                       obsbw=-187.5 / 32, obsfreq=8000.0)
+    want = str(d / "blit.fil")
+    blit_reducer_for(product, chunk_frames=frames, async_output=False
+                     ).reduce_to_file(raw, want)
+    got = str(d / "port.fil")
+    red = reducer_for_product(product, chunk_frames=frames, device="cpu")
+    hdr = red.reduce_to_file(raw, got)
+    return product, want, got, hdr, red
+
+
+def test_small_products_header_bytes_identical(small_products):
+    product, want, got, hdr, red = small_products
+    _, _, _, nsamps, chunks = SMALL_FILES[product]
+    assert _header_bytes(got) == _header_bytes(want)
+    assert hdr["nsamps"] == nsamps
+    assert red.timeline.stages["device"].calls == chunks  # the tail included
+
+
+def test_small_products_within_f32_bound(small_products):
+    product, want_path, got_path, _, _ = small_products
+    nfft = {"0001": 8, "0002": 1024}[product]
+    _, want = read_fil_data(want_path)
+    _, got = read_fil(got_path)
+    assert got.shape == want.shape == (SMALL_FILES[product][3], 1, 2 * nfft)
+    # atol from the noise-only coarse channel 0, as for 0000 above.
+    noise_peak = np.abs(want[..., :nfft]).max()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2 * noise_peak)
+    # The tone (0.375 of a coarse channel, on both fine grids) peaks where
+    # both headers put it.
+    tone_bin = TONE_CHAN * nfft + nfft // 2 + 3 * nfft // 8
+    assert got[0, 0].argmax() == want[0, 0].argmax() == tone_bin
+
+
+def test_reducer_from_reference_0002():
+    ref = blit_reducer_for("0002")
+    fields = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
+    coeffs = np.asarray(ref._coeffs)
+    red = reducer_from_reference(fields, coeffs, device="cpu")
+    np.testing.assert_array_equal(red.coeffs.numpy(), coeffs)
+    assert (red.nfft, red.nint, red.chunk_frames) == (1024, 2048, ref.chunk_frames)
+    assert red.chunk_frames == reducer_for_product("0002", device="cpu").chunk_frames

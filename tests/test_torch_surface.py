@@ -77,7 +77,7 @@ def test_default_device_without_gpu_raises_clear_error():
                               torch.zeros((4, 64)), nfft=64)
 
 
-@pytest.mark.parametrize("nfft,npol", [(1024, 2), (1 << 19, 2), (1 << 20, 1)])
+@pytest.mark.parametrize("nfft,npol", [(1024, 1), (1 << 19, 1), (1 << 20, 1)])
 def test_cuda_plan_refuses_unported_shapes_before_any_copy(monkeypatch, nfft, npol):
     # The CUDA plan check runs before any tensor moves to the device, so
     # the refusal is exercised here by resolving the device to CUDA.
@@ -87,3 +87,27 @@ def test_cuda_plan_refuses_unported_shapes_before_any_copy(monkeypatch, nfft, np
     v = torch.zeros((1, 5 * nfft, npol, 2), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tch.channelize(v, torch.zeros((4, nfft)), nfft=nfft)
+
+
+@pytest.mark.parametrize("nfft,plan", [
+    (8, ("pallas", "dft_last", "torch")),
+    (1024, ("pallas", "dft_last", "torch")),
+    (4096, ("pallas", "dft_last", "torch")),
+    (1 << 13, ("fused1", "dft_last", "torch")),
+    (1 << 19, ("fused1", "dft_last", "torch")),
+    (1 << 20, ("fused1", "tail2_detect", "tail2_detect")),
+    (1 << 21, ("fused1", "dft_tail2", "torch")),
+    (1 << 23, ("fused1", "dft_tail2", "torch")),
+    (1 << 24, ("fused1", "dft_stage+dft_last", "torch")),
+    (6144, ("pallas", "dft_stage+dft_last", "torch")),
+], ids=lambda x: str(x))
+def test_cuda_plan_takes_every_two_pol_nfft(nfft, plan):
+    # Every nfft that default_factors splits resolves to a route of
+    # Hopper kernels for two-pol input; none to a plain twin.
+    from blit_torch.ops import channelize as tch
+
+    route, factors, rec = tch._resolve_plan(nfft, 2, "I", cuda=True)
+    assert route in ("tail2_detect", "fused1_tail2", "fused1", "dequant")
+    assert (rec["pfb_kernel"], rec["tail_kernel"], rec["detect_kernel"]) == plan
+    with pytest.raises(NotImplementedError, match="factorization"):
+        tch._resolve_plan(2 * 4099, 2, "I", cuda=True)
