@@ -15,6 +15,12 @@ CUDA device the channelizer runs six hand-written Hopper kernels
 ``dft_stage``, ``dft_last``, ``dft_tail2``); on the CPU it runs their
 plain PyTorch twins.
 
+The search plane: :class:`blit_torch.search.DedopplerReducer` turns the
+same recording into the Stokes-I spectra stream, fixed windows, the
+Taylor-tree drift transform of both signs through a seventh kernel
+(``taylor_tree``), per-drift SNR, a device-side threshold and per-band
+top-k, and writes a ``.hits`` product.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -26,8 +32,10 @@ from blit_torch.pipeline import (
     ReductionStats,
     reducer_for_product,
 )
+from blit_torch.search import DedopplerReducer
 
 __all__ = [
+    "DedopplerReducer",
     "PRODUCT_PRESETS",
     "RawReducer",
     "ReductionStats",

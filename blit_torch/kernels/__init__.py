@@ -26,7 +26,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-KERNEL_SOURCES = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft", "dft_tail2")
+KERNEL_SOURCES = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft", "dft_tail2",
+                  "taylor_tree")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -6,7 +6,11 @@ staging buffer), ``state`` (the PFB overlap carried between chunks),
 ``device`` (host→device copy, the channelizer, device→host copy) and
 ``write`` (product bytes written), plus ``stream`` (the wall clock of the
 whole streaming loop).  End-to-end RAW GB/s is ``ingest`` bytes over
-``stream`` seconds.
+``stream`` seconds.  The search adds the stages ``search.window_fill``
+(spectra copied into the window buffer) and ``search.write`` (``.hits``
+lines written), and the per-window observations ``search.tree_s`` (the
+window's H2D copy, drift transform, SNR, top-k and D2H of the packed
+hits) and ``search.hits_per_window``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import contextlib
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 
 @dataclass
@@ -33,10 +37,17 @@ class StageStats:
 
 @dataclass
 class Timeline:
-    """A registry of named stage timings (one per reducer)."""
+    """A registry of named stage timings and per-event observations
+    (one per reducer)."""
 
     stages: Dict[str, StageStats] = field(
         default_factory=lambda: defaultdict(StageStats))
+    observations: Dict[str, List[float]] = field(
+        default_factory=lambda: defaultdict(list))
+
+    def observe(self, name: str, value: float) -> None:
+        """Record one value of the per-event metric ``name``."""
+        self.observations[name].append(value)
 
     @contextlib.contextmanager
     def stage(self, name: str, nbytes: int = 0) -> Iterator[None]:

@@ -46,6 +46,15 @@ def make_raw_header(
     }
 
 
+def tone_drift_for(nfft: int, nspectra: int, drift_bins: float) -> float:
+    """The ``tone_drift`` (cycles/sample²) that drifts a tone by
+    ``drift_bins`` fine channels (bin width ``1/nfft`` cycles/sample)
+    over ``nspectra`` consecutive nfft-point spectra: inject with this,
+    search with ``window_spectra=nspectra``, and the top hit's
+    ``drift_bins`` lands within one drift step."""
+    return drift_bins / (nfft * nspectra * nfft)
+
+
 def make_voltages(
     obsnchan: int,
     ntime: int,
@@ -55,14 +64,18 @@ def make_voltages(
     tone_freq: float = 0.25,
     tone_amp: float = 20.0,
     noise_rms: float = 8.0,
+    tone_drift: float = 0.0,
 ) -> np.ndarray:
     """Quantized complex voltages ``(obsnchan, ntime, npol, 2)`` int8:
-    Gaussian noise plus an optional complex tone (``tone_freq`` cycles
-    per sample) in one coarse channel."""
+    Gaussian noise plus an optional complex tone in one coarse channel.
+    ``tone_drift`` chirps the tone linearly: its instantaneous frequency
+    is ``tone_freq + tone_drift·t`` cycles per sample, so its phase is
+    ``2π(f₀·t + ½·ḟ·t²)`` (:func:`tone_drift_for`)."""
     rng = np.random.default_rng(seed)
     v = rng.normal(0.0, noise_rms, size=(obsnchan, ntime, npol, 2))
     if tone_chan is not None:
-        ph = 2 * np.pi * (tone_freq * np.arange(ntime, dtype=np.float64))
+        t = np.arange(ntime, dtype=np.float64)
+        ph = 2 * np.pi * (tone_freq * t + 0.5 * tone_drift * t * t)
         v[tone_chan, :, :, 0] += tone_amp * np.cos(ph)[:, None]
         v[tone_chan, :, :, 1] += tone_amp * np.sin(ph)[:, None]
     return np.clip(np.round(v), -128, 127).astype(np.int8)
@@ -78,18 +91,20 @@ def synth_raw(
     directio: bool = False,
     seed: int = 0,
     tone_chan: Optional[int] = None,
+    tone_drift: float = 0.0,
     tone_freq: float = 0.25,
     tone_amp: float = 20.0,
     **hdrkw,
 ) -> Tuple[Dict, List[np.ndarray]]:
     """Write a synthetic GUPPI RAW file whose consecutive blocks share
-    ``overlap`` samples, as on disk at GBT."""
+    ``overlap`` samples, as on disk at GBT.  ``tone_drift`` chirps the
+    injected tone (a drifting technosignature, :func:`tone_drift_for`)."""
     hdr = make_raw_header(obsnchan=obsnchan, npol=npol, overlap=overlap, **hdrkw)
     step = ntime_per_block - overlap
     total = step * (nblocks - 1) + ntime_per_block
     stream = make_voltages(obsnchan, total, npol, seed=seed,
-                           tone_chan=tone_chan, tone_freq=tone_freq,
-                           tone_amp=tone_amp)
+                           tone_chan=tone_chan, tone_drift=tone_drift,
+                           tone_freq=tone_freq, tone_amp=tone_amp)
     blocks = [stream[:, i * step:i * step + ntime_per_block]
               for i in range(nblocks)]
     write_raw(path, hdr, blocks, directio=directio)

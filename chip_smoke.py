@@ -3,16 +3,18 @@
 holds each against its plain PyTorch twin at the main paths' shapes,
 then reduces a 64-channel GUPPI RAW recording to rawspec's three
 products (``0000``: nfft 2^20; ``0002``: nfft 1024, nint 2048;
-``0001``: nfft 8, nint 128) and channelizes one chunk at nfft 2^21 and
-one at nfft 6144, all through the kernels, and checks the results.
+``0001``: nfft 8, nint 128), searches it for drifting tones
+(``.hits`` at nfft 1024 and at nfft 2^20), channelizes one chunk at
+nfft 2^21 and one at nfft 6144, and recovers injected ±20-bin drifts,
+all through the kernels, and checks the results.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   (a) device: name and power limit;
-  (b) build: the five sources (six kernels: pfb_dft1, tail2_detect,
-      pfb_dequant, dft_stage + dft_last in dft.cu, dft_tail2) with nvcc
-      for sm_90a, started together, timed;
+  (b) build: the six sources (seven kernels: pfb_dft1, tail2_detect,
+      pfb_dequant, dft_stage + dft_last in dft.cu, dft_tail2,
+      taylor_tree) with nvcc for sm_90a, started together, timed;
   (c) kernels vs twins at the main paths' chunk shapes, elementwise
       (bf16 outputs also in relative rms against a control that skips
       the bf16 rounding), with CUDA-event times (median of 7 runs after
@@ -52,9 +54,39 @@ Phases, in order; any failure exits non-zero:
       coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
       twiddle), dft_last (96 points), the swap and torch detect; all 64
       channels compared with the twins (~30 GB at the peak).
+  (g) run after (c): taylor_tree against taylor_tree_plain on the card,
+      BITWISE (torch.equal), one sign and both signs (drift_spectra, one
+      launch per stage for both), at (64, 65536) (the default window over
+      64 channels × nfft 1024), (8, 2^26) (the hi-res window of (i)),
+      (16, 2^26), (1024, 65536) (the largest window, on the route with
+      global passes) and one odd F on each route; CUDA-event medians of
+      7 runs after a warm-up for the kernel and the plain version, and
+      the bound: bytes (input read once, output written once) over HBM's
+      rate; no PyTorch call computes the function (library "none");
+  (h) inside (d)'s try, on its recording: DedopplerReducer(nfft=1024,
+      nint=1) at search_defaults() (window 64, top_k 8, SNR 10)
+      .search_to_file(.hits): 175 windows of (64, 65536) through
+      pfb_dequant + dft_last + taylor_tree, launches counted as (d)
+      counts; checks the plan, taylor_tree launches = launches per
+      window × windows, the .hits header line byte for byte, the tone as
+      every window's top hit (drift 0, its fine channel, its band), and
+      the first two windows' hits against the same spectra run through
+      channelize_twins and the plain tree on the CPU (identical cells in
+      order, SNR and power within rtol 1e-4); prints stage seconds, the
+      per-window device time, a CUDA-event breakdown of one window
+      (H2D, tree, SNR + top-k, D2H), windows/s, RAW GB/s and the
+      real-time factor;
+  (i) the hi-res search: DedopplerReducer(nfft=2^20, window_spectra=8,
+      chunk_frames=4) on the same recording: one (8, 2^26) window, 64
+      bands, through pfb_dft1 + tail2_detect + taylor_tree; the tone is
+      the top hit; peak device memory and seconds;
+  (j) drift recovery: two small recordings (synth_raw, 64 channels, two
+      windows of 64 spectra at nfft 1024, a tone in coarse channel 10
+      drifting by tone_drift_for(1024, 64, ±20)); in both windows the
+      top hit is in the tone's band at a drift within 1 of ±20.
 (e) and (f) count launches as (d) does and hold the output to rtol 1e-4
 and an atol of 1e-3 of the mean bin.  The line before the last two is
-one JSON object listing the six kernels; the last line is
+one JSON object listing the seven kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,6 +120,21 @@ NFFT_6144 = 6144         # the 64·96 path (a non-power-of-two nfft)
 FRAMES_6144 = 1024
 REALTIME_BANK_GBPS = 0.750
 SEED = 2026
+# The search: nfft 1024 at search_defaults() for (h), one window of 8
+# hi-res spectra for (i), ±20-bin drifts over two 64-spectrum windows
+# for (j).  Each shape of (g): (what it is, T, F).
+SEARCH_NFFT = 1024
+HIRES_WINDOW = 8
+DRIFT_BINS = 20
+DRIFT_WINDOWS = 2
+TREE_SHAPES = (
+    ("default window", 64, NCHAN * SEARCH_NFFT),
+    ("hi-res window", HIRES_WINDOW, NCHAN * NFFT),
+    ("16 hi-res spectra", 16, NCHAN * NFFT),
+    ("largest window", 1024, NCHAN * SEARCH_NFFT),
+    ("shared route, odd F", 32, 100003),
+    ("global-pass route, odd F", 256, 70001),
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -442,17 +489,19 @@ def phase_front_kernels(torch, dev):
 
 
 COUNTED = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft_stage", "dft_last",
-           "dft_tail2")
+           "dft_tail2", "taylor_tree")
 
 
 def _wrappers():
+    from blit_torch.ops import dedoppler as tpd
     from blit_torch.ops import detect as tdet
     from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb
 
     return {"pfb_dft1": tpfb.pfb_dft1, "tail2_detect": tdet.tail2_detect,
             "pfb_dequant": tpfb.pfb_dequant, "dft_stage": tdft.dft_stage,
-            "dft_last": tdft.dft_last, "dft_tail2": tdft.dft_tail2}
+            "dft_last": tdft.dft_last, "dft_tail2": tdft.dft_tail2,
+            "taylor_tree": tpd.taylor_tree}
 
 
 def reset_launches():
@@ -471,16 +520,25 @@ EXPECTED = {
     "0001": ("pallas", "dft_last", ("pfb_dequant", "dft_last")),
     "2^21": ("fused1", "dft_tail2", ("pfb_dft1", "dft_tail2")),
     "6144": ("pallas", "dft_stage+dft_last", ("pfb_dequant", "dft_stage", "dft_last")),
+    "search": ("pallas", "dft_last", ("pfb_dequant", "dft_last", "taylor_tree")),
+    "hi-res search": ("fused1", "tail2_detect",
+                      ("pfb_dft1", "tail2_detect", "taylor_tree")),
+    "drift": ("pallas", "dft_last", ("pfb_dequant", "dft_last", "taylor_tree")),
 }
 
 
-def check_plan(path, plan, launches):
+def check_plan(path, plan, launches, tree_launches=None):
+    """The path ran its plan through the Hopper kernels, each launched;
+    with ``tree_launches``, taylor_tree exactly that many times."""
     pfb, tail, names = EXPECTED[path]
     if (plan.get("pfb_kernel"), plan.get("tail_kernel"), plan.get("impl")) != (
             pfb, tail, "cuda"):
         raise AssertionError(f"{path} did not run the Hopper kernels: {plan}")
     if min(launches[k] for k in names) < 1:
         raise AssertionError(f"a kernel of the {path} path never launched: {launches}")
+    if tree_launches is not None and launches["taylor_tree"] != tree_launches:
+        raise AssertionError(f"{path}: taylor_tree launched {launches['taylor_tree']} "
+                             f"times, want {tree_launches}")
 
 
 def read_span(raw, s0: int, n: int, per: int):
@@ -759,6 +817,264 @@ def phase_6144(torch, dev):
     return launches, records
 
 
+def tree_cost(T, F, signs):
+    """taylor_tree: the (T, F) input read once, each sign's output (T
+    rows, T-1 for the second) written once; T·log2(T) adds per column
+    per sign on the f32 CUDA cores."""
+    rows_out = T if signs == 1 else 2 * T - 1
+    adds = signs * T * int(math.log2(T)) * F
+    return 4 * F * (T + rows_out), [(adds, F32_FLOPS)], None
+
+
+def phase_tree(torch, dev):
+    """(g): the taylor_tree kernel against taylor_tree_plain, bitwise, at
+    each of TREE_SHAPES, both signs first (what the search launches),
+    then one.  Returns the records."""
+    from blit_torch.ops import dedoppler as tpd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    records = []
+    for what, T, F in TREE_SHAPES:
+        # Power of a Stokes-I bin summed over a few spectra: positive,
+        # mean 50, rms 5.
+        x = torch.empty((T, F), device=dev).normal_(50.0, 5.0, generator=g)
+        route, per_call = tpd.kernel_route(T)
+        for signs, fn, plain in ((2, tpd.drift_spectra, tpd.drift_spectra_plain),
+                                 (1, tpd.taylor_tree, tpd.taylor_tree_plain)):
+            got = fn(x)
+            want = plain(x)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want))
+            err = (got - want).abs().max().item()
+            del got, want
+            torch.cuda.empty_cache()
+            ms = median_ms(torch, lambda: fn(x))
+            plain_ms = median_ms(torch, lambda: plain(x))
+            torch.cuda.empty_cache()
+            records.append(kernel_record(
+                "taylor_tree", "float32", "blit_torch/csrc/taylor_tree.cu",
+                "blit/ops/pallas_dedoppler.py:138", err, 0.0, equal, ms,
+                plain_ms, tree_cost(T, F, signs), None, shape=what, T=T, F=F,
+                signs=signs, tree_route=route, launches_per_call=per_call,
+                bitwise=equal))
+        del x
+        torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"taylor_tree is not bitwise equal to its plain version: {bad}")
+    return records
+
+
+def tone_chan_of(nfft: int) -> int:
+    """The fine channel of the smoke's tone (TONE_FREQ of coarse channel
+    TONE_CHAN, the fftshift folded in) at ``nfft``."""
+    return TONE_CHAN * nfft + nfft // 2 + int(TONE_FREQ * nfft)
+
+
+def top_hits(hits, windows):
+    """The top hit (by SNR) of each window; every window must have one."""
+    best = {}
+    for h in hits:
+        if h.window not in best or h.snr > best[h.window].snr:
+            best[h.window] = h
+    if sorted(best) != list(range(windows)):
+        raise AssertionError(f"windows without hits: {sorted(set(range(windows)) - set(best))}")
+    return [best[w] for w in range(windows)]
+
+
+def window_breakdown(torch, dev, red, host_window, nbands):
+    """CUDA-event medians of one window's device step, in pieces: the
+    H2D copy from pinned memory, the both-sign tree, the whole
+    dedoppler_hits (tree + SNR + top-k + pack), the D2H of the hits."""
+    from blit_torch.ops import dedoppler as tpd
+
+    win = host_window.pin_memory()
+    x = win.to(dev)
+    kw = dict(top_k=red.top_k, nbands=nbands, max_drift_bins=red.max_drift_bins)
+    packed = tpd.dedoppler_hits(x, red.snr_threshold, **kw)
+    out = dict(
+        h2d_ms=median_ms(torch, lambda: win.to(dev, non_blocking=True)),
+        tree_ms=median_ms(torch, lambda: tpd.drift_spectra(x)),
+        hits_ms=median_ms(torch, lambda: tpd.dedoppler_hits(x, red.snr_threshold, **kw)),
+        d2h_ms=median_ms(torch, lambda: packed.cpu()))
+    out["snr_topk_ms"] = out["hits_ms"] - out["tree_ms"]
+    return out
+
+
+def search_summary(red, hdr, wall, extra):
+    st = red.timeline.stages
+    stages = {k: {"s": round(v.seconds, 4), "GB": round(v.bytes / 1e9, 4)}
+              for k, v in st.items()}
+    tree_s = sorted(red.timeline.observations["search.tree_s"])
+    gbps = st["ingest"].bytes / st["stream"].seconds / 1e9
+    return dict(windows=hdr["search_windows"], hits=hdr["search_nhits"],
+                wall_s=wall, windows_per_s=hdr["search_windows"] / wall,
+                window_device_s_median=tree_s[len(tree_s) // 2],
+                window_device_s_sum=sum(tree_s), raw_gb=st["ingest"].bytes / 1e9,
+                raw_gbps=gbps, realtime_factor=gbps / REALTIME_BANK_GBPS,
+                stages=stages, **extra)
+
+
+def phase_search(torch, dev, raw_path, tmp):
+    """(h): the search at search_defaults() through search_to_file.
+    Returns (launch counts, summary)."""
+    import numpy as np
+
+    from blit_torch.config import search_defaults
+    from blit_torch.io.guppi import GuppiRaw
+    from blit_torch.io.hits import header_line, read_hits
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dedoppler as tpd
+    from blit_torch.search import DedopplerReducer
+    from blit_torch.search.hits import hits_from_packed
+
+    d = search_defaults()
+    if (d["window_spectra"], d["top_k"], d["snr_threshold"]) != (64, 8, 10.0):
+        raise AssertionError(f"search_defaults() are not the site's: {d}")
+    red = DedopplerReducer(nfft=SEARCH_NFFT, nint=1)
+    T, nfft = red.window_spectra, red.nfft
+    out = os.path.join(tmp, "smoke.hits")
+    reset_launches()
+    t0 = time.perf_counter()
+    hdr = red.search_to_file(raw_path, out)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    plan = tch.last_kernel_plan()
+    log(f"search: plan {json.dumps(plan)} launches {json.dumps(launches)}")
+    spectra = tch.usable_frames(RAW_SAMPLES, nfft, NTAP, 1)
+    windows = spectra // T
+    if hdr["search_windows"] != windows:
+        raise AssertionError(f"search: {hdr['search_windows']} windows, want {windows}")
+    per_window = tpd.kernel_route(T)[1]
+    check_plan("search", plan, launches, per_window * windows)
+    raw = GuppiRaw(raw_path)
+    with open(out) as f:
+        line = f.readline()
+    if line != header_line(red.header_for(raw)):
+        raise AssertionError("search: .hits header line differs from header_for")
+    fhdr, hits = read_hits(out)
+    chan = tone_chan_of(nfft)
+    tops = top_hits(hits, windows)
+    wrong = [(h.window, h.drift_bins, h.chan, h.band) for h in tops
+             if (h.drift_bins, h.chan, h.band) != (0, chan, TONE_CHAN)]
+    log(f"search: {windows} windows ({spectra - windows * T} spectra dropped), "
+        f"{len(hits)} hits; top hit of every window at drift 0, chan {chan}, "
+        f"band {TONE_CHAN}: {not wrong}")
+    if wrong:
+        raise AssertionError(f"search: windows whose top hit is not the tone: {wrong[:5]}")
+
+    # The first two windows' spectra through the plain twins on the card,
+    # then the search step with the plain tree on the CPU.
+    nwin = 2
+    host = read_span(raw, 0, (nwin * T + NTAP - 1) * nfft, BLOCK_NTIME)
+    spec = tch.channelize_twins(torch.from_numpy(host).to(dev), red._red.coeffs,
+                                nfft=nfft, ntap=NTAP, nint=1, device=dev)[:, 0].cpu()
+    del host
+    raw.close()
+    nbands = fhdr["search_nbands"]
+    ref = []
+    for w in range(nwin):
+        packed = tpd.dedoppler_hits(spec[w * T:(w + 1) * T], red.snr_threshold,
+                                    top_k=red.top_k, nbands=nbands,
+                                    max_drift_bins=red.max_drift_bins)
+        ref += hits_from_packed(packed.numpy(), w, fhdr)
+    got = [h for h in hits if h.window < nwin]
+    cells = [(h.window, h.drift_bins, h.chan, h.band) for h in got]
+    if cells != [(h.window, h.drift_bins, h.chan, h.band) for h in ref]:
+        raise AssertionError("search: the first windows' hits differ from the plain run")
+    rel = max(max(abs(a.snr - b.snr) / abs(b.snr), abs(a.power - b.power) / abs(b.power))
+              for a, b in zip(got, ref))
+    log(f"search: first {nwin} windows' {len(got)} hits equal the plain run's, "
+        f"max rel err of SNR and power {rel:.3g} (rtol 1e-4)")
+    if rel > 1e-4:
+        raise AssertionError("search: SNR or power of the first windows beyond rtol 1e-4")
+    breakdown = window_breakdown(torch, dev, red, spec[:T].contiguous(), nbands)
+    summary = search_summary(red, hdr, wall, dict(
+        path="search", nfft=nfft, window_spectra=T, nbands=nbands,
+        taylor_tree_launches_per_window=per_window, spectra_dropped=spectra - windows * T,
+        first_windows_max_rel_err=rel, window_breakdown_ms=breakdown))
+    log(f"search: {json.dumps(summary)}")
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_hires_search(torch, dev, raw_path):
+    """(i): one hi-res window, (8, 2^26), 64 bands.  Returns (launch
+    counts, summary)."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dedoppler as tpd
+    from blit_torch.search import DedopplerReducer
+
+    red = DedopplerReducer(nfft=NFFT, window_spectra=HIRES_WINDOW,
+                           chunk_frames=CHUNK_FRAMES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hdr, hits = red.search(raw_path)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    plan = tch.last_kernel_plan()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"hi-res search: plan {json.dumps(plan)} launches {json.dumps(launches)}")
+    windows = tch.usable_frames(RAW_SAMPLES, NFFT, NTAP, 1) // HIRES_WINDOW
+    if hdr["search_windows"] != windows:
+        raise AssertionError(f"hi-res search: {hdr['search_windows']} windows, want {windows}")
+    check_plan("hi-res search", plan, launches,
+               tpd.kernel_route(HIRES_WINDOW)[1] * windows)
+    if hdr["search_nbands"] != NCHAN:
+        raise AssertionError(f"hi-res search: {hdr['search_nbands']} bands")
+    top = top_hits(hits, windows)[0]
+    chan = tone_chan_of(NFFT)
+    log(f"hi-res search: top hit drift {top.drift_bins}, chan {top.chan}, band "
+        f"{top.band}, SNR {top.snr:.1f} (tone at chan {chan})")
+    if (top.drift_bins, top.chan, top.band) != (0, chan, TONE_CHAN):
+        raise AssertionError("hi-res search: the top hit is not the tone")
+    summary = search_summary(red, hdr, wall, dict(
+        path="hi-res search", nfft=NFFT, window_spectra=HIRES_WINDOW,
+        nbands=NCHAN, peak_device_gb=peak_gb))
+    log(f"hi-res search: {json.dumps(summary)}")
+    del red, hits
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_drift(torch, dev, tmp):
+    """(j): recover ±DRIFT_BINS-bin drifts injected with tone_drift_for.
+    Returns the launch counts."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dedoppler as tpd
+    from blit_torch.search import DedopplerReducer
+    from blit_torch.testing import synth_raw, tone_drift_for
+
+    T = 64
+    ntime = (T * DRIFT_WINDOWS + NTAP - 1) * SEARCH_NFFT
+    launches = {}
+    for sign in (1, -1):
+        drift = sign * DRIFT_BINS
+        path = os.path.join(tmp, f"drift{drift:+d}.raw")
+        synth_raw(path, nblocks=2, obsnchan=NCHAN, ntime_per_block=-(-ntime // 2),
+                  seed=SEED + 5, tone_chan=TONE_CHAN,
+                  tone_drift=tone_drift_for(SEARCH_NFFT, T, drift))
+        red = DedopplerReducer(nfft=SEARCH_NFFT, window_spectra=T)
+        reset_launches()
+        hdr, hits = red.search(path)
+        counts = read_launches()
+        check_plan("drift", tch.last_kernel_plan(), counts,
+                   tpd.kernel_route(T)[1] * DRIFT_WINDOWS)
+        os.unlink(path)
+        tops = top_hits(hits, DRIFT_WINDOWS)
+        log(f"drift {drift:+d}: {ntime * NCHAN * 4 / 1e6:.1f} MB RAW, "
+            f"top hits " + ", ".join(f"(window {h.window}: drift {h.drift_bins}, "
+                                     f"band {h.band}, SNR {h.snr:.1f})" for h in tops))
+        bad = [h for h in tops if h.band != TONE_CHAN or abs(h.drift_bins - drift) > 1]
+        if hdr["search_windows"] != DRIFT_WINDOWS or bad:
+            raise AssertionError(f"drift {drift:+d} not recovered: {bad}")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -795,10 +1111,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    # (c) kernels vs twins
+    # (c) kernels vs twins, (g) taylor_tree vs its plain version
     records = phase_kernels(torch, dev) + phase_front_kernels(torch, dev)
+    records += phase_tree(torch, dev)
 
-    # (d) main paths, then (e) the 2^21 path and (f) the 6144 path
+    # (d) main paths, (h) the search, (i) the hi-res search, (j) drift
+    # recovery, then (e) the 2^21 path and (f) the 6144 path
     launches = {}
     tmp = tempfile.mkdtemp(prefix="blit-smoke-")
     try:
@@ -806,6 +1124,10 @@ def main() -> int:
         for product in PRODUCTS:
             launches[product], _ = phase_product(torch, dev, raw_path, tmp,
                                                  product)
+        launches["search"], _ = phase_search(torch, dev, raw_path, tmp)
+        launches["hi-res search"], _ = phase_hires_search(torch, dev, raw_path)
+        os.unlink(raw_path)
+        launches["drift"] = phase_drift(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["2^21"], tail2_rec = phase_2pow21(torch, dev)

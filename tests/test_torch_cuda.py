@@ -10,8 +10,10 @@ tail2_detect f32 rtol 1e-5 / atol 1e-4·max, bf16 rtol 0.05 / atol
 atol 1e-3 on unit-variance input (tests/test_pallas_dft.py:22-33), and
 dft_tail2 the same (:86-100) with atol grown as sqrt(f2·f3 / 128);
 channelize against its plan run through the twins, rtol 1e-4 / atol
-1e-2·max (tests/test_pallas_detect.py:150-198).  f32 twins run with
-TF32 off.
+1e-2·max (tests/test_pallas_detect.py:150-198); taylor_tree bitwise
+(torch.equal) against its plain version, as blit holds its Pallas kernel
+to its reference (tests/test_dedoppler.py:85).  f32 twins run with TF32
+off.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from blit_torch import kernels
 from blit_torch.ops import channelize as tch
+from blit_torch.ops import dedoppler as tpd
 from blit_torch.ops import detect as tdet
 from blit_torch.ops import dft as tdft
 from blit_torch.ops import pfb as tpfb
@@ -234,3 +237,52 @@ def test_channelize_new_plans_run_the_kernels(dev, nfft, nint, nchan, plan,
     assert tch.last_kernel_plan()["impl"] == "plain"
     assert got.shape == want.shape == (2, 4, nchan * nfft)
     _close(got, want, 1e-4, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [257, 70001])
+@pytest.mark.parametrize("T", [1 << k for k in range(1, 11)])
+def test_taylor_tree_bitwise_equal_to_plain(dev, T, F):
+    # Every window blit allows, on both kernel routes, at a width that is
+    # a multiple of no tile; both signs through drift_spectra.
+    rng = np.random.default_rng(T + F)
+    x = torch.from_numpy(rng.normal(50.0, 5.0, (T, F)).astype(np.float32)).to(dev)
+    launches = tpd.kernel_route(T)[1]
+    n0 = tpd.taylor_tree.launches
+    got = tpd.taylor_tree(x)
+    both = tpd.drift_spectra(x)
+    torch.cuda.synchronize()
+    assert tpd.taylor_tree.launches == n0 + 2 * launches
+    assert torch.equal(got, tpd.taylor_tree_plain(x))
+    assert both.shape == (2 * T - 1, F)
+    assert torch.equal(both, tpd.drift_spectra_plain(x))
+
+
+@pytest.mark.cuda
+def test_taylor_tree_refuses_windows_no_route_takes(dev):
+    for T in (1, 3, 2048):
+        with pytest.raises(ValueError, match="window_spectra"):
+            tpd.drift_spectra(torch.zeros((T, 64), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbands,max_drift", [(1, None), (4, 5), (64, None)])
+def test_dedoppler_hits_on_the_card_match_the_cpu(dev, nbands, max_drift):
+    T, F = 64, 1 << 14
+    rng = np.random.default_rng(nbands)
+    x = rng.normal(50.0, 5.0, (T, F)).astype(np.float32)
+    for t in range(T):
+        x[t, 300 + tpd.tree_path_shift(3, t, T)] += 60.0
+    n0 = tpd.taylor_tree.launches
+    got = tpd.dedoppler_hits(torch.from_numpy(x).to(dev), 5.0, top_k=8,
+                             nbands=nbands, max_drift_bins=max_drift)
+    assert tpd.taylor_tree.launches == n0 + 1
+    want = tpd.dedoppler_hits(torch.from_numpy(x), 5.0, top_k=8, nbands=nbands,
+                              max_drift_bins=max_drift)
+    g = tpd.unpack_hits(got.cpu().numpy())
+    w = tpd.unpack_hits(want.numpy())
+    assert len(g[0]) > 0
+    for a, b in zip(g[2:], w[2:]):  # drift, chan, band
+        assert np.array_equal(a, b)
+    assert np.array_equal(g[1], w[1])  # power: the same cells of equal trees
+    np.testing.assert_allclose(g[0], w[0], rtol=1e-5)

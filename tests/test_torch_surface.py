@@ -28,7 +28,9 @@ def _all_modules():
 def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
     mods = _all_modules()
     assert {"blit_torch.ops.pfb", "blit_torch.ops.detect", "blit_torch.pipeline",
-            "blit_torch.io.guppi", "blit_torch.kernels"} <= set(mods)
+            "blit_torch.io.guppi", "blit_torch.kernels",
+            "blit_torch.search.dedoppler", "blit_torch.ops.dedoppler",
+            "blit_torch.io.hits"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,6 +74,8 @@ def test_default_device_without_gpu_raises_clear_error():
         pytest.skip("a CUDA device is present; the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RawReducer(nfft=1 << 20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        blit_torch.DedopplerReducer(nfft=1024)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         blit_torch.channelize(torch.zeros((1, 5 * 64, 2, 2), dtype=torch.int8),
                               torch.zeros((4, 64)), nfft=64)
