@@ -21,6 +21,11 @@ Taylor-tree drift transform of both signs through a seventh kernel
 (``taylor_tree``), per-drift SNR, a device-side threshold and per-band
 top-k, and writes a ``.hits`` product.
 
+The antenna-array plane (:mod:`blit_torch.parallel`): per-antenna RAW
+recordings → tied-array beam power through an eighth kernel
+(``fused_beamform_detect``) and FX visibilities through the F-engine's
+``dft_last`` and a ninth (``xengine_packed``), on one card.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

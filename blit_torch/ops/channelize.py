@@ -102,6 +102,18 @@ def pfb_frontend(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fft_planar(fr: torch.Tensor, fi: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planar DFT along the last axis, natural order, f32 out: the matmul
+    DFT of ``blit.ops.channelize.fft_planar`` (``method="matmul"``), which
+    ``blit`` runs as XLA matmuls (``use_pallas=False``).  On CUDA tensors
+    the port runs each level through its own kernels (``dft(...,
+    use_pallas=True)``: one ``dft_last`` launch for n <= 4096); on CPU
+    tensors the same levels run through their plain twins."""
+    return dft_mod.dft(fr.contiguous(), fi.contiguous(),
+                       use_pallas=fr.device.type == "cuda")
+
+
 def integrate(power: torch.Tensor, nint: int) -> torch.Tensor:
     """Sum groups of ``nint`` consecutive frames (axis -2)."""
     if nint <= 1:

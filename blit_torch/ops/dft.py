@@ -24,7 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +33,26 @@ from blit_torch import kernels
 
 # Largest DFT applied as a single matmul; larger sizes decompose.
 DIRECT_DFT_MAX = 4096
+
+# The planar complex convention: a complex array is a (re, im) pair of
+# equal-shape real tensors.
+Planar = Tuple[torch.Tensor, torch.Tensor]
+# A planar entry point's input: one complex tensor or a planar pair.
+ComplexOrPlanar = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def as_planar(x) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """Normalize a complex tensor or a planar pair to ``(re, im,
+    was_complex)``, as ``blit.ops.dft.as_planar``: a pair passes through,
+    a complex tensor splits into contiguous planes, a real tensor gets a
+    zero imaginary plane.  numpy arrays are taken as tensors."""
+    if isinstance(x, (tuple, list)):
+        xr, xi = x
+        return torch.as_tensor(xr), torch.as_tensor(xi), False
+    x = torch.as_tensor(x)
+    if x.is_complex():
+        return x.real.contiguous(), x.imag.contiguous(), True
+    return x, torch.zeros_like(x), False
 
 
 @functools.lru_cache(maxsize=32)

@@ -5,16 +5,20 @@ then reduces a 64-channel GUPPI RAW recording to rawspec's three
 products (``0000``: nfft 2^20; ``0002``: nfft 1024, nint 2048;
 ``0001``: nfft 8, nint 128), searches it for drifting tones
 (``.hits`` at nfft 1024 and at nfft 2^20), channelizes one chunk at
-nfft 2^21 and one at nfft 6144, and recovers injected ±20-bin drifts,
-all through the kernels, and checks the results.
+nfft 2^21 and one at nfft 6144, recovers injected ±20-bin drifts, and
+turns 64 per-antenna recordings into tied-array beam power and FX
+visibilities at the array scale, all through the kernels, and checks
+the results.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   (a) device: name and power limit;
-  (b) build: the six sources (seven kernels: pfb_dft1, tail2_detect,
+  (b) build: the eight sources (nine kernels: pfb_dft1, tail2_detect,
       pfb_dequant, dft_stage + dft_last in dft.cu, dft_tail2,
-      taylor_tree) with nvcc for sm_90a, started together, timed;
+      taylor_tree, fused_beamform_detect in beamform_detect.cu,
+      xengine_packed in xengine.cu) with nvcc for sm_90a, started
+      together, timed;
   (c) kernels vs twins at the main paths' chunk shapes, elementwise
       (bf16 outputs also in relative rms against a control that skips
       the bf16 rounding), with CUDA-event times (median of 7 runs after
@@ -84,9 +88,35 @@ Phases, in order; any failure exits non-zero:
       windows of 64 spectra at nfft 1024, a tone in coarse channel 10
       drifting by tone_drift_for(1024, 64, ±20)); in both windows the
       top hit is in the tone's band at a drift within 1 of ±20.
+  (k) beamform, after (f): 64 RAW files (synth_raw, 64 channels, 32768
+      samples, a tone in channel a % 64: 537 MB), delay weights for 64
+      beams as bench.py makes them; the one-shot path
+      (load_antennas(layout="chan") + beamform(layout="chan"), 8192
+      samples, nint 8) must take the fused CUDA kernel, once, and agree
+      with the plain version (rtol 1e-4, atol 1e-3 of the peak and of the
+      median power); the kernel against its plain version in f32 and
+      bf16 (bf16 also in relative rms against the f32 weights), timed
+      with the matmul route beside it (no single PyTorch call computes
+      the function); beamform_stream over 4 windows of 8192 (4 launches)
+      bitwise equal (torch.equal) to the one-shot beamform on the span;
+      beamform_accumulate over the same feed (nint 8192: the matmul
+      route) within rtol 1e-4 of the one-shot power summed; stage
+      seconds and RAW GB/s;
+  (l) correlator: 64 RAW files (16 channels, 64·512 samples: 134 MB);
+      load_correlator + correlate(vis_layout="packed") at nfft 512, ntap
+      4 must take the CUDA X-engine and one dft_last launch, and agree
+      with the plain route (F-engine DFT through dft_last's twin,
+      xengine_packed_plain; rtol 1e-4, atol 1e-3 of the noise rms);
+      xengine_packed against its plain version at (64, 16, 2, 61, 512)
+      in f32 and bf16 (atol 1e-3 of the spectra's mean square), timed
+      beside the batched complex64 torch.matmul of the packed spectra;
+      correlate_stream over windows of 15 frames (5 windows, 5 launches
+      of each) bitwise equal to correlate(acc_frames=15); stage seconds
+      and RAW GB/s.
 (e) and (f) count launches as (d) does and hold the output to rtol 1e-4
-and an atol of 1e-3 of the mean bin.  The line before the last two is
-one JSON object listing the seven kernels; the last line is
+and an atol of 1e-3 of the mean bin; (k) and (l) count them for each
+path the same way.  The line before the last two is one JSON object
+listing the nine kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -136,6 +166,23 @@ TREE_SHAPES = (
     ("global-pass route, odd F", 256, 70001),
 )
 
+# The antenna-array plane at bench.py's array scale (_run_collectives):
+# (k) beamform: 64 antennas → 64 beams over 64 channels, 2 pols, nint 8,
+# one-shot over BF_SAMPLES, streamed over BF_WINDOWS windows of it; (l)
+# correlator: 64 antennas, 16 channels, nfft 512, ntap 4, FX_SAMPLES
+# samples, streamed in windows of FX_WINDOW_FRAMES frames.  One RAW file
+# per antenna, a tone in channel a % nchan (bench.py:560-568).
+ARRAY_NANT = 64
+BF_NBEAM = 64
+BF_NCHAN = 64
+BF_NINT = 8
+BF_SAMPLES = 8192
+BF_WINDOWS = 4
+FX_NCHAN = 16
+FX_NFFT = 512
+FX_SAMPLES = 64 * FX_NFFT
+FX_WINDOW_FRAMES = 15
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # CUDA cores, f32
@@ -159,6 +206,13 @@ BOUNDS = {
     ("dft_last", "bfloat16"): (1e-4, 1e-3, "input_rms"),
     ("dft_stage", "float32"): (1e-4, 1e-3, "input_rms"),
     ("dft_tail2", "float32"): (1e-4, 1e-3, "input_rms"),
+    # tests/test_pallas_beamform.py:43-46 and tests/test_pallas_xengine.py:
+    # 40-43 (atol 1e-3 on unit-variance spectra: visibilities scale with
+    # the spectra's rms squared, and so does the atol here).
+    ("fused_beamform_detect", "float32"): (1e-4, 1e-3, "peak"),
+    ("fused_beamform_detect", "bfloat16"): (1e-4, 1e-3, "peak"),
+    ("xengine_packed", "float32"): (1e-4, 1e-3, "input_ms"),
+    ("xengine_packed", "bfloat16"): (1e-4, 1e-3, "input_ms"),
 }
 # bf16 outputs are also held in aggregate, ‖got − want‖₂ / ‖want‖₂: a
 # sound kernel differs from its twin only where an f32 rounding
@@ -172,6 +226,12 @@ DETECT_FLOPS = {"I": 7, "XX": 3, "YY": 3, "XXYY": 6, "full": 12, "IQUV": 16}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stage_table(tl) -> dict:
+    """A Timeline's stages as {name: {"s": seconds, "GB": bytes / 1e9}}."""
+    return {k: {"s": round(v.seconds, 4), "GB": round(v.bytes / 1e9, 4)}
+            for k, v in tl.stages.items()}
 
 
 def median_ms(torch, fn, runs: int = 7) -> float:
@@ -208,17 +268,25 @@ def rms(torch, tensors) -> float:
             / sum(t.numel() for t in tensors)) ** 0.5
 
 
-def check_bound(torch, got, want, name, dtype, inputs=(), grow=1.0):
+def check_bound(torch, got, want, name, dtype, inputs=(), grow=1.0,
+                noise=None):
     """Elementwise check of ``BOUNDS[(name, dtype)]`` over the tensors
     of ``got`` and ``want``, the atol times ``grow`` → (max abs error,
-    atol, ok)."""
+    atol, ok).  With ``noise``, the atol scales with that noise level
+    instead of the bound's own scale."""
     rtol, frac, scale = BOUNDS[(name, dtype)]
+    if noise is not None:
+        scale = "noise"
     if scale == "peak":
         s = max(w.float().abs().max().item() for w in want)
     elif scale == "peak1":
         s = max(max(w.float().abs().max().item() for w in want), 1.0)
     elif scale == "input_rms":
         s = rms(torch, inputs)
+    elif scale == "input_ms":
+        s = rms(torch, inputs) ** 2
+    elif scale == "noise":
+        s = noise
     else:
         s = (sum(w.float().abs().sum(dtype=torch.float64).item() for w in want)
              / sum(w.numel() for w in want))
@@ -489,19 +557,23 @@ def phase_front_kernels(torch, dev):
 
 
 COUNTED = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft_stage", "dft_last",
-           "dft_tail2", "taylor_tree")
+           "dft_tail2", "taylor_tree", "fused_beamform_detect", "xengine_packed")
 
 
 def _wrappers():
+    from blit_torch.ops import beamform as tbf
     from blit_torch.ops import dedoppler as tpd
     from blit_torch.ops import detect as tdet
     from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb
+    from blit_torch.ops import xengine as txe
 
     return {"pfb_dft1": tpfb.pfb_dft1, "tail2_detect": tdet.tail2_detect,
             "pfb_dequant": tpfb.pfb_dequant, "dft_stage": tdft.dft_stage,
             "dft_last": tdft.dft_last, "dft_tail2": tdft.dft_tail2,
-            "taylor_tree": tpd.taylor_tree}
+            "taylor_tree": tpd.taylor_tree,
+            "fused_beamform_detect": tbf.fused_beamform_detect,
+            "xengine_packed": txe.xengine_packed}
 
 
 def reset_launches():
@@ -644,8 +716,7 @@ def phase_product(torch, dev, raw_path, tmp, product):
     torch.cuda.empty_cache()
 
     st = red.stats
-    stages = {k: {"s": round(s.seconds, 4), "GB": round(s.bytes / 1e9, 4)}
-              for k, s in red.timeline.stages.items()}
+    stages = stage_table(red.timeline)
     gbps = st.gbps
     summary = dict(product=product, nfft=nfft, nint=nint, chunk_frames=frames,
                    chunks=red.timeline.stages["device"].calls,
@@ -903,8 +974,7 @@ def window_breakdown(torch, dev, red, host_window, nbands):
 
 def search_summary(red, hdr, wall, extra):
     st = red.timeline.stages
-    stages = {k: {"s": round(v.seconds, 4), "GB": round(v.bytes / 1e9, 4)}
-              for k, v in st.items()}
+    stages = stage_table(red.timeline)
     tree_s = sorted(red.timeline.observations["search.tree_s"])
     gbps = st["ingest"].bytes / st["stream"].seconds / 1e9
     return dict(windows=hdr["search_windows"], hits=hdr["search_nhits"],
@@ -1075,6 +1145,333 @@ def phase_drift(torch, dev, tmp):
     return launches
 
 
+def bf_cost(nchan, nant, nbeam, npol, ntime, nint, esize):
+    """fused_beamform_detect: voltages and weights read once, the
+    integrated power written once; 8 flops per (beam, antenna, pol,
+    sample) of complex products (bf16 operands at the tensor-core rate);
+    the detection and integration (<1% more) are left out."""
+    nbytes = (2 * nchan * nant * npol * ntime * esize + 2 * nchan * nbeam * nant * esize
+              + nchan * nbeam * npol * (ntime // nint) * 4)
+    rate = BF16_TC_FLOPS if esize == 2 else F32_FLOPS
+    return nbytes, [(8.0 * nchan * nbeam * nant * npol * ntime, rate)], None
+
+
+def xe_cost(nant, nchan, npol, nframes, nfft, esize):
+    """xengine_packed: the spectra read once, both visibility planes
+    written once.  V is Hermitian, so the function needs 8 flops per (ap,
+    bq, frame, fine channel) of one half, diagonal included: 4·nap·(nap+1)
+    per (frame, fine channel).  The kernel computes every (ap, bq), 8·nap²
+    (contract_ms)."""
+    nap = nant * npol
+    nbytes = (2 * nant * nchan * npol * nframes * nfft * esize
+              + 2 * nchan * nfft * nap * nap * 4)
+    rate = BF16_TC_FLOPS if esize == 2 else F32_FLOPS
+    per = nframes * nchan * nfft
+    return (nbytes, [(4.0 * nap * (nap + 1) * per, rate)],
+            [(8.0 * nap * nap * per, rate)])
+
+
+def write_antennas(tmp, tag, nchan, nsamples):
+    """One RAW recording per antenna (synth_raw, two blocks, a tone in
+    channel a % nchan, as bench.py writes them)."""
+    from blit_torch.testing import synth_raw
+
+    t0 = time.perf_counter()
+    paths = []
+    for a in range(ARRAY_NANT):
+        path = os.path.join(tmp, f"{tag}{a}.raw")
+        synth_raw(path, nblocks=2, obsnchan=nchan, ntime_per_block=nsamples // 2,
+                  seed=300 + a, tone_chan=a % nchan)
+        paths.append(path)
+    log(f"{tag}: wrote {sum(map(os.path.getsize, paths)) / 1e9:.3f} GB RAW for "
+        f"{ARRAY_NANT} antennas in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def check_array(path, plan, want_plan, launches, want_launches):
+    """The array path took ``want_plan``, and each kernel of
+    ``want_launches`` launched exactly as often as its windows predict."""
+    got = {k: launches[k] for k in want_launches}
+    log(f"{path}: plan {json.dumps(plan)} launches {json.dumps(got)}")
+    if plan != want_plan:
+        raise AssertionError(f"{path}: plan {plan}, want {want_plan}")
+    if got != want_launches:
+        raise AssertionError(f"{path}: launches {got}, want {want_launches}")
+
+
+def phase_beamform(torch, dev, tmp):
+    """(k): per-antenna RAW → tied-array beam power at the array scale.
+    Returns (launch counts by path, kernel records)."""
+    import numpy as np
+
+    from blit_torch.ops import beamform as tbf
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import beamform as B
+
+    total = BF_SAMPLES * BF_WINDOWS
+    paths = write_antennas(tmp, "bf", BF_NCHAN, total)
+    rng = np.random.default_rng(SEED)
+    w = tbf.pack_weights(*B.delay_weights_planar(
+        rng.uniform(0, 1e-9, (BF_NBEAM, ARRAY_NANT)),
+        np.linspace(1e9, 1.1e9, BF_NCHAN), device=dev))
+    fused = {"layout": "chan", "fused": True, "impl": "cuda"}
+    counts = {}
+
+    # The one-shot path: load_antennas + beamform.
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, v = A.load_antennas(paths, max_samples=BF_SAMPLES, layout="chan", device=dev)
+    one = B.beamform(v, w, nint=BF_NINT, layout="chan", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["beamform"] = read_launches()
+    check_array("beamform", B.last_beamform_plan(), fused, counts["beamform"],
+                {"fused_beamform_detect": 1})
+    if one.shape != (BF_NCHAN, BF_NBEAM, 2, BF_SAMPLES // BF_NINT):
+        raise AssertionError(f"beamform: output shape {tuple(one.shape)}")
+    want = tbf.fused_beamform_detect_plain(*v, *w, nint=BF_NINT)
+    err, atol, ok = check_bound(torch, [one], [want], "fused_beamform_detect", "float32")
+    nerr, natol, nok = check_bound(torch, [one], [want], "fused_beamform_detect",
+                                   "float32", noise=want.median().item())
+    log(f"beamform: one-shot {wall:.4f} s; vs the plain version max_abs_err "
+        f"{err:.6g} (rtol 1e-4, atol {atol:.6g} = 1e-3 of the peak; {natol:.6g} "
+        f"= 1e-3 of the median power: {nok})")
+    if not (ok and nok):
+        raise AssertionError("beamform: the one-shot path disagrees with the plain version")
+    del one, want
+
+    # The kernel against its plain version, f32 and bf16, timed.
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        vv, ww = [x.to(td) for x in v], [x.to(td) for x in w]
+        got = tbf.fused_beamform_detect(*vv, *ww, nint=BF_NINT)
+        want = tbf.fused_beamform_detect_plain(*vv, *ww, nint=BF_NINT)
+        err, atol, ok = check_bound(torch, [got], [want], "fused_beamform_detect", dtype)
+        _, natol, nok = check_bound(torch, [got], [want], "fused_beamform_detect",
+                                    dtype, noise=want.median().item())
+        agg = {}
+        if dtype == "bfloat16":
+            # Control: the f32 weights, not rounded (the voltages are exact).
+            control = tbf.fused_beamform_detect_plain(*v, *w, nint=BF_NINT)
+            agg = bf16_aggregate(torch, [got], [want], [control])
+            del control
+        del got, want
+        ms = median_ms(torch, lambda: tbf.fused_beamform_detect(*vv, *ww, nint=BF_NINT))
+        plain_ms = median_ms(
+            torch, lambda: tbf.fused_beamform_detect_plain(*vv, *ww, nint=BF_NINT), runs=5)
+        extra = {}
+        if dtype == "float32":
+            # The matmul route: one complex torch.matmul per channel's
+            # (nbeam, nant) x (nant, npol·ntime), then detect and integrate.
+            z = torch.complex(*v).reshape(BF_NCHAN, ARRAY_NANT, -1)
+            wz = torch.complex(*w)
+
+            def route():
+                b = torch.matmul(wz, z)
+                p = b.real * b.real + b.imag * b.imag
+                return p.reshape(BF_NCHAN, BF_NBEAM, 2, -1, BF_NINT).sum(-1)
+
+            extra["matmul_route_ms"] = median_ms(torch, route)
+            del z, wz
+        torch.cuda.empty_cache()
+        records.append(kernel_record(
+            "fused_beamform_detect", dtype, "blit_torch/csrc/beamform_detect.cu",
+            "blit/ops/pallas_beamform.py:108", err, atol,
+            ok and nok and agg.get("rel_rms_ok", True), ms, plain_ms,
+            bf_cost(BF_NCHAN, ARRAY_NANT, BF_NBEAM, 2, BF_SAMPLES, BF_NINT,
+                    vv[0].element_size()), None,
+            noise_atol=natol, library="none", **extra, **agg))
+        del vv, ww
+    del v
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"fused_beamform_detect disagrees with its plain version: {bad}")
+
+    # beamform_stream over BF_WINDOWS windows, then the one-shot on the span.
+    feed = A.AntennaStream(paths, window_samples=BF_SAMPLES, layout="chan", device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    slabs = list(B.beamform_stream(feed, w, nint=BF_NINT, layout="chan",
+                                   timeline=feed.timeline, device=dev))
+    wall = time.perf_counter() - t0
+    counts["beamform stream"] = read_launches()
+    check_array("beamform stream", B.last_beamform_plan(), fused,
+                counts["beamform stream"], {"fused_beamform_detect": BF_WINDOWS})
+    _, vall = A.load_antennas(paths, layout="chan", device=dev)
+    whole = B.beamform(vall, w, nint=BF_NINT, layout="chan", device=dev)
+    del vall
+    equal = bool(torch.equal(torch.cat(slabs, dim=3), whole.cpu()))
+    ingest = feed.timeline.stages["ingest"].bytes
+    summary = dict(path="beamform stream", windows=feed.nwindows, samples=total,
+                   wall_s=wall, raw_gb=ingest / 1e9, raw_gbps=ingest / wall / 1e9,
+                   bitwise_equal_one_shot=equal, stages=stage_table(feed.timeline))
+    log(f"beamform stream: {json.dumps(summary)}")
+    if not equal:
+        raise AssertionError("beamform stream: the slabs differ from the one-shot beamform")
+
+    # beamform_accumulate over the same feed: each window integrated whole
+    # (nint = 8192, past the kernel's gate: the matmul route, as in blit).
+    feed = A.AntennaStream(paths, window_samples=BF_SAMPLES, layout="chan", device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    acc = B.beamform_accumulate(feed, w, layout="chan", timeline=feed.timeline,
+                                device=dev)
+    wall = time.perf_counter() - t0
+    counts["beamform accumulate"] = read_launches()
+    check_array("beamform accumulate", B.last_beamform_plan(),
+                {"layout": "chan", "fused": False, "impl": "cuda"},
+                counts["beamform accumulate"], {"fused_beamform_detect": 0})
+    want = whole.sum(-1, keepdim=True)
+    err, ok = check_close(torch, acc, want, 1e-4, 1e-3 * want.abs().max().item())
+    log(f"beamform accumulate: {wall:.4f} s, vs the one-shot power summed "
+        f"max_abs_err {err:.6g} (rtol 1e-4, atol 1e-3 of the peak): {ok}")
+    if not ok:
+        raise AssertionError("beamform accumulate disagrees with the one-shot power")
+    del acc, whole, want, slabs, w
+    torch.cuda.empty_cache()
+    return counts, records
+
+
+def correlate_plain(torch, v, h):
+    """The correlator on the plain route: the F-engine's FIR, its DFT
+    through dft_last's plain twin, then xengine_packed_plain."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dft as tdft
+    from blit_torch.ops import xengine as txe
+
+    sign = torch.ones(h.shape[1], device=h.device)
+    sign[1::2] = -1
+    shifted = h * sign
+    fr, fi = (tch.pfb_frontend(x.movedim(3, 2), shifted) for x in v)
+    sr, si = tdft.dft(fr, fi, use_pallas=False)
+    del fr, fi
+    nant, nchan, npol, _, nfft = sr.shape
+    shape6 = (nchan, nfft, nant, npol, nant, npol)
+    return tuple(x.reshape(shape6) for x in txe.xengine_packed_plain(sr, si))
+
+
+def phase_correlator(torch, dev, tmp):
+    """(l): per-antenna RAW → packed FX visibilities at the array scale.
+    Returns (launch counts by path, kernel records)."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import xengine as txe
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import correlator as C
+
+    paths = write_antennas(tmp, "fx", FX_NCHAN, FX_SAMPLES)
+    h = torch.from_numpy(tch.pfb_coeffs(NTAP, FX_NFFT)).to(dev)
+    packed = {"layout": "packed", "engine": "cuda", "impl": "cuda"}
+    nframes = FX_SAMPLES // FX_NFFT - NTAP + 1
+    counts = {}
+
+    # The one-shot path: load_correlator + correlate(vis_layout="packed").
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, v = A.load_correlator(paths, nfft=FX_NFFT, ntap=NTAP, device=dev)
+    vis = C.correlate(v, h, nfft=FX_NFFT, ntap=NTAP, vis_layout="packed", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["correlate"] = read_launches()
+    check_array("correlate", C.last_xengine_plan(), packed, counts["correlate"],
+                {"xengine_packed": 1, "dft_last": 1})
+    shape6 = (FX_NCHAN, FX_NFFT, ARRAY_NANT, 2, ARRAY_NANT, 2)
+    if vis[0].shape != shape6 or not all(bool(torch.isfinite(x).all()) for x in vis):
+        raise AssertionError(f"correlate: output shape {tuple(vis[0].shape)} or non-finite")
+    want = correlate_plain(torch, v, h)
+    # The tone (0.25 of the coarse channel, synth_raw's default) lies in
+    # fine channel nfft/2 + nfft/4 after the fftshift; the noise level is
+    # the rms of the visibilities in the other fine channels.
+    tone = FX_NFFT // 2 + FX_NFFT // 4
+    off = torch.ones(FX_NFFT, dtype=torch.bool, device=dev)
+    off[tone] = False
+    noise = rms(torch, [x[:, off] for x in want])
+    peak = max(x.abs().max().item() for x in want)
+    errs = [check_close(torch, a, b, 1e-4, 1e-3 * noise) for a, b in zip(vis, want)]
+    err, ok = max(e[0] for e in errs), all(e[1] for e in errs)
+    log(f"correlate: one-shot {wall:.4f} s; vs the plain route max_abs_err {err:.6g} "
+        f"(rtol 1e-4, atol {1e-3 * noise:.6g} = 1e-3 of the noise rms; the peak "
+        f"is {peak:.6g}): {ok}")
+    if not ok:
+        raise AssertionError("correlate: the one-shot path disagrees with the plain route")
+    del want
+
+    # The kernel against its plain version on the F-engine's spectra.
+    sr, si = C.f_engine_planar(v[0].movedim(3, 2), v[1].movedim(3, 2), h)
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        xr, xi = sr.to(getattr(torch, dtype)), si.to(getattr(torch, dtype))
+        got = txe.xengine_packed(xr, xi)
+        want = txe.xengine_packed_plain(xr, xi)
+        err, atol, ok = check_bound(torch, got, want, "xengine_packed", dtype,
+                                    inputs=(sr, si))
+        agg = {}
+        if dtype == "bfloat16":
+            # Control: the f32 spectra, not rounded, with the visibilities
+            # rounded at their store (as (c)'s pfb_dft1 control).  The
+            # spectra's rounding alone averages down over the frames, to
+            # about the bound.
+            control = [x.to(torch.bfloat16) for x in txe.xengine_packed_plain(sr, si)]
+            agg = bf16_aggregate(torch, got, want, control)
+            del control
+        del got, want
+        torch.cuda.empty_cache()
+        ms = median_ms(torch, lambda: txe.xengine_packed(xr, xi))
+        plain_ms = median_ms(torch, lambda: txe.xengine_packed_plain(xr, xi), runs=5)
+        lib_ms = None
+        if dtype == "float32":
+            # One PyTorch call for the function: the packed spectra
+            # (nchan·nfft, nap, nframes) times their conjugate transpose.
+            x = torch.complex(sr, si).permute(1, 4, 0, 2, 3).reshape(
+                FX_NCHAN * FX_NFFT, 2 * ARRAY_NANT, nframes).contiguous()
+            xh = x.transpose(-1, -2).conj()
+            lib_ms = median_ms(torch, lambda: torch.matmul(x, xh))
+            del x, xh
+        torch.cuda.empty_cache()
+        records.append(kernel_record(
+            "xengine_packed", dtype, "blit_torch/csrc/xengine.cu",
+            "blit/ops/pallas_xengine.py:119", err, atol,
+            ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+            xe_cost(ARRAY_NANT, FX_NCHAN, 2, nframes, FX_NFFT, xr.element_size()),
+            lib_ms, library="torch.matmul(complex64 packed spectra, conj transpose)",
+            **agg))
+        del xr, xi
+    del sr, si
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"xengine_packed disagrees with its plain version: {bad}")
+
+    # correlate_stream over windows of FX_WINDOW_FRAMES frames, then the
+    # one-shot at the same accumulation.
+    feed = A.CorrelatorStream(paths, nfft=FX_NFFT, ntap=NTAP,
+                              window_frames=FX_WINDOW_FRAMES, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    svis = C.correlate_stream(feed, h, nfft=FX_NFFT, ntap=NTAP, vis_layout="packed",
+                              timeline=feed.timeline, device=dev)
+    wall = time.perf_counter() - t0
+    counts["correlate stream"] = read_launches()
+    check_array("correlate stream", C.last_xengine_plan(), packed,
+                counts["correlate stream"],
+                {"xengine_packed": feed.nwindows, "dft_last": feed.nwindows})
+    acc = C.correlate(v, h, nfft=FX_NFFT, ntap=NTAP, vis_layout="packed",
+                      acc_frames=FX_WINDOW_FRAMES, device=dev)
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(svis, acc))
+    ingest = feed.timeline.stages["ingest"].bytes
+    summary = dict(path="correlate stream", windows=feed.nwindows,
+                   window_frames=FX_WINDOW_FRAMES, frames=nframes, wall_s=wall,
+                   raw_gb=ingest / 1e9, raw_gbps=ingest / wall / 1e9,
+                   bitwise_equal_acc_frames=equal, stages=stage_table(feed.timeline))
+    log(f"correlate stream: {json.dumps(summary)}")
+    if not equal:
+        raise AssertionError("correlate stream differs from correlate(acc_frames)")
+    del v, vis, svis, acc
+    torch.cuda.empty_cache()
+    return counts, records
+
+
 def main() -> int:
     try:
         import torch
@@ -1134,6 +1531,16 @@ def main() -> int:
     records.append(tail2_rec)
     launches["6144"], level_recs = phase_6144(torch, dev)
     records.extend(level_recs)
+
+    # (k) the beamformer and (l) the correlator, from per-antenna RAW
+    tmp = tempfile.mkdtemp(prefix="blit-smoke-array-")
+    try:
+        for phase in (phase_beamform, phase_correlator):
+            counts, recs = phase(torch, dev, tmp)
+            launches.update(counts)
+            records.extend(recs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # One record per kernel: the f32 variant at its first path's shape.
     total = {k: sum(c[k] for c in launches.values()) for k in COUNTED}

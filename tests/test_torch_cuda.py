@@ -286,3 +286,172 @@ def test_dedoppler_hits_on_the_card_match_the_cpu(dev, nbands, max_drift):
         assert np.array_equal(a, b)
     assert np.array_equal(g[1], w[1])  # power: the same cells of equal trees
     np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+
+
+# -- the antenna-array plane: fused_beamform_detect and xengine_packed -------
+# Bounds as blit's: beamform rtol 1e-4 / atol 1e-3·max
+# (tests/test_pallas_beamform.py:43-46), the X-engine rtol 1e-4 / atol 1e-3
+# on unit-variance spectra (tests/test_pallas_xengine.py:40-43).
+
+def _beam_case(dev, nchan, nant, nbeam, npol, ntime, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-40, 41, (2, nchan, nant, npol, ntime)).astype(np.float32)
+    w = rng.standard_normal((2, nchan, nbeam, nant)).astype(np.float32)
+    vr, vi = (torch.from_numpy(x).to(dev, dtype) for x in v)
+    wr, wi = (torch.from_numpy(x).to(dev, dtype) for x in w)
+    return vr, vi, wr, wi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nchan,nant,nbeam,npol,ntime,nint", [
+    (3, 64, 64, 2, 1024, 8),     # the array shape, odd channel count
+    (2, 17, 65, 2, 136, 8),      # ragged antenna slice, beam tile, time tile
+    (1, 5, 3, 1, 256, 1),        # one pol, nint 1
+    (2, 16, 64, 2, 384, 2),
+    (2, 16, 64, 2, 512, 16),     # nint across 2 threads
+    (1, 8, 70, 2, 1024, 128),    # the gate's largest nint
+], ids=lambda x: str(x))
+def test_fused_beamform_detect_matches_plain(dev, nchan, nant, nbeam, npol,
+                                             ntime, nint, dtype):
+    from blit_torch.ops import beamform as tbf
+
+    args = _beam_case(dev, nchan, nant, nbeam, npol, ntime, dtype)
+    assert tbf.fits(nant, nbeam, npol, ntime, nint, args[0].element_size())
+    n0 = tbf.fused_beamform_detect.launches
+    got = tbf.fused_beamform_detect(*args, nint=nint)
+    torch.cuda.synchronize()
+    assert tbf.fused_beamform_detect.launches == n0 + 1
+    want = tbf.fused_beamform_detect_plain(*args, nint=nint)
+    assert got.dtype == torch.float32
+    _close(got, want, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nint", [8, 32])
+def test_fused_beamform_detect_windows_equal_one_shot_bitwise(dev, nint):
+    from blit_torch.ops import beamform as tbf
+
+    vr, vi, wr, wi = _beam_case(dev, 2, 64, 64, 2, 4096, torch.float32, seed=1)
+    whole = tbf.fused_beamform_detect(vr, vi, wr, wi, nint=nint)
+    parts = [tbf.fused_beamform_detect(vr[..., t:t + 1024].contiguous(),
+                                       vi[..., t:t + 1024].contiguous(), wr, wi,
+                                       nint=nint) for t in range(0, 4096, 1024)]
+    assert torch.equal(whole, torch.cat(parts, dim=-1))
+
+
+@pytest.mark.cuda
+def test_fused_beamform_detect_refuses_shapes_outside_the_gate(dev):
+    from blit_torch.ops import beamform as tbf
+
+    args = _beam_case(dev, 1, 4, 4, 2, 768, torch.float32)
+    for nint in (3, 256):
+        assert not tbf.fits(4, 4, 2, 768, nint)
+        with pytest.raises(ValueError, match="Hopper kernel"):
+            tbf.fused_beamform_detect(*args, nint=nint)
+
+
+def _spectra(dev, shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev, dtype) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nant,nchan,npol,nframes,nfft", [
+    (64, 3, 2, 13, 64),    # nap 128, the gate's edge; odd channel count
+    (64, 1, 2, 61, 512),   # the array shape, one channel
+    (65, 2, 2, 5, 40),     # nap 130: ragged tiles; nfft not a multiple of 32
+    (8, 3, 1, 7, 16),      # below the gate: the kernel still computes it
+], ids=lambda x: str(x))
+def test_xengine_packed_matches_plain(dev, nant, nchan, npol, nframes, nfft,
+                                      dtype):
+    from blit_torch.ops import xengine as txe
+
+    sr, si = _spectra(dev, (nant, nchan, npol, nframes, nfft), dtype, nant + nfft)
+    n0 = txe.xengine_packed.launches
+    got = txe.xengine_packed(sr, si)
+    torch.cuda.synchronize()
+    assert txe.xengine_packed.launches == n0 + 1
+    want = txe.xengine_packed_plain(sr, si)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w, 1e-4, 1e-3 / w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_xengine_packed_reads_a_frame_slice_in_place(dev):
+    # A tile of frames (correlate's acc_frames) is read through its strides
+    # and equals the same frames made contiguous, bitwise.
+    from blit_torch.ops import xengine as txe
+
+    sr, si = _spectra(dev, (64, 2, 2, 61, 64), torch.float32, 3)
+    a = txe.xengine_packed(sr[..., 15:30, :], si[..., 15:30, :])
+    b = txe.xengine_packed(sr[..., 15:30, :].contiguous(),
+                           si[..., 15:30, :].contiguous())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert txe.eligible(128, 2, 64) and not txe.eligible(120, 2, 64)
+
+
+@pytest.mark.cuda
+def test_xengine_packed_addresses_spectra_past_2_31_elements(dev):
+    # 64-bit offsets: the second antenna's spectra lie 2^31 elements into
+    # the buffer; the result equals that of the same spectra made compact.
+    from blit_torch.ops import xengine as txe
+
+    shape = (2, 1, 2, 5, 64)
+    sr, si = _spectra(dev, shape, torch.bfloat16, 4)
+    per = sr[0].numel()
+    buf = torch.zeros(2 ** 31 + 2 * per, dtype=torch.bfloat16, device=dev)
+    strides = (2 ** 31, 2 * 5 * 64, 5 * 64, 64, 1)
+    far = [buf.as_strided(shape, strides, k * per) for k in range(2)]
+    for f, x in zip(far, (sr, si)):
+        f.copy_(x)
+    got = txe.xengine_packed(*far)
+    want = txe.xengine_packed(sr, si)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_array_entry_points_run_the_kernels(dev, tmp_path):
+    # The array plane on the card at a small shape the gates admit:
+    # beamform(layout="chan") fused, correlate(packed) through the X-engine
+    # and dft_last, and both streams bitwise equal to their one-shot forms.
+    from blit_torch.ops import beamform as tbf
+    from blit_torch.ops import xengine as txe
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import beamform as B
+    from blit_torch.parallel import correlator as C
+    from blit_torch.testing import synth_raw
+
+    paths = []
+    for a in range(64):
+        p = str(tmp_path / f"a{a}.raw")
+        synth_raw(p, nblocks=2, obsnchan=3, ntime_per_block=2048, seed=a,
+                  tone_chan=a % 3)
+        paths.append(p)
+    w = B.delay_weights_planar(np.random.default_rng(0).uniform(0, 1e-9, (64, 64)),
+                               np.linspace(1e9, 1.1e9, 3), device=dev)
+    wc = tbf.pack_weights(*w)
+    _, v = A.load_antennas(paths, layout="chan", device=dev)
+    n0 = tbf.fused_beamform_detect.launches
+    one = B.beamform(v, wc, nint=8, layout="chan", device=dev)
+    assert B.last_beamform_plan() == {"layout": "chan", "fused": True, "impl": "cuda"}
+    _close(one, tbf.fused_beamform_detect_plain(*v, *wc, nint=8), 1e-4, 1e-3)
+    feed = A.AntennaStream(paths, window_samples=1024, layout="chan", device=dev)
+    slabs = list(B.beamform_stream(feed, wc, nint=8, layout="chan", device=dev))
+    assert tbf.fused_beamform_detect.launches == n0 + 1 + feed.nwindows
+    assert torch.equal(torch.cat(slabs, dim=-1), one.cpu())
+
+    h = torch.from_numpy(tch.pfb_coeffs(4, 64)).to(dev)
+    _, cv = A.load_correlator(paths, nfft=64, device=dev)
+    x0, d0 = txe.xengine_packed.launches, tdft.dft_last.launches
+    vis = C.correlate(cv, h, nfft=64, vis_layout="packed", acc_frames=15, device=dev)
+    assert C.last_xengine_plan() == {"layout": "packed", "engine": "cuda", "impl": "cuda"}
+    assert tdft.dft_last.launches == d0 + 1
+    assert txe.xengine_packed.launches == x0 + -(-(4096 // 64 - 3) // 15)
+    feed = A.CorrelatorStream(paths, nfft=64, window_frames=15, device=dev)
+    svis = C.correlate_stream(feed, h, nfft=64, vis_layout="packed", device=dev)
+    assert torch.equal(vis[0], svis[0]) and torch.equal(vis[1], svis[1])

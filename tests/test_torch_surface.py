@@ -30,7 +30,10 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
     assert {"blit_torch.ops.pfb", "blit_torch.ops.detect", "blit_torch.pipeline",
             "blit_torch.io.guppi", "blit_torch.kernels",
             "blit_torch.search.dedoppler", "blit_torch.ops.dedoppler",
-            "blit_torch.io.hits"} <= set(mods)
+            "blit_torch.io.hits", "blit_torch.ops.beamform",
+            "blit_torch.ops.xengine", "blit_torch.parallel",
+            "blit_torch.parallel.antenna", "blit_torch.parallel.beamform",
+            "blit_torch.parallel.correlator"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,6 +82,22 @@ def test_default_device_without_gpu_raises_clear_error():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         blit_torch.channelize(torch.zeros((1, 5 * 64, 2, 2), dtype=torch.int8),
                               torch.zeros((4, 64)), nfft=64)
+
+
+def test_array_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    from blit_torch.parallel import antenna, beamform, correlator
+
+    v = torch.zeros((2, 1, 64, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        beamform.beamform(v, torch.zeros((3, 2, 1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        beamform.delay_weights_planar(torch.zeros((3, 2)), torch.zeros(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        correlator.correlate(v, torch.zeros((4, 16)), nfft=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        antenna.load_antennas(["a.raw"])
 
 
 @pytest.mark.parametrize("nfft,npol", [(1024, 1), (1 << 19, 1), (1 << 20, 1)])
