@@ -8,12 +8,15 @@ never a module of ``blit`` — and keeps its own copies of what it needs.
 The main path: one bank's GUPPI RAW recording in, rawspec's three
 filterbank products out — ``0000`` (nfft 2^20), ``0001`` (nfft 8, nint
 128) and ``0002`` (nfft 1024, nint 2048) — through
-:func:`blit_torch.pipeline.reducer_for_product`, or any two-pol nfft
-that ``default_factors`` splits through ``RawReducer(nfft=...)``.  On a
-CUDA device the channelizer runs six hand-written Hopper kernels
-(``blit_torch/csrc``: ``pfb_dft1``, ``tail2_detect``, ``pfb_dequant``,
-``dft_stage``, ``dft_last``, ``dft_tail2``); on the CPU it runs their
-plain PyTorch twins.
+:func:`blit_torch.pipeline.reducer_for_product`, or any nfft that
+``default_factors`` splits, one pol or two, through
+``RawReducer(nfft=...)``.  On a CUDA device the channelizer runs six hand-written
+Hopper kernels (``blit_torch/csrc``: ``pfb_dft1``, ``tail2_detect``,
+``pfb_dequant``, ``dft_stage``, ``dft_last``, ``dft_tail2``); on the CPU
+it runs their plain PyTorch twins.  It takes ``blit``'s kernel knobs
+(``fft_method``, ``dft_order``, ``pfb_kernel``, ``tail_kernel``,
+``detect_kernel``): ``detect_kernel="pallas"`` runs a tenth kernel,
+``detect_untwist_i``, on the twisted spectra of ``dft(order="twisted")``.
 
 The search plane: :class:`blit_torch.search.DedopplerReducer` turns the
 same recording into the Stokes-I spectra stream, fixed windows, the

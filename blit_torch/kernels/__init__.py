@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 KERNEL_SOURCES = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft", "dft_tail2",
-                  "taylor_tree", "beamform_detect", "xengine")
+                  "taylor_tree", "beamform_detect", "xengine", "detect_untwist")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

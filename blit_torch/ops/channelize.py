@@ -8,9 +8,11 @@ Counterpart of ``blit/ops/channelize.py``::
       → integrate by nint → fqav epilogue
       → (ntime_out, nif, nchan_coarse*nfft) float32, channel fastest
 
-The plan follows ``blit``'s "fullest fusion first" order, with the Hopper
-kernels' fit gates in place of the TPU's VMEM gates.  For two-pol input
-and every nfft that :func:`default_factors` splits:
+The plan follows ``blit``'s rules, in ``blit``'s order, with the Hopper
+kernels' fit gates in place of the TPU's VMEM gates; ``"auto"`` means the
+plan ``blit`` resolves on the TPU (``fft_method="matmul"``).  Under
+``"auto"``, for two-pol input and every nfft :func:`default_factors`
+splits:
 
 - ``pfb_dft1`` (dequant + PFB + DFT stage 1, :mod:`blit_torch.ops.pfb`)
   when nfft has >= 2 factors and its gate passes; then ``tail2_detect``
@@ -23,14 +25,26 @@ and every nfft that :func:`default_factors` splits:
   ``dft_stage``/``dft_last`` (one factor: ``dft_last`` alone — the
   ``0001`` and ``0002`` products) and detection in torch ops.
 
-On a CUDA device every step of these rows is a hand-written Hopper
+One-pol input takes the FIR in torch ops (``pfb_kernel="xla"``), then
+the DFT levels through the kernels, as ``blit``'s ``pol_ok`` gate sends
+it on the TPU.  The opt-in knobs add the other routes of ``blit``:
+``detect_kernel="pallas"`` (``pfb_dft1``, the remaining levels in
+twisted order, then ``detect_untwist_i``, which detects and untwists in
+one pass), ``dft_order="twisted"`` without ``pfb_dft1`` (detect the
+twisted spectra, untwist the power), ``pfb_kernel="xla"``, and
+``fft_method="direct"``/``"four_step"`` (``torch.fft``, as ``blit`` runs
+``jnp.fft``).  A combination ``blit`` refuses raises ``ValueError``
+naming the same knob, and so does an explicit kernel a Hopper gate
+refuses.
+
+On a CUDA device every kernel of these routes is a hand-written Hopper
 kernel; on the CPU the same plan runs through the kernels' plain twins.
-One-pol input runs only on the CPU, through the unfused plain path
-(dequant → FIR → ``torch.fft`` → detect), as ``blit`` does off the TPU.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -44,11 +58,14 @@ from blit_torch.ops.detect import (  # noqa: F401  (re-exported names)
     STOKES_NIF,
     detect_stokes_planar,
 )
-from blit_torch.ops.dft import as_tensors, default_factors, dft_matrices, twiddles
+from blit_torch.ops.dft import (
+    as_tensors,
+    default_factors,
+    dft_matrices,
+    twiddles,
+    untwist,
+)
 from blit_torch.ops.fqav import fqav as _fqav
-
-# ROADMAP item that ports the input the CUDA plan does not take yet.
-_ROADMAP_NEXT = "ROADMAP.md Queue 1: 'one-pol input on CUDA'"
 
 
 def usable_frames(nsamps: int, nfft: int, ntap: int, nint: int) -> int:
@@ -102,16 +119,75 @@ def pfb_frontend(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def fft_planar(fr: torch.Tensor, fi: torch.Tensor
+def resolve_fft_method(method: str) -> str:
+    """``"auto"`` → ``"matmul"``: the planar matmul DFT of ``blit``'s TPU
+    plan, run through the DFT kernels on CUDA and their twins on the CPU.
+    ``"direct"`` and ``"four_step"`` (``torch.fft``) pass through."""
+    if method == "auto":
+        return "matmul"
+    if method not in ("matmul", "direct", "four_step"):
+        raise ValueError(f"unknown fft method {method!r}")
+    return method
+
+
+def _four_step_factors(n: int) -> Tuple[int, int]:
+    """Split n = n1*n2 with n1, n2 as close as possible (prefer powers of 2)."""
+    if n & (n - 1) == 0:
+        p = n.bit_length() - 1
+        n1 = 1 << (p // 2)
+        return n1, n // n1
+    n1 = math.isqrt(n)
+    while n % n1:
+        n1 -= 1
+    return n1, n // n1
+
+
+def fft(z: torch.Tensor, *, method: str) -> torch.Tensor:
+    """Complex FFT along the last axis through ``torch.fft``, as
+    ``blit.ops.channelize.fft`` through ``jnp.fft``: ``"direct"`` is one
+    call, ``"four_step"`` the N = N1·N2 split (two batched FFTs, the
+    twiddle, the swap)."""
+    n = z.shape[-1]
+    if method == "direct":
+        return torch.fft.fft(z, dim=-1)
+    if method != "four_step":
+        raise ValueError(f"unknown fft method {method!r}")
+    n1, n2 = _four_step_factors(n)
+    if n1 == 1:
+        return torch.fft.fft(z, dim=-1)
+    # x[j] with j = n2*j1 + j2 → (n1, n2): rows index j1.
+    x = z.reshape(z.shape[:-1] + (n1, n2))
+    a = torch.fft.fft(x, dim=-2)
+    k1 = np.arange(n1).reshape(n1, 1)
+    j2 = np.arange(n2).reshape(1, n2)
+    tw = np.exp(-2j * np.pi * (k1 * j2) / n).astype(np.complex64)
+    a = a * torch.from_numpy(tw).to(z.device)
+    # X[k1 + n1*k2] = b[k1, k2].
+    b = torch.fft.fft(a, dim=-1)
+    return b.transpose(-1, -2).reshape(z.shape)
+
+
+def fft_planar(fr: torch.Tensor, fi: torch.Tensor, *, method: str = "auto",
+               order: str = "natural", use_pallas: Optional[bool] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Planar DFT along the last axis, natural order, f32 out: the matmul
-    DFT of ``blit.ops.channelize.fft_planar`` (``method="matmul"``), which
-    ``blit`` runs as XLA matmuls (``use_pallas=False``).  On CUDA tensors
-    the port runs each level through its own kernels (``dft(...,
-    use_pallas=True)``: one ``dft_last`` launch for n <= 4096); on CPU
-    tensors the same levels run through their plain twins."""
-    return dft_mod.dft(fr.contiguous(), fi.contiguous(),
-                       use_pallas=fr.device.type == "cuda")
+    """Planar FFT along the last axis, f32 out: the dispatch point of
+    ``blit.ops.channelize.fft_planar``.  ``method="matmul"`` (what
+    ``"auto"`` resolves to) is the planar matmul DFT, each level through
+    the kernels (``dft(..., use_pallas=True)``: one ``dft_last`` launch
+    for n <= 4096) — ``use_pallas=None`` means on CUDA tensors, False
+    runs the plain twins; ``order="twisted"`` skips the levels' swaps
+    (:func:`blit_torch.ops.dft.untwist` restores them).  ``"direct"`` and
+    ``"four_step"`` go through :func:`fft` (``torch.fft``, bf16 planes
+    widened to f32) and always emit natural order."""
+    method = resolve_fft_method(method)
+    if method == "matmul":
+        if use_pallas is None:
+            use_pallas = fr.device.type == "cuda"
+        return dft_mod.dft(fr.contiguous(), fi.contiguous(),
+                           use_pallas=use_pallas, order=order)
+    z = fft(torch.complex(fr.to(torch.float32), fi.to(torch.float32)),
+            method=method)
+    return z.real.contiguous(), z.imag.contiguous()
 
 
 def integrate(power: torch.Tensor, nint: int) -> torch.Tensor:
@@ -131,55 +207,143 @@ _LAST_PLAN: dict = {}
 
 def last_kernel_plan() -> dict:
     """The plan the most recent :func:`channelize` call ran, under
-    ``blit``'s keys: ``pfb_kernel`` is ``"fused1"`` (``pfb_dft1``),
-    ``"pallas"`` (``pfb_dequant``, ``blit``'s name for it) or ``"torch"``;
-    ``tail_kernel`` is ``"tail2_detect"``, ``"dft_tail2"``, ``"dft_last"``,
-    ``"dft_stage+dft_last"`` or ``"torch"``; ``detect_kernel`` is
-    ``"tail2_detect"`` or ``"torch"``; ``impl`` is ``"cuda"`` (the Hopper
-    kernels) or ``"plain"`` (their PyTorch twins / the unfused path)."""
+    ``blit``'s keys and values where the two agree: ``fft_method`` is the
+    resolved ``"matmul"``, ``"direct"`` or ``"four_step"``;
+    ``pfb_kernel`` is ``"fused1"`` (``pfb_dft1``), ``"pallas"``
+    (``pfb_dequant``, ``blit``'s name for it) or ``"torch"`` (the FIR in
+    torch ops, ``blit``'s ``"xla"``); ``tail_kernel`` is
+    ``"tail2_detect"``, ``"dft_tail2"``, ``"dft_last"``,
+    ``"dft_stage+dft_last"`` (the levels through the DFT kernels) or
+    ``"torch"`` (``torch.fft``); ``detect_kernel`` is ``"tail2_detect"``,
+    ``"detect_untwist_i"`` or ``"torch"``; ``dft_order`` is
+    ``"twisted"`` only where the power is untwisted after detection
+    (``blit``'s meaning); ``impl`` is ``"cuda"`` (the Hopper kernels) or
+    ``"plain"`` (their PyTorch twins)."""
     return dict(_LAST_PLAN)
 
 
-def _factors_or_none(nfft: int) -> Optional[Tuple[int, ...]]:
-    try:
-        return default_factors(nfft)
-    except NotImplementedError:
-        return None
+_KNOBS = {
+    "dft_order": ("auto", "twisted", "natural"),
+    "pfb_kernel": ("auto", "xla", "pallas", "fused1"),
+    "detect_kernel": ("auto", "xla", "pallas"),
+    "tail_kernel": ("auto", "xla", "pallas"),
+}
 
 
-def _resolve_plan(nfft: int, npol: int, stokes: str, cuda: bool):
-    """→ (route, factors, plan record) for this shape, raising where no
-    route exists on the device."""
-    if npol != 2:
-        if cuda:
+def _levels(factors) -> str:
+    return "dft_last" if len(factors) == 1 else "dft_stage+dft_last"
+
+
+def _resolve_plan(nfft: int, npol: int, stokes: str, *,
+                  fft_method: str = "auto", dft_order: str = "auto",
+                  pfb_kernel: str = "auto", tail_kernel: str = "auto",
+                  detect_kernel: str = "auto"):
+    """→ (route, factors, plan record): ``blit``'s resolution
+    (``blit/ops/channelize.py:410-563``) in its order, with the Hopper
+    gates — ``pfb.fits`` for ``fused1``, ``detect.fits`` for
+    ``tail2_detect``, ``detect.untwist_fits`` for ``detect_untwist_i``,
+    ``dft.tail2_fits`` for ``dft_tail2`` — in place of the VMEM gates.
+    Raises ``ValueError`` naming the knob where ``blit`` refuses, or
+    where a gate refuses an explicit kernel; ``NotImplementedError``
+    where the matmul DFT has no factorization."""
+    for knob, value in (("dft_order", dft_order), ("pfb_kernel", pfb_kernel),
+                        ("detect_kernel", detect_kernel),
+                        ("tail_kernel", tail_kernel)):
+        if value not in _KNOBS[knob]:
+            raise ValueError(f"bad {knob} {value!r}")
+    method = resolve_fft_method(fft_method)
+    twisted = method == "matmul" and dft_order == "twisted"
+    factors = None
+    if method == "matmul":
+        try:
+            factors = default_factors(nfft)
+        except NotImplementedError:
             raise NotImplementedError(
-                f"channelize on CUDA takes two-pol input (got npol={npol}); "
-                f"one pol is {_ROADMAP_NEXT}")
-        return "unfused", None, dict(fft_method="fft", pfb_kernel="torch",
-                                     tail_kernel="torch", detect_kernel="torch")
-    factors = _factors_or_none(nfft)
-    if factors is None:
-        raise NotImplementedError(
-            f"channelize: no supported DFT factorization for nfft={nfft}")
+                f"channelize: no supported DFT factorization for nfft={nfft}")
 
-    def levels(fs):
-        return "dft_last" if len(fs) == 1 else "dft_stage+dft_last"
+    # The front: the fullest fusion whose gate passes, as blit on the TPU.
+    two_pol = npol == 2
+    if pfb_kernel == "auto":
+        pfb_kernel = "xla"
+        if two_pol:
+            fused = (method == "matmul" and len(factors) >= 2
+                     and not twisted  # fused1 emits natural order
+                     and pfb_mod.fits(nfft, factors[0], npol))
+            pfb_kernel = "fused1" if fused else "pallas"
+    elif pfb_kernel in ("pallas", "fused1"):
+        if not two_pol:
+            raise ValueError(
+                f"pfb_kernel={pfb_kernel!r} needs npol=2 complex int8")
+        if pfb_kernel == "fused1":
+            if method != "matmul":
+                raise ValueError(
+                    "pfb_kernel='fused1' fuses the matmul-DFT's first "
+                    "stage; it needs fft_method='matmul'")
+            if len(factors) < 2:
+                raise ValueError(
+                    "pfb_kernel='fused1' needs a multi-factor nfft "
+                    f"(> {dft_mod.DIRECT_DFT_MAX})")
+            if twisted:
+                raise ValueError(
+                    "pfb_kernel='fused1' emits natural order; it does not "
+                    "combine with dft_order='twisted'")
+            if not pfb_mod.fits(nfft, factors[0], npol):
+                raise ValueError(
+                    f"pfb_kernel='fused1': the Hopper gate (pfb.fits) takes "
+                    f"n1 = {pfb_mod.KERNEL_N1} and nfft a multiple of "
+                    f"{pfb_mod.KERNEL_N1 * pfb_mod.KERNEL_TILE_COLS} "
+                    f"(got factors {factors})")
 
-    if len(factors) >= 2 and pfb_mod.fits(nfft, factors[0], npol):
-        if detect_mod.fits(factors, npol, stokes):
-            return "tail2_detect", factors, dict(
-                fft_method="matmul", pfb_kernel="fused1",
-                tail_kernel="tail2_detect", detect_kernel="tail2_detect")
-        if len(factors) == 3 and dft_mod.tail2_fits(factors[1], factors[2]):
-            return "fused1_tail2", factors, dict(
-                fft_method="matmul", pfb_kernel="fused1",
-                tail_kernel="dft_tail2", detect_kernel="torch")
-        return "fused1", factors, dict(
-            fft_method="matmul", pfb_kernel="fused1",
-            tail_kernel=levels(factors[1:]), detect_kernel="torch")
-    return "dequant", factors, dict(
-        fft_method="matmul", pfb_kernel="pallas", tail_kernel=levels(factors),
-        detect_kernel="torch")
+    # The tail and the detection after pfb_dft1.
+    fused1 = pfb_kernel == "fused1"
+    untwist_ok = td_ok = tail2_ok = False
+    if fused1:
+        untwist_ok = stokes == "I" and detect_mod.untwist_fits(factors, npol)
+        td_ok = detect_mod.fits(factors, npol, stokes)
+        tail2_ok = (len(factors) == 3
+                    and dft_mod.tail2_fits(factors[1], factors[2]))
+    use_td = td_ok and detect_kernel != "xla" and tail_kernel != "xla"
+    if detect_kernel == "pallas" and tail_kernel == "pallas" and not use_td:
+        raise ValueError(
+            "tail_kernel='pallas' with detect_kernel='pallas' (the fused "
+            "tail+detect) needs pfb_kernel='fused1', a known stokes "
+            "product, and tail2_detect's Hopper gate (detect.fits: factors "
+            "(f1, 128, 64), two pols)")
+    use_untwist = not use_td and detect_kernel == "pallas" and untwist_ok
+    if detect_kernel == "pallas" and not (use_td or use_untwist):
+        raise ValueError(
+            "detect_kernel='pallas' (without tail_kernel='pallas') needs "
+            "pfb_kernel='fused1', stokes='I', and detect_untwist_i's Hopper "
+            "gate (detect.untwist_fits: <= 3 DFT factors)")
+    use_tail2 = (not use_td and not use_untwist and tail_kernel != "xla"
+                 and tail2_ok)
+    if tail_kernel == "pallas" and not (use_td or use_tail2):
+        raise ValueError(
+            "tail_kernel='pallas' needs pfb_kernel='fused1', exactly 3 "
+            "DFT factors, and dft_tail2's Hopper gate (dft.tail2_fits)")
+
+    rec = dict(fft_method=method,
+               pfb_kernel="torch" if pfb_kernel == "xla" else pfb_kernel,
+               detect_kernel="torch",
+               dft_order="twisted" if twisted else "natural")
+    if use_td:
+        route = "tail2_detect"
+        rec.update(tail_kernel="tail2_detect", detect_kernel="tail2_detect")
+    elif use_untwist:
+        route = "untwist"
+        rec.update(tail_kernel=_levels(factors[1:]),
+                   detect_kernel="detect_untwist_i")
+    elif use_tail2:
+        route = "fused1_tail2"
+        rec.update(tail_kernel="dft_tail2")
+    elif fused1:
+        route = "fused1"
+        rec.update(tail_kernel=_levels(factors[1:]))
+    else:
+        route = "front"
+        rec.update(tail_kernel=_levels(factors) if method == "matmul"
+                   else "torch")
+    return route, factors, rec
 
 
 def channelize(
@@ -190,19 +354,27 @@ def channelize(
     ntap: int = 4,
     nint: int = 1,
     stokes: str = "I",
+    fft_method: str = "auto",
     dtype: str = "float32",
     fqav_by: int = 1,
     channel_block: int = 0,
+    dft_order: str = "auto",
+    pfb_kernel: str = "auto",
+    detect_kernel: str = "auto",
+    tail_kernel: str = "auto",
     device=None,
 ) -> torch.Tensor:
     """The single-device reduction: int8 voltage block → filterbank slab.
 
     Args:
       voltages: int8 ``(nchan_coarse, ntime, npol, 2)`` with ``ntime`` a
-        multiple of ``nfft`` and ``ntime//nfft >= ntap + nint - 1``.
+        multiple of ``nfft`` and ``ntime//nfft >= ntap + nint - 1``;
+        npol 1 or 2.
       coeffs: ``(ntap, nfft)`` PFB prototype from :func:`pfb_coeffs`.
       nint: spectra integrated per output sample.
       stokes: detection product (see ``detect_stokes_planar``).
+      fft_method: "auto" (= "matmul") | "matmul" | "direct" |
+        "four_step" (see :func:`fft_planar`).
       dtype: working dtype of the PFB output / stage-1 spectra
         ("float32" | "bfloat16"); the DFT levels after it, detection and
         integration are f32 either way.
@@ -210,15 +382,20 @@ def channelize(
         divide ``nfft``); callers map the axis with ``fqav_range``.
       channel_block: if > 0 and < nchan, run groups of this many coarse
         channels one after another (bounded device memory).
+      dft_order, pfb_kernel, detect_kernel, tail_kernel: ``blit``'s
+        kernel knobs, with its values ("auto" everywhere is its TPU
+        plan; see the module docstring and :func:`_resolve_plan`).
       device: where to compute; ``None`` is the CUDA device.
 
     Returns f32 ``(ntime_out, nif, nchan_coarse*nfft)`` on ``device``,
     fine channels fftshifted within each coarse channel.
     """
     return _channelize(voltages, coeffs, nfft=nfft, ntap=ntap, nint=nint,
-                       stokes=stokes, dtype=dtype, fqav_by=fqav_by,
-                       channel_block=channel_block, device=device,
-                       twins=False)
+                       stokes=stokes, fft_method=fft_method, dtype=dtype,
+                       fqav_by=fqav_by, channel_block=channel_block,
+                       dft_order=dft_order, pfb_kernel=pfb_kernel,
+                       detect_kernel=detect_kernel, tail_kernel=tail_kernel,
+                       device=device, twins=False)
 
 
 def channelize_twins(voltages, coeffs, **kw) -> torch.Tensor:
@@ -229,8 +406,19 @@ def channelize_twins(voltages, coeffs, **kw) -> torch.Tensor:
     return _channelize(voltages, coeffs, twins=True, **kw)
 
 
+def channelize_blocked(voltages, coeffs, *, channel_block: int, **kw
+                       ) -> torch.Tensor:
+    """``blit``'s name for host-looped channel blocking: :func:`channelize`
+    with ``channel_block``, which runs the coarse channels in groups of
+    that many, one after another, and joins the products along the
+    channel axis."""
+    return channelize(voltages, coeffs, channel_block=channel_block, **kw)
+
+
 def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
-                dtype="float32", fqav_by=1, channel_block=0, device=None,
+                fft_method="auto", dtype="float32", fqav_by=1,
+                channel_block=0, dft_order="auto", pfb_kernel="auto",
+                detect_kernel="auto", tail_kernel="auto", device=None,
                 twins=False) -> torch.Tensor:
     dev = resolve_device(device)
     if isinstance(voltages, np.ndarray):
@@ -248,8 +436,12 @@ def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
         raise ValueError(f"fqav_by={fqav_by} does not divide nfft={nfft}")
     if tuple(coeffs.shape) != (ntap, nfft):
         raise ValueError(f"coeffs shape {tuple(coeffs.shape)} != ({ntap}, {nfft})")
-    route, factors, plan = _resolve_plan(nfft, npol, stokes,
-                                         dev.type == "cuda")
+    route, factors, plan = _resolve_plan(
+        nfft, npol, stokes, fft_method=fft_method, dft_order=dft_order,
+        pfb_kernel=pfb_kernel, tail_kernel=tail_kernel,
+        detect_kernel=detect_kernel)
+    if npol == 1 and stokes not in ("I", "XX"):
+        raise ValueError(f"stokes={stokes!r} needs 2 pols, got 1")
     voltages = voltages.to(dev)
     coeffs = coeffs.to(device=dev, dtype=torch.float32)
     # Fold the fftshift into the window (shift theorem: multiplying frame
@@ -262,7 +454,7 @@ def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
 
     _LAST_PLAN.clear()
     _LAST_PLAN.update(plan)
-    _LAST_PLAN.update(dft_order="natural", dtype=dtype,
+    _LAST_PLAN.update(dtype=dtype,
                       impl="cuda" if dev.type == "cuda" and not twins
                       else "plain")
 
@@ -275,6 +467,10 @@ def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
     else:
         groups = [voltages]
     run = _ROUTES[route]
+    if route == "front":
+        run = functools.partial(run, dequant=plan["pfb_kernel"] == "pallas",
+                                method=plan["fft_method"],
+                                order=plan["dft_order"])
     outs = []
     for v in groups:
         power = run(v.contiguous(), shifted, factors, nint, stokes, dtype,
@@ -321,13 +517,22 @@ def _tail2_detect(v, shifted, factors, nint, stokes, dtype, twins):
     return _integrate_frames(power, nint)
 
 
-def _fused1(v, shifted, factors, nint, stokes, dtype, twins):
-    """pfb_dft1 + the remaining levels (dft_stage..., dft_last) + torch
-    detect; returns ``(t, nif, cb, nfft)``."""
+def _fused1(v, shifted, factors, nint, stokes, dtype, twins, *,
+            untwist_detect=False):
+    """pfb_dft1 + the remaining levels (dft_stage..., dft_last), then torch
+    detect — or, with ``untwist_detect``, the levels in twisted order and
+    detect_untwist_i (Stokes I); returns ``(t, nif, cb, nfft)``."""
     ur, ui = _stage1(v, shifted, factors, dtype, twins)
-    sr, si = dft_mod.dft_tail(ur, ui, factors, use_pallas=not twins)
+    sr, si = dft_mod.dft_tail(ur, ui, factors, use_pallas=not twins,
+                              order="twisted" if untwist_detect else "natural")
     del ur, ui
-    return _detect_integrate(sr, si, nint, stokes)
+    if not untwist_detect:
+        return _detect_integrate(sr, si, nint, stokes)
+    detect = (detect_mod.detect_untwist_i_plain if twins
+              else detect_mod.detect_untwist_i)
+    power = detect(sr, si, factors)  # (cb, frames, nfft)
+    del sr, si
+    return integrate(power, nint)[:, None].permute(2, 1, 0, 3)
 
 
 def _fused1_tail2(v, shifted, factors, nint, stokes, dtype, twins):
@@ -344,30 +549,33 @@ def _fused1_tail2(v, shifted, factors, nint, stokes, dtype, twins):
     return _detect_integrate(sr, si, nint, stokes)
 
 
-def _dequant(v, shifted, factors, nint, stokes, dtype, twins):
-    """pfb_dequant + the whole DFT (dft_stage..., dft_last) + torch
-    detect; returns ``(t, nif, cb, nfft)``."""
-    front = pfb_mod.pfb_dequant_plain if twins else pfb_mod.pfb_dequant
-    fr, fi = front(v, shifted, dtype=dtype)
-    sr, si = dft_mod.dft(fr, fi, factors=factors, use_pallas=not twins)
+def _front(v, shifted, factors, nint, stokes, dtype, twins, *, dequant,
+           method, order):
+    """pfb_dequant (``dequant``) or the FIR in torch ops, the whole FFT
+    (:func:`fft_planar`: the DFT levels, natural or twisted, or
+    torch.fft), torch detect and integrate, then the untwist of the power
+    in twisted order; returns ``(t, nif, cb, nfft)``."""
+    if dequant:
+        front = pfb_mod.pfb_dequant_plain if twins else pfb_mod.pfb_dequant
+        fr, fi = front(v, shifted, dtype=dtype)
+    else:
+        work = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        re, im = dequantize(v, work)  # (cb, ntime, npol)
+        wc = shifted.to(work)
+        fr = pfb_frontend(re.movedim(-1, 1), wc)  # (cb, npol, frames, nfft)
+        fi = pfb_frontend(im.movedim(-1, 1), wc)
+        del re, im
+    sr, si = fft_planar(fr, fi, method=method, order=order,
+                        use_pallas=not twins)
     del fr, fi
-    return _detect_integrate(sr, si, nint, stokes)
+    power = _detect_integrate(sr, si, nint, stokes)
+    return untwist(power, factors) if order == "twisted" else power
 
 
-def _unfused(v, shifted, factors, nint, stokes, dtype, twins):
-    """The plain unfused path (CPU, one pol): dequant → FIR → torch.fft →
-    detect → integrate; returns ``(t, nif, cb, nfft)``."""
-    work = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    re, im = dequantize(v, work)  # (cb, ntime, npol)
-    wc = shifted.to(work)
-    fr = pfb_frontend(re.movedim(-1, 1), wc).to(torch.float32)
-    fi = pfb_frontend(im.movedim(-1, 1), wc).to(torch.float32)
-    z = torch.fft.fft(torch.complex(fr, fi), dim=-1)
-    return _detect_integrate(z.real, z.imag, nint, stokes)
-
-
-_ROUTES = {"tail2_detect": _tail2_detect, "fused1_tail2": _fused1_tail2,
-           "fused1": _fused1, "dequant": _dequant, "unfused": _unfused}
+_ROUTES = {"tail2_detect": _tail2_detect,
+           "untwist": functools.partial(_fused1, untwist_detect=True),
+           "fused1_tail2": _fused1_tail2, "fused1": _fused1,
+           "front": _front}
 
 
 def output_header(raw_header: dict, *, nfft: int, nint: int,

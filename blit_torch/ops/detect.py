@@ -1,21 +1,37 @@
-"""Fused DFT tail (levels 2 and 3, inner untwist) + Stokes detection,
-written in the filterbank product layout.
+"""Stokes detection fused with the DFT's last steps: the two kernels of
+``blit/ops/pallas_detect.py``.
 
-Counterpart of ``blit/ops/pallas_detect.py:tail2_detect``.  On a CUDA
-tensor :func:`tail2_detect` launches the hand-written Hopper kernel
-``blit_torch/csrc/tail2_detect.cu``; on a CPU tensor it runs the plain
-twin :func:`tail2_detect_plain`.  Output contract as ``blit``'s: f32
-``(nframes, nif, nchan, f1·f2·f3)`` in natural frequency order.
+- :func:`tail2_detect` (``pallas_detect.py:tail2_detect``): DFT levels 2
+  and 3, the inner untwist and any Stokes product, written in the
+  filterbank product layout, f32 ``(nframes, nif, nchan, f1·f2·f3)`` in
+  natural frequency order.  CUDA kernel ``blit_torch/csrc/tail2_detect.cu``,
+  plain twin :func:`tail2_detect_plain`, gate :func:`fits`.
+- :func:`detect_untwist_i` (``pallas_detect.py:detect_untwist_i``):
+  twisted spectra (``dft(order="twisted")``) → natural-order Stokes-I
+  power, f32 ``(nchan, nframes, n)``.  CUDA kernel
+  ``blit_torch/csrc/detect_untwist.cu``, plain twin
+  :func:`detect_untwist_i_plain`, gate :func:`untwist_fits`.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain twin.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Tuple
 
 import torch
 
 from blit_torch import kernels
-from blit_torch.ops.dft import as_tensors, dft_matrices, dft_tail, twiddles
+from blit_torch.ops.dft import (
+    as_tensors,
+    dft_matrices,
+    dft_tail,
+    twiddles,
+    untwist,
+)
 from blit_torch.ops.pfb import HOPPER_SMEM_MAX
 
 STOKES_NIF = {"I": 1, "XX": 1, "YY": 1, "XXYY": 2, "full": 4, "IQUV": 4}
@@ -177,3 +193,105 @@ def tail2_detect_plain(ur: torch.Tensor, ui: torch.Tensor, f2: int, f3: int,
                           (f1, f2, f3), bf16=bf16)  # (npol, nframes, n)
         out[:, :, c] = detect_stokes_planar(sr, si, stokes).transpose(0, 1)
     return out
+
+
+# Largest factor the detect_untwist kernel takes (its sizes are ints).
+UNTWIST_MAX_FACTOR = (1 << 31) - 1
+
+
+def untwist_fits(factors, npol: int = 2) -> bool:
+    """Hopper gate of :func:`detect_untwist_i`'s kernel: one to three
+    factors (axis reversal keeps one middle axis), each a positive int
+    below 2^31, and one or two pols.  Unlike ``blit``'s ``fits`` it has
+    no VMEM model: the kernel stages 32 × 32 tiles of the
+    ``f1 × flast`` transpose, masks ragged edges and walks its tiles
+    with a grid-stride loop over 64-bit offsets, so the factor sizes
+    and the grid set no other limit — ``(1000, 1000)`` fits here but
+    not in ``blit``, where ``f1`` and ``flast`` are untiled."""
+    factors = tuple(factors)
+    return (1 <= len(factors) <= 3 and npol in (1, 2)
+            and all(isinstance(f, int) and 0 < f <= UNTWIST_MAX_FACTOR
+                    for f in factors))
+
+
+def _untwist_geometry(sr, si, factors) -> Tuple[int, int, int]:
+    """→ (f1, mid, flast) of the twisted layout; checks the shapes."""
+    factors = tuple(int(f) for f in factors)
+    if sr.ndim != 4:
+        raise ValueError("detect_untwist_i: (nchan, npol, nframes, n) input")
+    if si.shape != sr.shape or si.dtype != sr.dtype or si.device != sr.device:
+        raise ValueError("detect_untwist_i: sr/si shape, dtype or device mismatch")
+    n = sr.shape[-1]
+    if math.prod(factors) != n:
+        raise ValueError(f"detect_untwist_i: factors {factors} do not "
+                         f"multiply to {n}")
+    if len(factors) > 3:
+        raise ValueError("detect_untwist_i supports at most 3 DFT factors")
+    if len(factors) == 1:
+        return n, 1, 1
+    f1, flast = factors[0], factors[-1]
+    return f1, n // (f1 * flast), flast
+
+
+def detect_untwist_i(sr: torch.Tensor, si: torch.Tensor,
+                     factors: Tuple[int, ...]) -> torch.Tensor:
+    """Twisted planar spectra ``(nchan, npol, nframes, n)`` (f32 or
+    bf16, the layout of ``dft(order="twisted")`` over ``factors``, at
+    most three) → f32 natural-order Stokes-I power ``(nchan, nframes,
+    n)``: the sum over pols of ``re² + im²``, written at ``k = k1 +
+    f1·kmid + f1·mid·klast``, i.e. as ``(flast, mid, f1)`` row-major."""
+    if sr.device.type == "cpu":
+        return detect_untwist_i_plain(sr, si, factors)
+    if sr.device.type != "cuda":
+        raise ValueError(f"detect_untwist_i: unsupported device {sr.device}")
+    return _detect_untwist_cuda(sr, si, factors)
+
+
+detect_untwist_i.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _untwist_lib() -> ctypes.CDLL:
+    lib = kernels.load("detect_untwist")
+    if lib.detect_untwist_launch.argtypes is None:
+        lib.detect_untwist_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.detect_untwist_launch.restype = ctypes.c_int
+    return lib
+
+
+def _detect_untwist_cuda(sr, si, factors):
+    f1, mid, flast = _untwist_geometry(sr, si, factors)
+    nchan, npol, nframes, n = sr.shape
+    if sr.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("detect_untwist_i: sr/si must be float32 or bfloat16")
+    if not (sr.is_contiguous() and si.is_contiguous()):
+        raise ValueError("detect_untwist_i: sr/si must be contiguous")
+    if not untwist_fits(tuple(int(f) for f in factors), npol):
+        raise ValueError(
+            f"detect_untwist_i: the Hopper kernel takes 1 to 3 factors below "
+            f"2^31 and 1 or 2 pols (got {tuple(factors)}, npol={npol})")
+    out = torch.empty((nchan, nframes, n), dtype=torch.float32, device=sr.device)
+    if out.numel() == 0:
+        return out
+    lib = _untwist_lib()
+    with torch.cuda.device(sr.device):
+        stream = torch.cuda.current_stream(sr.device).cuda_stream
+        rc = lib.detect_untwist_launch(
+            sr.data_ptr(), si.data_ptr(), out.data_ptr(), nchan * nframes,
+            nframes, npol, f1, mid, flast, int(sr.dtype == torch.bfloat16),
+            stream)
+    kernels.check(lib, rc, "detect_untwist_i")
+    detect_untwist_i.launches += 1
+    return out
+
+
+def detect_untwist_i_plain(sr: torch.Tensor, si: torch.Tensor,
+                           factors: Tuple[int, ...]) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`detect_untwist_i`: the f32 power of
+    each pol (``re² + im²``), the sum over pols, then :func:`untwist` —
+    the kernel's four squares and three adds, in its order."""
+    _untwist_geometry(sr, si, factors)
+    sr, si = sr.to(torch.float32), si.to(torch.float32)
+    power = (sr * sr + si * si).sum(dim=1)
+    return untwist(power, tuple(int(f) for f in factors))

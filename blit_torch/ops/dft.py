@@ -16,7 +16,8 @@ twins (:func:`dft_last_plain`, :func:`dft_stage_plain`,
 :func:`dft_tail2_plain`: f32 ``torch.matmul`` with the four real
 products).  :func:`dft` and :func:`dft_tail` walk the Cooley-Tukey levels
 with them (``use_pallas=True``, ``blit``'s name for its kernel route) or
-with the twins.
+with the twins, in natural order or in the twisted (digit-permuted) order
+that :func:`untwist` restores.
 """
 
 from __future__ import annotations
@@ -374,10 +375,32 @@ _LEVELS = {
 }
 
 
-def _dft_rec(xr, xi, factors, route: str):
-    """Planar DFT along the last axis over ``factors``, natural order:
-    an ``n1``-point stage (+ twiddle) down the columns of the ``(n1, n2)``
-    view, the rest along the rows, then the ``(k1, k2) → (k2, k1)`` swap."""
+def untwist(x: torch.Tensor, factors: Tuple[int, ...]) -> torch.Tensor:
+    """Restore natural frequency order after ``order="twisted"``: the
+    twisted layout enumerates the digits ``(k1, k2, ..., klast)`` row-major
+    along the last axis, the natural index is ``k1 + f1·k2 + f1·f2·k3 +
+    ...``, so the untwist is a reshape, a reversal of the digit axes and a
+    reshape (one copy)."""
+    if len(factors) == 1:
+        return x
+    batch = tuple(x.shape[:-1])
+    nb = len(batch)
+    y = x.reshape(batch + tuple(factors))
+    perm = tuple(range(nb)) + tuple(reversed(range(nb, nb + len(factors))))
+    return y.permute(perm).reshape(batch + (int(np.prod(factors)),))
+
+
+def _check_order(order: str) -> bool:
+    if order not in ("natural", "twisted"):
+        raise ValueError(f"order must be 'natural' or 'twisted', got {order!r}")
+    return order == "twisted"
+
+
+def _dft_rec(xr, xi, factors, route: str, twisted: bool = False):
+    """Planar DFT along the last axis over ``factors``: an ``n1``-point
+    stage (+ twiddle) down the columns of the ``(n1, n2)`` view, the rest
+    along the rows, then the ``(k1, k2) → (k2, k1)`` swap — which
+    ``twisted`` skips at every level, leaving the digits row-major."""
     stage, last = _LEVELS[route]
     n = xr.shape[-1]
     dev = xr.device
@@ -391,8 +414,10 @@ def _dft_rec(xr, xi, factors, route: str):
     tr, ti = as_tensors(twiddles(n1, n2), dev)
     ur, ui = stage(xr.reshape(batch + (n1, n2)), xi.reshape(batch + (n1, n2)),
                    wr, wi, tr, ti)
-    vr, vi = _dft_rec(ur, ui, factors[1:], route)
+    vr, vi = _dft_rec(ur, ui, factors[1:], route, twisted)
     del ur, ui
+    if twisted:
+        return vr.reshape(batch + (n,)), vi.reshape(batch + (n,))
     # Output index k = k1 + n1*k2: (k1, k2) → (k2, k1), then flatten.
     vr = vr.transpose(-1, -2).reshape(batch + (n,))
     vi = vi.transpose(-1, -2).reshape(batch + (n,))
@@ -409,25 +434,31 @@ def _check_factors(factors, n: int) -> Tuple[int, ...]:
 
 
 def dft(xr: torch.Tensor, xi: torch.Tensor, *,
-        factors: Optional[Tuple[int, ...]] = None, use_pallas: bool = False
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Planar DFT along the last axis in natural order (matches
-    ``np.fft.fft``), f32 out; counterpart of ``blit.ops.dft.dft``.
+        factors: Optional[Tuple[int, ...]] = None, use_pallas: bool = False,
+        order: str = "natural") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planar DFT along the last axis (matches ``np.fft.fft`` in natural
+    order), f32 out; counterpart of ``blit.ops.dft.dft``.
 
     ``factors``: the Cooley-Tukey split (each <= DIRECT_DFT_MAX, product
     n); None → :func:`default_factors`.  ``use_pallas=True`` runs each
     level through the kernels (:func:`dft_stage` with the twiddle, then
-    :func:`dft_last`); False through their plain twins.
+    :func:`dft_last`); False through their plain twins.  ``order=
+    "twisted"`` skips every level's swap and emits the digit-permuted
+    layout :func:`untwist` restores; the levels compute the same values
+    either way, so ``untwist(dft(x, order="twisted"), factors)`` equals
+    ``dft(x)`` bitwise.
     """
     n = xr.shape[-1]
+    twisted = _check_order(order)
     factors = _check_factors(default_factors(n) if factors is None
                              else factors, n)
-    return _dft_rec(xr, xi, factors, "kernels" if use_pallas else "plain")
+    return _dft_rec(xr, xi, factors, "kernels" if use_pallas else "plain",
+                    twisted)
 
 
 def dft_tail(ur: torch.Tensor, ui: torch.Tensor, factors: Tuple[int, ...],
-             *, bf16: bool = False, use_pallas: bool = False
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             *, bf16: bool = False, use_pallas: bool = False,
+             order: str = "natural") -> Tuple[torch.Tensor, torch.Tensor]:
     """Finish a DFT whose first stage (``n1``-point matmul + twiddle) was
     computed already, as by :func:`blit_torch.ops.pfb.pfb_dft1`: run
     ``factors[1:]`` along the last axis and assemble natural order.
@@ -437,9 +468,12 @@ def dft_tail(ur: torch.Tensor, ui: torch.Tensor, factors: Tuple[int, ...],
     with :func:`dft_last`; False with their plain twins.  ``bf16=True``
     (plain route only) applies the bf16 operand rounding of the fused
     tail kernel (matrices and post-twiddle intermediates rounded, sums
-    f32); the input is taken as already rounded.
+    f32); the input is taken as already rounded.  ``order="twisted"``
+    skips every swap, the final one included: the layout of
+    :func:`dft` ``(order="twisted")`` over ``factors``.
     """
     n1, m = ur.shape[-2], ur.shape[-1]
+    twisted = _check_order(order)
     if factors[0] != n1 or int(np.prod(factors[1:])) != m:
         raise ValueError(f"dft_tail: factors {factors} mismatch ({n1}, {m})")
     if bf16 and use_pallas:
@@ -447,7 +481,9 @@ def dft_tail(ur: torch.Tensor, ui: torch.Tensor, factors: Tuple[int, ...],
                          "route's; the kernels sum bf16 input in f32")
     route = "kernels" if use_pallas else "bf16" if bf16 else "plain"
     batch = ur.shape[:-2]
-    vr, vi = _dft_rec(ur, ui, _check_factors(factors[1:], m), route)
+    vr, vi = _dft_rec(ur, ui, _check_factors(factors[1:], m), route, twisted)
+    if twisted:
+        return vr.reshape(batch + (n1 * m,)), vi.reshape(batch + (n1 * m,))
     vr = vr.transpose(-1, -2).reshape(batch + (n1 * m,))
     vi = vi.transpose(-1, -2).reshape(batch + (n1 * m,))
     return vr, vi

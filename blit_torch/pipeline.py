@@ -6,7 +6,8 @@ carries the PFB state across chunk boundaries, feeds fixed-shape chunks
 to :func:`blit_torch.ops.channelize.channelize` on the device, and
 writes SIGPROC ``.fil`` products.  Every rawspec preset runs on the card:
 ``0000`` through ``pfb_dft1`` + ``tail2_detect``, ``0001`` and ``0002``
-through ``pfb_dequant`` + ``dft_last`` (the channelizer picks the plan).
+through ``pfb_dequant`` + ``dft_last`` (the channelizer picks the plan);
+a one-pol recording through the FIR in torch ops + the DFT kernels.
 
 - A chunk of ``chunk_frames + ntap - 1`` blocks of ``nfft`` samples
   yields ``chunk_frames`` PFB frames; consecutive chunks share a
@@ -81,6 +82,9 @@ class RawReducer:
     nint: int = 1
     stokes: str = "I"
     window: str = "hamming"
+    # channelize's FFT: "auto" (= "matmul", the DFT kernels), "direct" or
+    # "four_step" (torch.fft).
+    fft_method: str = "auto"
     # On-device frequency averaging of every fqav_by fine channels.
     fqav_by: int = 1
     # Working dtype of the stage-1 spectra ("float32" | "bfloat16").
@@ -192,7 +196,8 @@ class RawReducer:
             v = chunk.to(self.device, non_blocking=True)
             out = channelize(
                 v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
-                nint=self.nint, stokes=self.stokes, dtype=self.dtype,
+                nint=self.nint, stokes=self.stokes,
+                fft_method=self.fft_method, dtype=self.dtype,
                 fqav_by=self.fqav_by, device=self.device,
             )
             return out.cpu().numpy()

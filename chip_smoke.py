@@ -5,20 +5,21 @@ then reduces a 64-channel GUPPI RAW recording to rawspec's three
 products (``0000``: nfft 2^20; ``0002``: nfft 1024, nint 2048;
 ``0001``: nfft 8, nint 128), searches it for drifting tones
 (``.hits`` at nfft 1024 and at nfft 2^20), channelizes one chunk at
-nfft 2^21 and one at nfft 6144, recovers injected ±20-bin drifts, and
-turns 64 per-antenna recordings into tied-array beam power and FX
-visibilities at the array scale, all through the kernels, and checks
-the results.
+nfft 2^21 and one at nfft 6144, drives channelize's opt-in routes
+(detect_kernel="pallas", dft_order="twisted", one-pol input,
+fft_method="direct"), recovers injected ±20-bin drifts, and turns 64
+per-antenna recordings into tied-array beam power and FX visibilities
+at the array scale, all through the kernels, and checks the results.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   (a) device: name and power limit;
-  (b) build: the eight sources (nine kernels: pfb_dft1, tail2_detect,
+  (b) build: the nine sources (ten kernels: pfb_dft1, tail2_detect,
       pfb_dequant, dft_stage + dft_last in dft.cu, dft_tail2,
       taylor_tree, fused_beamform_detect in beamform_detect.cu,
-      xengine_packed in xengine.cu) with nvcc for sm_90a, started
-      together, timed;
+      xengine_packed in xengine.cu, detect_untwist_i in
+      detect_untwist.cu) with nvcc for sm_90a, started together, timed;
   (c) kernels vs twins at the main paths' chunk shapes, elementwise
       (bf16 outputs also in relative rms against a control that skips
       the bf16 rounding), with CUDA-event times (median of 7 runs after
@@ -57,7 +58,25 @@ Phases, in order; any failure exits non-zero:
   (f) the 6144 path (64·96, outside pfb_dft1's gate): channelize on 64
       coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
       twiddle), dft_last (96 points), the swap and torch detect; all 64
-      channels compared with the twins (~30 GB at the peak).
+      channels compared with the twins (~30 GB at the peak);
+  (m) run after (f), once its tensors are freed: the opt-in routes.
+      detect_untwist_i against detect_untwist_i_plain on twisted spectra
+      of the 0000 chunk's shape (64, 2, 4, 2^20), factors (128, 128, 64),
+      f32 and bf16 input (rtol 1e-6, atol 1e-5 of the input's mean
+      square: the same squares and adds in the same order), CUDA-event
+      medians of 7 runs for both, the byte bound, no library call;
+      route (a), channelize(detect_kernel="pallas", tail_kernel="xla")
+      at 2^20 on (c)'s chunk: pfb_dft1, dft_stage + dft_last in twisted
+      order, detect_untwist_i, held against the twins on 4 channels and
+      against the default plan's (tail2_detect) output, and timed beside
+      it (medians of 7 channelize calls); route (a) at 2^13 (two factors,
+      mid = 1; 64 frames) against the twins and the default plan; route
+      (b), dft_order="twisted" on (f)'s chunk (pfb_dequant, the twisted
+      DFT, detect, the untwist of the power) against the twins on 4
+      channels and the natural route; route (c), one-pol input (64
+      channels, nfft 1024, 1024 frames: the FIR in torch ops, dft_last)
+      against the twins; route (d), fft_method="direct" on the same
+      chunk (torch.fft), against (c)'s output.
   (g) run after (c): taylor_tree against taylor_tree_plain on the card,
       BITWISE (torch.equal), one sign and both signs (drift_spectra, one
       launch per stage for both), at (64, 65536) (the default window over
@@ -113,10 +132,10 @@ Phases, in order; any failure exits non-zero:
       correlate_stream over windows of 15 frames (5 windows, 5 launches
       of each) bitwise equal to correlate(acc_frames=15); stage seconds
       and RAW GB/s.
-(e) and (f) count launches as (d) does and hold the output to rtol 1e-4
-and an atol of 1e-3 of the mean bin; (k) and (l) count them for each
-path the same way.  The line before the last two is one JSON object
-listing the nine kernels; the last line is
+(e), (f) and (m) count launches as (d) does, for each path, and hold
+the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
+count them for each path the same way.  The line before the last two is
+one JSON object listing the ten kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +167,14 @@ NFFT_21 = 1 << 21        # the 128·128·128 path
 REF_CHANNELS_21 = 4      # channels of (e) compared with the twins
 NFFT_6144 = 6144         # the 64·96 path (a non-power-of-two nfft)
 FRAMES_6144 = 1024
+# (m) the opt-in routes: route (a) at 2^13 on FRAMES_13 frames, one-pol
+# input (routes (c) and (d)) at nfft ONEPOL_NFFT on ONEPOL_FRAMES frames,
+# REF_CHANNELS_M channels of the big routes compared with the twins.
+NFFT_13 = 1 << 13
+FRAMES_13 = 64
+ONEPOL_NFFT = 1024
+ONEPOL_FRAMES = 1024
+REF_CHANNELS_M = 4
 REALTIME_BANK_GBPS = 0.750
 SEED = 2026
 # The search: nfft 1024 at search_defaults() for (h), one window of 8
@@ -213,6 +240,11 @@ BOUNDS = {
     ("fused_beamform_detect", "bfloat16"): (1e-4, 1e-3, "peak"),
     ("xengine_packed", "float32"): (1e-4, 1e-3, "input_ms"),
     ("xengine_packed", "bfloat16"): (1e-4, 1e-3, "input_ms"),
+    # tests/test_pallas_detect.py:22-39 (rtol 1e-6, atol 1e-5 on unit-
+    # variance spectra): kernel and plain version compute the same four
+    # squares and three adds, each rounded, in the same order.
+    ("detect_untwist_i", "float32"): (1e-6, 1e-5, "input_ms"),
+    ("detect_untwist_i", "bfloat16"): (1e-6, 1e-5, "input_ms"),
 }
 # bf16 outputs are also held in aggregate, ‖got − want‖₂ / ‖want‖₂: a
 # sound kernel differs from its twin only where an f32 rounding
@@ -557,7 +589,8 @@ def phase_front_kernels(torch, dev):
 
 
 COUNTED = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft_stage", "dft_last",
-           "dft_tail2", "taylor_tree", "fused_beamform_detect", "xengine_packed")
+           "dft_tail2", "taylor_tree", "fused_beamform_detect", "xengine_packed",
+           "detect_untwist_i")
 
 
 def _wrappers():
@@ -573,7 +606,8 @@ def _wrappers():
             "dft_last": tdft.dft_last, "dft_tail2": tdft.dft_tail2,
             "taylor_tree": tpd.taylor_tree,
             "fused_beamform_detect": tbf.fused_beamform_detect,
-            "xengine_packed": txe.xengine_packed}
+            "xengine_packed": txe.xengine_packed,
+            "detect_untwist_i": tdet.detect_untwist_i}
 
 
 def reset_launches():
@@ -585,28 +619,45 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
-# Plan and kernels each path must run: (pfb_kernel, tail_kernel, kernels).
+def _plan(pfb, tail, detect="torch", **extra) -> dict:
+    return dict(pfb_kernel=pfb, tail_kernel=tail, detect_kernel=detect, **extra)
+
+
+# Plan and kernels each path must run: (plan keys, kernels).
 EXPECTED = {
-    "0000": ("fused1", "tail2_detect", ("pfb_dft1", "tail2_detect")),
-    "0002": ("pallas", "dft_last", ("pfb_dequant", "dft_last")),
-    "0001": ("pallas", "dft_last", ("pfb_dequant", "dft_last")),
-    "2^21": ("fused1", "dft_tail2", ("pfb_dft1", "dft_tail2")),
-    "6144": ("pallas", "dft_stage+dft_last", ("pfb_dequant", "dft_stage", "dft_last")),
-    "search": ("pallas", "dft_last", ("pfb_dequant", "dft_last", "taylor_tree")),
-    "hi-res search": ("fused1", "tail2_detect",
+    "0000": (_plan("fused1", "tail2_detect", "tail2_detect"),
+             ("pfb_dft1", "tail2_detect")),
+    "0002": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
+    "0001": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
+    "2^21": (_plan("fused1", "dft_tail2"), ("pfb_dft1", "dft_tail2")),
+    "6144": (_plan("pallas", "dft_stage+dft_last"),
+             ("pfb_dequant", "dft_stage", "dft_last")),
+    "search": (_plan("pallas", "dft_last"),
+               ("pfb_dequant", "dft_last", "taylor_tree")),
+    "hi-res search": (_plan("fused1", "tail2_detect", "tail2_detect"),
                       ("pfb_dft1", "tail2_detect", "taylor_tree")),
-    "drift": ("pallas", "dft_last", ("pfb_dequant", "dft_last", "taylor_tree")),
+    "drift": (_plan("pallas", "dft_last"),
+              ("pfb_dequant", "dft_last", "taylor_tree")),
+    "route (a) 2^20": (_plan("fused1", "dft_stage+dft_last", "detect_untwist_i"),
+                       ("pfb_dft1", "dft_stage", "dft_last", "detect_untwist_i")),
+    "route (a) 2^13": (_plan("fused1", "dft_last", "detect_untwist_i"),
+                       ("pfb_dft1", "dft_last", "detect_untwist_i")),
+    "route (b) 6144": (_plan("pallas", "dft_stage+dft_last", dft_order="twisted"),
+                       ("pfb_dequant", "dft_stage", "dft_last")),
+    "route (c) one pol": (_plan("torch", "dft_last", fft_method="matmul"),
+                          ("dft_last",)),
+    "route (d) direct": (_plan("torch", "torch", fft_method="direct"), ()),
 }
 
 
 def check_plan(path, plan, launches, tree_launches=None):
     """The path ran its plan through the Hopper kernels, each launched;
     with ``tree_launches``, taylor_tree exactly that many times."""
-    pfb, tail, names = EXPECTED[path]
-    if (plan.get("pfb_kernel"), plan.get("tail_kernel"), plan.get("impl")) != (
-            pfb, tail, "cuda"):
+    keys, names = EXPECTED[path]
+    want = dict(keys, impl="cuda")
+    if {k: plan.get(k) for k in want} != want:
         raise AssertionError(f"{path} did not run the Hopper kernels: {plan}")
-    if min(launches[k] for k in names) < 1:
+    if names and min(launches[k] for k in names) < 1:
         raise AssertionError(f"a kernel of the {path} path never launched: {launches}")
     if tree_launches is not None and launches["taylor_tree"] != tree_launches:
         raise AssertionError(f"{path}: taylor_tree launched {launches['taylor_tree']} "
@@ -728,19 +779,20 @@ def phase_product(torch, dev, raw_path, tmp, product):
     return launches, summary
 
 
-def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref):
-    """Drive one ``channelize`` path on the card with the launch counts
-    set to 0 just before and read just after, then hold its first
-    ``nchan_ref`` channels against the plan run through the twins:
+def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref, **knobs):
+    """Drive one ``channelize`` path (with ``knobs``) on the card with the
+    launch counts set to 0 just before and read just after, then hold its
+    first ``nchan_ref`` channels against the plan run through the twins:
     rtol 1e-4 and an atol of 1e-3 of the mean bin (a kernel that lost
-    f32 precision, ~1e-3 relative, fails it).  Returns the launches."""
+    f32 precision, ~1e-3 relative, fails it).  Returns (launches,
+    output)."""
     from blit_torch.ops import channelize as tch
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = tch.channelize(v, coeffs, nfft=nfft, ntap=NTAP, device=dev)
+    out = tch.channelize(v, coeffs, nfft=nfft, ntap=NTAP, device=dev, **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -752,7 +804,8 @@ def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref):
     nframes = v.shape[1] // nfft - NTAP + 1
     if out.shape != (nframes, 1, v.shape[0] * nfft) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{path}: output shape {tuple(out.shape)} or non-finite")
-    ref = tch.channelize_twins(v[:nchan_ref], coeffs, nfft=nfft, ntap=NTAP, device=dev)
+    ref = tch.channelize_twins(v[:nchan_ref].contiguous(), coeffs, nfft=nfft,
+                               ntap=NTAP, device=dev, **knobs)
     got = out[..., :nchan_ref * nfft]
     atol = 1e-3 * ref.abs().mean().item()
     err, ok = check_close(torch, got, ref, 1e-4, atol)
@@ -760,9 +813,9 @@ def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref):
         f"(rtol 1e-4, atol {atol:.6g} = 1e-3 of the mean bin)")
     if not ok:
         raise AssertionError(f"{path}: channelize disagrees with the plain twins")
-    del out, ref, got
+    del ref, got
     torch.cuda.empty_cache()
-    return launches
+    return launches, out
 
 
 def phase_2pow21(torch, dev):
@@ -810,7 +863,7 @@ def phase_2pow21(torch, dev):
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError(f"dft_tail2 disagrees with its twin: {rec}")
-    launches = run_path(torch, dev, "2^21", v, coeffs, nfft, REF_CHANNELS_21)
+    launches, _ = run_path(torch, dev, "2^21", v, coeffs, nfft, REF_CHANNELS_21)
     del v
     torch.cuda.empty_cache()
     return launches, rec
@@ -882,10 +935,148 @@ def phase_6144(torch, dev):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
-    launches = run_path(torch, dev, "6144", v, coeffs, nfft, NCHAN)
+    launches, _ = run_path(torch, dev, "6144", v, coeffs, nfft, NCHAN)
     del v
     torch.cuda.empty_cache()
     return launches, records
+
+
+def untwist_cost(shape, esize):
+    """detect_untwist_i: the twisted planes read once, the power written
+    once; per output 3 flops a pol and the adds across pols."""
+    nchan, npol, nframes, n = shape
+    nout = nchan * nframes * n
+    nbytes = 2 * nout * npol * esize + nout * 4
+    return nbytes, [(nout * (4 * npol - 1), F32_FLOPS)], None
+
+
+def compare_outputs(torch, what, got, want):
+    """Two routes' products: rtol 1e-4 and an atol of 1e-3 of the mean
+    bin, as (e); also whether they are bitwise equal."""
+    atol = 1e-3 * want.abs().mean().item()
+    err, ok = check_close(torch, got, want, 1e-4, atol)
+    equal = bool(torch.equal(got, want))
+    log(f"{what}: max_abs_err {err:.6g} (rtol 1e-4, atol {atol:.6g} = 1e-3 "
+        f"of the mean bin), bitwise equal {equal}")
+    if not ok:
+        raise AssertionError(f"{what}: the routes disagree")
+    return dict(max_abs_err=err, atol=atol, bitwise_equal=equal)
+
+
+def phase_routes(torch, dev):
+    """(m): detect_untwist_i against its plain version at the 0000 chunk,
+    then channelize's opt-in routes, each driven with the launch counts
+    set to 0 just before and read just after.  Returns (launch counts
+    by path, [records], summary)."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import detect as tdet
+    from blit_torch.ops import dft as tdft
+
+    records = []
+    counts = {}
+    summary = {}
+
+    # The kernel on twisted spectra of the 0000 chunk's shape.
+    factors = tdft.default_factors(NFFT)
+    shape = (NCHAN, 2, CHUNK_FRAMES, NFFT)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sr = torch.randn(shape, generator=g, device=dev)
+    si = torch.randn(shape, generator=g, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        xr, xi = sr.to(getattr(torch, dtype)), si.to(getattr(torch, dtype))
+        got = tdet.detect_untwist_i(xr, xi, factors)
+        want = tdet.detect_untwist_i_plain(xr, xi, factors)
+        err, atol, ok = check_bound(torch, [got], [want], "detect_untwist_i",
+                                    dtype, inputs=(xr, xi))
+        bitwise = bool(torch.equal(got, want))
+        del got, want
+        torch.cuda.empty_cache()
+        ms = median_ms(torch, lambda: tdet.detect_untwist_i(xr, xi, factors))
+        plain_ms = median_ms(torch, lambda: tdet.detect_untwist_i_plain(xr, xi, factors))
+        torch.cuda.empty_cache()
+        records.append(kernel_record(
+            "detect_untwist_i", dtype, "blit_torch/csrc/detect_untwist.cu",
+            "blit/ops/pallas_detect.py:85", err, atol, ok, ms, plain_ms,
+            untwist_cost(shape, xr.element_size()), None, factors=factors,
+            bitwise=bitwise, library="none"))
+        del xr, xi
+    del sr, si
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"detect_untwist_i disagrees with its plain version: {bad}")
+
+    # Route (a) at 2^20 on (c)'s chunk: pfb_dft1, the twisted tail through
+    # dft_stage + dft_last, detect_untwist_i; held against the twins and
+    # the default plan (tail2_detect), and timed beside it.
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    v = torch.randint(-128, 128, (NCHAN, (CHUNK_FRAMES + NTAP - 1) * NFFT, 2, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, NFFT)).to(dev)
+    knobs = dict(detect_kernel="pallas", tail_kernel="xla")
+    counts["route (a) 2^20"], out = run_path(torch, dev, "route (a) 2^20", v,
+                                             coeffs, NFFT, REF_CHANNELS_M, **knobs)
+    default = tch.channelize(v, coeffs, nfft=NFFT, ntap=NTAP, device=dev)
+    if tch.last_kernel_plan()["detect_kernel"] != "tail2_detect":
+        raise AssertionError("the default plan at 2^20 is not tail2_detect")
+    summary["route (a) 2^20 vs tail2_detect"] = compare_outputs(
+        torch, "route (a) 2^20 vs the default plan", out, default)
+    del out, default
+    torch.cuda.empty_cache()
+    route_ms = median_ms(torch, lambda: tch.channelize(
+        v, coeffs, nfft=NFFT, ntap=NTAP, device=dev, **knobs))
+    default_ms = median_ms(torch, lambda: tch.channelize(
+        v, coeffs, nfft=NFFT, ntap=NTAP, device=dev))
+    summary["channelize 2^20 ms"] = dict(route_a=route_ms, default=default_ms)
+    log(f"route (a) 2^20: channelize {route_ms:.4f} ms, default plan "
+        f"(pfb_dft1 + tail2_detect) {default_ms:.4f} ms")
+    del v, coeffs
+    torch.cuda.empty_cache()
+
+    # Route (a) at 2^13: two factors (128, 64), so mid = 1.
+    v = torch.randint(-128, 128, (NCHAN, (FRAMES_13 + NTAP - 1) * NFFT_13, 2, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, NFFT_13)).to(dev)
+    counts["route (a) 2^13"], out = run_path(
+        torch, dev, "route (a) 2^13", v, coeffs, NFFT_13, NCHAN,
+        detect_kernel="pallas")
+    default = tch.channelize(v, coeffs, nfft=NFFT_13, ntap=NTAP, device=dev)
+    summary["route (a) 2^13 vs default"] = compare_outputs(
+        torch, "route (a) 2^13 vs the default plan", out, default)
+    del v, coeffs, out, default
+    torch.cuda.empty_cache()
+
+    # Route (b) at 6144 on (f)'s chunk: the twisted DFT, detect, untwist
+    # of the power; held against the natural route.
+    g6 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    v = torch.randint(-128, 128, (NCHAN, (FRAMES_6144 + NTAP - 1) * NFFT_6144, 2, 2),
+                      generator=g6, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, NFFT_6144)).to(dev)
+    counts["route (b) 6144"], out = run_path(
+        torch, dev, "route (b) 6144", v, coeffs, NFFT_6144, REF_CHANNELS_M,
+        dft_order="twisted")
+    natural = tch.channelize(v, coeffs, nfft=NFFT_6144, ntap=NTAP, device=dev)
+    summary["route (b) 6144 vs natural"] = compare_outputs(
+        torch, "route (b) 6144 vs the natural route", out, natural)
+    del v, coeffs, out, natural
+    torch.cuda.empty_cache()
+
+    # Routes (c) and (d): one-pol input, the FIR in torch ops, then
+    # dft_last (c) or torch.fft (d).
+    v = torch.randint(-128, 128, (NCHAN, (ONEPOL_FRAMES + NTAP - 1) * ONEPOL_NFFT, 1, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    coeffs = torch.from_numpy(tch.pfb_coeffs(NTAP, ONEPOL_NFFT)).to(dev)
+    counts["route (c) one pol"], out = run_path(
+        torch, dev, "route (c) one pol", v, coeffs, ONEPOL_NFFT, NCHAN)
+    counts["route (d) direct"], direct = run_path(
+        torch, dev, "route (d) direct", v, coeffs, ONEPOL_NFFT, NCHAN,
+        fft_method="direct")
+    summary["route (d) direct vs matmul"] = compare_outputs(
+        torch, "route (d) direct vs the matmul route (c)", direct, out)
+    del v, coeffs, out, direct
+    torch.cuda.empty_cache()
+    log(f"routes: {json.dumps(summary)}")
+    return counts, records, summary
 
 
 def tree_cost(T, F, signs):
@@ -1531,6 +1722,11 @@ def main() -> int:
     records.append(tail2_rec)
     launches["6144"], level_recs = phase_6144(torch, dev)
     records.extend(level_recs)
+
+    # (m) the opt-in routes and detect_untwist_i
+    counts, recs, _ = phase_routes(torch, dev)
+    launches.update(counts)
+    records.extend(recs)
 
     # (k) the beamformer and (l) the correlator, from per-antenna RAW
     tmp = tempfile.mkdtemp(prefix="blit-smoke-array-")

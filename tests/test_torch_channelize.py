@@ -219,6 +219,9 @@ def test_channelize_twins_repeat_the_plan():
 
 @pytest.mark.parametrize("stokes", ["I", "XX"])
 def test_one_pol_takes_the_unfused_path_on_cpu(stokes):
+    # One pol under "auto": the FIR in torch ops (blit's "xla" front, as
+    # its pol_ok gate sends one-pol input on the TPU), then the matmul
+    # DFT through dft_last's route.
     nfft, nint = 64, 2
     v = _volts(2, NTAP - 1 + 2 * nint, nfft=nfft, seed=6)[:, :, :1]
     h = bch.pfb_coeffs(NTAP, nfft)
@@ -226,7 +229,21 @@ def test_one_pol_takes_the_unfused_path_on_cpu(stokes):
                          device="cpu").numpy()
     plan = tch.last_kernel_plan()
     assert (plan["fft_method"], plan["pfb_kernel"], plan["tail_kernel"]) == (
-        "fft", "torch", "torch")
+        "matmul", "torch", "dft_last")
+    want = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes=stokes)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("stokes", ["I", "XX"])
+def test_one_pol_direct_method_takes_torch_fft(stokes):
+    nfft, nint = 64, 2
+    v = _volts(2, NTAP - 1 + 2 * nint, nfft=nfft, seed=6)[:, :, :1]
+    h = bch.pfb_coeffs(NTAP, nfft)
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, stokes=stokes,
+                         fft_method="direct", device="cpu").numpy()
+    plan = tch.last_kernel_plan()
+    assert (plan["fft_method"], plan["pfb_kernel"], plan["tail_kernel"]) == (
+        "direct", "torch", "torch")
     want = bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint, stokes=stokes)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
 

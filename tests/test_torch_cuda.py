@@ -10,7 +10,9 @@ tail2_detect f32 rtol 1e-5 / atol 1e-4·max, bf16 rtol 0.05 / atol
 atol 1e-3 on unit-variance input (tests/test_pallas_dft.py:22-33), and
 dft_tail2 the same (:86-100) with atol grown as sqrt(f2·f3 / 128);
 channelize against its plan run through the twins, rtol 1e-4 / atol
-1e-2·max (tests/test_pallas_detect.py:150-198); taylor_tree bitwise
+1e-2·max (tests/test_pallas_detect.py:150-198); detect_untwist_i rtol
+1e-6 / atol 1e-5 (tests/test_pallas_detect.py:22-39: the same squares
+and adds in the same order); taylor_tree bitwise
 (torch.equal) against its plain version, as blit holds its Pallas kernel
 to its reference (tests/test_dedoppler.py:85).  f32 twins run with TF32
 off.
@@ -101,9 +103,14 @@ def test_channelize_runs_the_kernels(dev):
     assert (plan["pfb_kernel"], plan["tail_kernel"], plan["impl"]) == (
         "fused1", "tail2_detect", "cuda")
     assert out.shape == (2, 4, 2 * NFFT) and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.channelize(v[:, : 5 * 1024, :1], coeffs[:, :1024], nfft=1024,
-                       device=dev)
+    # One pol: the FIR in torch ops, then dft_last (no longer refused).
+    one = v[:, : 5 * 1024, :1].contiguous()
+    h1 = torch.from_numpy(tch.pfb_coeffs(4, 1024)).to(dev)
+    n0 = tdft.dft_last.launches
+    out = tch.channelize(one, h1, nfft=1024, device=dev)
+    assert tdft.dft_last.launches == n0 + 1
+    assert tch.last_kernel_plan()["pfb_kernel"] == "torch"
+    _close(out, tch.channelize_twins(one, h1, nfft=1024, device=dev), 1e-4, 1e-2)
 
 
 @pytest.mark.cuda
@@ -455,3 +462,77 @@ def test_array_entry_points_run_the_kernels(dev, tmp_path):
     feed = A.CorrelatorStream(paths, nfft=64, window_frames=15, device=dev)
     svis = C.correlate_stream(feed, h, nfft=64, vis_layout="packed", device=dev)
     assert torch.equal(vis[0], svis[0]) and torch.equal(vis[1], svis[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("npol", [2, 1])
+@pytest.mark.parametrize("factors", [(8, 4), (8, 4, 4), (16,), (8, 32, 4),
+                                     (128, 4096), (128, 128, 128),
+                                     (128, 128, 64)], ids=str)
+def test_detect_untwist_i_matches_plain(dev, factors, npol, dtype):
+    n = int(np.prod(factors))
+    sr, si = _planar(dev, (2, npol, 3, n), dtype, n + npol)
+    n0 = tdet.detect_untwist_i.launches
+    got = tdet.detect_untwist_i(sr, si, factors)
+    torch.cuda.synchronize()
+    assert tdet.detect_untwist_i.launches == n0 + 1
+    want = tdet.detect_untwist_i_plain(sr, si, factors)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 3, n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_detect_untwist_i_refuses_more_than_3_factors(dev):
+    sr, si = _planar(dev, (1, 2, 1, 64), torch.float32, 0)
+    n0 = tdet.detect_untwist_i.launches
+    with pytest.raises(ValueError, match="at most 3"):
+        tdet.detect_untwist_i(sr, si, (2, 2, 4, 4))
+    assert tdet.detect_untwist_i.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (nfft, npol, nint, knobs, plan (fft, pfb, tail, detect, order), kernels)
+    (NFFT, 2, 1, dict(detect_kernel="pallas", tail_kernel="xla"),
+     ("matmul", "fused1", "dft_stage+dft_last", "detect_untwist_i", "natural"),
+     ("pfb_dft1", "dft_stage", "dft_last", "detect_untwist_i")),
+    (1 << 13, 2, 2, dict(detect_kernel="pallas"),
+     ("matmul", "fused1", "dft_last", "detect_untwist_i", "natural"),
+     ("pfb_dft1", "dft_last", "detect_untwist_i")),
+    (6144, 2, 2, dict(dft_order="twisted"),
+     ("matmul", "pallas", "dft_stage+dft_last", "torch", "twisted"),
+     ("pfb_dequant", "dft_stage", "dft_last")),
+    (1024, 1, 2, dict(),
+     ("matmul", "torch", "dft_last", "torch", "natural"), ("dft_last",)),
+    (1 << 13, 1, 1, dict(pfb_kernel="xla"),
+     ("matmul", "torch", "dft_stage+dft_last", "torch", "natural"),
+     ("dft_stage", "dft_last")),
+    (1024, 1, 2, dict(fft_method="direct"),
+     ("direct", "torch", "torch", "torch", "natural"), ()),
+], ids=["a-2^20", "a-2^13", "b-6144", "c-1pol", "c-xla-2^13", "d-direct"])
+def test_channelize_opt_in_routes_run_the_kernels(dev, case):
+    nfft, npol, nint, knobs, plan, names = case
+    rng = np.random.default_rng(nfft + npol)
+    v = torch.from_numpy(rng.integers(-128, 128, (2, (3 + 2 * nint) * nfft,
+                                                  npol, 2), np.int8)).to(dev)
+    h = torch.from_numpy(tch.pfb_coeffs(4, nfft)).to(dev)
+    wrappers = {"pfb_dft1": tpfb.pfb_dft1, "pfb_dequant": tpfb.pfb_dequant,
+                "dft_stage": tdft.dft_stage, "dft_last": tdft.dft_last,
+                "dft_tail2": tdft.dft_tail2, "tail2_detect": tdet.tail2_detect,
+                "detect_untwist_i": tdet.detect_untwist_i}
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    got = tch.channelize(v, h, nfft=nfft, nint=nint, device=dev, **knobs)
+    torch.cuda.synchronize()
+    p = tch.last_kernel_plan()
+    assert (p["fft_method"], p["pfb_kernel"], p["tail_kernel"],
+            p["detect_kernel"], p["dft_order"], p["impl"]) == plan + ("cuda",)
+    ran = {k for k, fn in wrappers.items() if fn.launches > counts[k]}
+    assert ran == set(names)
+    want = tch.channelize_twins(v, h, nfft=nfft, nint=nint, device=dev, **knobs)
+    assert got.shape == want.shape == (2, 1, 2 * nfft)
+    _close(got, want, 1e-4, 1e-2)
+    if "detect_untwist_i" in names:
+        # The default plan computes the same product through other kernels.
+        default = tch.channelize(v, h, nfft=nfft, nint=nint, device=dev)
+        _close(got, default, 1e-4, 1e-2)

@@ -103,13 +103,16 @@ def test_array_entry_points_default_to_the_card():
 @pytest.mark.parametrize("nfft,npol", [(1024, 1), (1 << 19, 1), (1 << 20, 1)])
 def test_cuda_plan_refuses_unported_shapes_before_any_copy(monkeypatch, nfft, npol):
     # The CUDA plan check runs before any tensor moves to the device, so
-    # the refusal is exercised here by resolving the device to CUDA.
+    # the refusal is exercised here by resolving the device to CUDA: an
+    # explicit two-pol front on one-pol input raises, as blit's does.
     from blit_torch.ops import channelize as tch
 
     monkeypatch.setattr(tch, "resolve_device", lambda d: torch.device("cuda"))
     v = torch.zeros((1, 5 * nfft, npol, 2), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.channelize(v, torch.zeros((4, nfft)), nfft=nfft)
+    for front in ("pallas", "fused1"):
+        with pytest.raises(ValueError, match="pfb_kernel.*npol=2"):
+            tch.channelize(v, torch.zeros((4, nfft)), nfft=nfft,
+                           pfb_kernel=front)
 
 
 @pytest.mark.parametrize("nfft,plan", [
@@ -129,8 +132,8 @@ def test_cuda_plan_takes_every_two_pol_nfft(nfft, plan):
     # Hopper kernels for two-pol input; none to a plain twin.
     from blit_torch.ops import channelize as tch
 
-    route, factors, rec = tch._resolve_plan(nfft, 2, "I", cuda=True)
-    assert route in ("tail2_detect", "fused1_tail2", "fused1", "dequant")
+    route, factors, rec = tch._resolve_plan(nfft, 2, "I")
+    assert route in ("tail2_detect", "fused1_tail2", "fused1", "front")
     assert (rec["pfb_kernel"], rec["tail_kernel"], rec["detect_kernel"]) == plan
     with pytest.raises(NotImplementedError, match="factorization"):
-        tch._resolve_plan(2 * 4099, 2, "I", cuda=True)
+        tch._resolve_plan(2 * 4099, 2, "I")
