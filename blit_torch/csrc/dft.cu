@@ -6,34 +6,59 @@
 //             o[b,k,j] = tw[k,j] * sum_l W[k,l] x[b,l,j], the twiddle optional.
 // W is the n-point DFT matrix (f32, symmetric), tw the (n, m) twiddles; the
 // input is f32 or bf16 (widened to f32 as it is loaded), the output f32.
-// Like _last_kernel and _stage_kernel, each output takes the four real
-// products; here rr - ii and ri + ir accumulate as two f32 sums per output.
 //
-// What bounds it on an H100: the transform itself (5*log2(n) flops per
-// complex output as an FFT) is bound by its 16 bytes per output (f32 in and
-// out): 1.28 ms for the 0002 product's n = 1024 chunk.  The dense product
-// that this contract fixes does 8n flops per output instead, so at n >= 16
-// this kernel is bound by the f32 arithmetic it chooses (67 TFLOP/s on the
-// CUDA cores; 2.2e12 flops, 32.8 ms, for that chunk) and only at n = 8
-// (the 0001 product) by memory.  Design:
-//   - both are one complex tiled GEMM, C = A·B per batch element: dft_last
-//     takes A = x, B = W; dft_stage takes A = W (shared by the batch), B = x.
-//     A block computes a 64 x 64 tile of C from 16-deep slices of A and B
-//     staged in shared memory; each of its 256 threads holds a 4 x 4 tile
-//     of complex sums in registers (64 FMAs per 4 16-byte shared loads);
-//     the next slices are loaded into registers while the current ones are
-//     used.  Edges are masked, so any n, m and row count works.
+// What bounds dft_last on an H100: its bytes.  As an FFT it does
+// 5*log2(n) flops per complex output against 16 bytes moved (f32 in and
+// out): about 3 flops a byte, far under the card's 20 f32 flops a byte.
+// The TPU contract's dense product does 8n flops per output instead (32.8
+// ms of f32 arithmetic for the 0002 product's n = 1024 chunk, whose bytes
+// take 1.28 ms).  So dft_last computes the function as an FFT
+// (dft_last_fft_kernel, the building blocks in fft_smem.cuh):
+//   - W[j, k] = W[1, (j*k) mod n]: the kernel reads only row 1 of the W it
+//     is given, the table of n-th roots, into shared memory, and indexes it
+//     for every root; each pass's twiddles are copied from it, by index,
+//     into a table of their own in which consecutive butterflies read
+//     consecutive entries (no bank conflicts);
+//   - a persistent block (as many per SM as registers and shared memory
+//     allow) walks over groups of rows, 4096 values at most, contiguous in
+//     memory; it stages a group with 16-byte cp.async copies over the flat
+//     range (the range's first chunk aligned down, so a row may start
+//     anywhere) while the previous group's butterflies run (two stage
+//     buffers);
+//   - the radix plan comes from ops/dft.py fft_plan: Stockham passes of
+//     radix 16/8/4/2 in registers, then 3, 5, 7, and a dense pass for any
+//     other prime, so every n <= 4096 is an FFT; between passes the data
+//     sit in shared memory with one pad word every 32 (the stride-R
+//     writes of the first pass hit 32 banks), f32 in place in the stage
+//     buffer; the last pass writes natural order straight to device
+//     memory, consecutive threads on consecutive addresses;
+//   - the main paths' sizes (1024, 512, 96, 64) have their plans compiled
+//     in, so every index computation folds to constants; any other plan is
+//     read at run time, each pass a function of its own;
+//   - each row's arithmetic is the same wherever the row falls, in any
+//     call: a row's output depends only on that row;
+//   - f32 stays f32 on the CUDA cores (no TF32).
+// For n = 8 a row kernel (dft_last_rows_kernel: one thread a row, W in
+// shared memory, 16-byte loads and stores) can take the call instead;
+// ops/dft.py dft_last_design picks the one the smoke timed faster.  The
+// dense tiled GEMM (cgemm_kernel) still serves dft_stage and runs
+// dft_last at any n when asked (the design of the first port, timed beside
+// the FFT by chip_smoke.py):
+//   - C = A·B per batch element: dft_last takes A = x, B = W; dft_stage
+//     takes A = W (shared by the batch), B = x.  A block computes a 64 x 64
+//     tile of C from 16-deep slices of A and B staged in shared memory;
+//     each of its 256 threads holds a 4 x 4 tile of complex sums in
+//     registers; the next slices are loaded into registers while the
+//     current ones are used.  Edges are masked, so any n, m and row count
+//     works.  Like _last_kernel and _stage_kernel, each output takes the
+//     four real products; rr - ii and ri + ir accumulate as two f32 sums;
 //   - the twiddle multiplies the sums in the epilogue, read once per output.
-//   - for n = 8 (the 0001 product) dft_last instead gives each thread whole
-//     rows and keeps W in shared memory: the tile would waste 56 of its 64
-//     columns, and the work is a stream of bytes.  The launch's `tiled`
-//     flag runs the tile there anyway, so the two can be timed side by side.
-//   - f32 stays f32 on the CUDA cores (no TF32, no tensor cores); wgmma,
-//     TMA and a deeper pipeline are left for later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "fft_smem.cuh"
 
 namespace {
 
@@ -241,6 +266,273 @@ dft_last_rows_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
+// ---- dft_last as an FFT -------------------------------------------------
+
+constexpr int FE = 4096;  // values of a row group, at most
+// Threads of an FFT block: 256 (16 values a thread in a pass) for the
+// compiled-in powers of two, 512 (8 values) for 96 and the plans read at
+// run time, whose radix-3/5/7 passes spill registers at 16 values.
+constexpr int FT_POW2 = 256;
+constexpr int FT_OTHER = 512;
+
+// Shared-memory floats of a padded f32 group of e values (one pad word
+// every 32), room for the staged copies, rounded to 8 so the planes stay
+// 16-byte aligned.
+__host__ __device__ inline int padded_elems(int e) {
+  const int a = e + e / 32 + 1, b = e + 8;  // b: + 2 copies of 4
+  return ((a > b ? a : b) + 7) & ~7;
+}
+
+// Element idx of row t of a staged group: the stage planes (values of T
+// at shared offsets sr, si, unpadded, from soff) on the first pass, the
+// padded f32 work planes (wr, wi) after it; the last pass stores to the
+// group's output rows.  Butterflies run along a row (consecutive threads on
+// consecutive j), then over rows.
+template <typename T>
+struct RowIO {
+  float* gr;
+  float* gi;
+  int sr, si, wr, wi, soff, n, pt;
+  bool from_stage, to_global;
+
+  __device__ __forceinline__ int pass_table() const { return pt; }
+
+  __device__ __forceinline__ void set_pass(bool first, bool last) {
+    from_stage = first;
+    to_global = last;
+  }
+  __device__ __forceinline__ void round(int, int) {}
+
+  __device__ __forceinline__ void map(int b, int L, int& t, int& j) const {
+    t = b / L;
+    j = b - t * L;
+  }
+  __device__ __forceinline__ void map_out(int o, int L, int& t, int& j,
+                                          int& r) const {
+    t = o / n;
+    const int rem = o - t * n;
+    r = rem / L;
+    j = rem - r * L;
+  }
+  __device__ __forceinline__ void ld(int t, int idx, float& a, float& b) const {
+    const int e = t * n + idx;
+    if (from_stage) {
+      a = fft::smem_ld<T>(sr + soff + e);
+      b = fft::smem_ld<T>(si + soff + e);
+    } else {
+      const int p = e + (e >> 5);
+      a = fft::fft_smem[wr + p];
+      b = fft::fft_smem[wi + p];
+    }
+  }
+  __device__ __forceinline__ void st(int t, int idx, float a, float b) const {
+    const int e = t * n + idx;
+    if (to_global) {
+      gr[e] = a;
+      gi[e] = b;
+    } else {
+      const int p = e + (e >> 5);
+      fft::fft_smem[wr + p] = a;
+      fft::fft_smem[wi + p] = b;
+    }
+  }
+};
+
+// Shared memory of the FFT kernel: the root table and the passes'
+// twiddle tables ((re, im) pairs, n rounded up to 4 each), `nstage` stage buffers (two planes each) and, for bf16 input, an
+// f32 work buffer; f32 input works in place in its stage buffer.
+__host__ __device__ inline size_t last_fft_smem(int n, int group_rows,
+                                                int nstage, int esize,
+                                                int* stage_elems,
+                                                int* work_elems) {
+  const int e = group_rows * n;
+  const int pe = padded_elems(e);
+  const int se = esize == 4 ? pe : ((e + 16) + 7) & ~7;  // + 2 copies of 8
+  const int we = esize == 4 ? 0 : pe;
+  if (stage_elems) *stage_elems = se;
+  if (work_elems) *work_elems = we;
+  const size_t n4 = (size_t)((n + 3) & ~3);
+  return 4 * n4 * 4 + (size_t)nstage * 2 * se * esize + 2 * (size_t)we * 4;
+}
+
+// N > 0: n = N and the plan P are compile-time constants (the main paths'
+// sizes); N = 0: both come from the arguments.  FT threads.
+template <typename T, int N, class P, int FT>
+__global__ void __launch_bounds__(FT, 512 / FT)
+dft_last_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                    const float* __restrict__ tr, const float* __restrict__ ti,
+                    float* __restrict__ o_r, float* __restrict__ o_i,
+                    long long rows, int n_arg, int group_rows_arg,
+                    fft::Plan plan, int nstage, int stage_elems,
+                    int work_elems) {
+  const int n = N ? N : n_arg;
+  const int group_rows = N ? (FE / N > 0 ? FE / N : 1) : group_rows_arg;
+  constexpr int V = 16 / sizeof(T);  // values of one 16-byte copy
+  // Shared memory: the root table as (re, im) pairs at float2 offset 0,
+  // the passes' twiddle tables at n4, the stage buffers from `stage`
+  // (values of T), the work planes from `work` (floats).
+  const int n4 = (n + 3) & ~3;
+  const int stage = 4 * n4 * 4 / (int)sizeof(T);
+  const int work = (4 * n4 * 4 + nstage * 2 * stage_elems * (int)sizeof(T)) / 4;
+  T* smem_t = reinterpret_cast<T*>(fft::fft_smem);
+  const int tid = threadIdx.x;
+
+  for (int k = tid; k < n; k += FT) {
+    fft::fft_smem[2 * k] = tr[k];
+    fft::fft_smem[2 * k + 1] = ti[k];
+  }
+  fft::fill_pass_tables<FT>(plan, n, tr, ti, n4);
+  const long long ngroups = (rows + group_rows - 1) / group_rows;
+  const long long total = rows * n;
+
+  // Stage group g into buffer s: 16-byte copies from the group's first
+  // value aligned down; the copy that holds the tensor's last value reads
+  // only up to it.
+  auto issue = [&](long long g, int s) {
+    const long long start = g * group_rows * (long long)n;
+    const long long end = min(total, start + (long long)group_rows * n);
+    const long long cbeg = start & ~(long long)(V - 1);
+    const int nchunk = (int)((end - cbeg + V - 1) / V);
+    T* dr = smem_t + stage + s * 2 * stage_elems;
+    T* di = dr + stage_elems;
+    for (int k = tid; k < nchunk; k += FT) {
+      const long long c = cbeg + (long long)k * V;
+      const int bytes = (int)min((long long)V, total - c) * (int)sizeof(T);
+      fft::cp16(dr + k * V, xr + c, bytes);
+      fft::cp16(di + k * V, xi + c, bytes);
+    }
+  };
+
+  long long g = blockIdx.x;
+  if (g < ngroups) issue(g, 0);
+  fft::cp_commit();
+  for (int it = 0; g < ngroups; g += gridDim.x, ++it) {
+    const int s = nstage == 2 ? (it & 1) : 0;
+    const long long gn = g + gridDim.x;
+    if (nstage == 2) {
+      if (gn < ngroups) issue(gn, s ^ 1);
+      fft::cp_commit();
+      fft::cp_wait_prev();
+    } else {
+      fft::cp_wait_all();
+    }
+    __syncthreads();
+
+    const long long row0 = g * group_rows;
+    const int grows = (int)min((long long)group_rows, rows - row0);
+    const long long start = row0 * n;
+    RowIO<T> io;
+    io.sr = stage + s * 2 * stage_elems;
+    io.si = io.sr + stage_elems;
+    // f32 works in place in its stage buffer (T = float: the same offsets).
+    io.wr = work_elems ? work : io.sr;
+    io.wi = io.wr + (work_elems ? work_elems : stage_elems);
+    io.gr = o_r + start;
+    io.gi = o_i + start;
+    io.soff = (int)(start & (V - 1));
+    io.n = n;
+    io.pt = n4;
+    if constexpr (N > 0) {
+      fft::static_plan<FT, FE / FT, N, 1>(io, grows, group_rows, 0, P());
+    } else {
+      fft::run_plan<FT, FE / FT>(io, n, plan, grows, grows, 0);
+    }
+    // Every pass ends in a barrier: the stage buffer is free again.
+    if (nstage == 1) {
+      if (gn < ngroups) issue(gn, 0);
+      fft::cp_commit();
+    }
+  }
+}
+
+template <typename T, int N, class P, int FT>
+cudaError_t launch_fft(const T* xr, const T* xi, const float* tr,
+                       const float* ti, float* o_r, float* o_i, long long r,
+                       int n, int group_rows, const fft::Plan& plan,
+                       int nstage, int se, int we, size_t smem,
+                       cudaStream_t s) {
+  auto kernel = dft_last_fft_kernel<T, N, P, FT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FT, smem)) != cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long groups = (r + group_rows - 1) / group_rows;
+  const long long slots = (long long)per_sm * sms;
+  const long long grid = groups < slots ? groups : slots;
+  kernel<<<(unsigned)grid, FT, smem, s>>>(xr, xi, tr, ti, o_r, o_i, r, n,
+                                          group_rows, plan, nstage, se, we);
+  return cudaGetLastError();
+}
+
+template <int... Rs>
+bool is_plan(const fft::Plan& plan, fft::Radices<Rs...>) {
+  const int want[] = {Rs...};
+  if (plan.np != (int)sizeof...(Rs)) return false;
+  for (int p = 0; p < plan.np; ++p) {
+    if (plan.r[p] != want[p]) return false;
+  }
+  return true;
+}
+
+// The main paths' sizes with their plans compiled in: 1024 (0002, the
+// search), 512 (the F-engine), 96 (6144's last level), 64 (route (a) at
+// 2^13).  Any other plan runs the kernel that reads it at run time.
+using P1024 = fft::Radices<16, 8, 8>;
+using P512 = fft::Radices<8, 8, 8>;
+using P96 = fft::Radices<8, 4, 3>;
+using P64 = fft::Radices<8, 8>;
+
+template <typename T>
+cudaError_t last_fft(const void* xr_, const void* xi_, const void* wr,
+                     const void* wi, void* o_r_, void* o_i_, long long r,
+                     int n, const int* radices, int npass, int group_rows,
+                     int nstage, long long smem_want, cudaStream_t s) {
+  if (npass < 1 || npass > fft::MAX_PASSES || group_rows < 1 ||
+      group_rows * n > FE || (nstage != 1 && nstage != 2) || n < 2) {
+    return cudaErrorInvalidValue;
+  }
+  fft::Plan plan;
+  plan.np = npass;
+  long long prod = 1;
+  for (int p = 0; p < npass; ++p) {
+    plan.r[p] = radices[p];
+    prod *= radices[p];
+  }
+  if (prod != n || group_rows != (FE / n > 0 ? FE / n : 1)) {
+    return cudaErrorInvalidValue;
+  }
+  int se = 0, we = 0;
+  const size_t smem = last_fft_smem(n, group_rows, nstage, sizeof(T), &se, &we);
+  if ((long long)smem != smem_want) return cudaErrorInvalidValue;
+  const T* xr = static_cast<const T*>(xr_);
+  const T* xi = static_cast<const T*>(xi_);
+  float* o_r = static_cast<float*>(o_r_);
+  float* o_i = static_cast<float*>(o_i_);
+  // Row 1 of W: the n-th roots of unity.
+  const float* tr = static_cast<const float*>(wr) + n;
+  const float* ti = static_cast<const float*>(wi) + n;
+#define BLIT_LAST_STATIC(NN, PP, FT)                                      \
+  if (n == NN && is_plan(plan, PP())) {                                   \
+    return launch_fft<T, NN, PP, FT>(xr, xi, tr, ti, o_r, o_i, r, n,      \
+                                     group_rows, plan, nstage, se, we,    \
+                                     smem, s);                            \
+  }
+  BLIT_LAST_STATIC(1024, P1024, FT_POW2)
+  BLIT_LAST_STATIC(512, P512, FT_POW2)
+  BLIT_LAST_STATIC(96, P96, FT_OTHER)
+  BLIT_LAST_STATIC(64, P64, FT_POW2)
+#undef BLIT_LAST_STATIC
+  return launch_fft<T, 0, fft::Radices<>, FT_OTHER>(
+      xr, xi, tr, ti, o_r, o_i, r, n, group_rows, plan, nstage, se, we, smem,
+      s);
+}
+
 template <typename TA, typename TB, bool TW>
 cudaError_t cgemm(const void* ar, const void* ai, const void* br,
                   const void* bi, const void* tr, const void* ti, void* cr,
@@ -276,15 +568,25 @@ cudaError_t last_rows(const void* xr, const void* xi, const void* wr,
   return cudaGetLastError();
 }
 
+// design: 0 the FFT, 1 the tiled GEMM, 2 the row kernel (n = 8).
 template <typename T>
 cudaError_t last(const void* xr, const void* xi, const void* wr,
                  const void* wi, void* o_r, void* o_i, long long r, int n,
-                 int tiled, cudaStream_t s) {
-  if (n == 8 && !tiled) {
-    return last_rows<8, T>(xr, xi, wr, wi, o_r, o_i, r, s);
+                 int design, const int* radices, int npass, int group_rows,
+                 int nstage, long long smem, cudaStream_t s) {
+  switch (design) {
+    case 0:
+      return last_fft<T>(xr, xi, wr, wi, o_r, o_i, r, n, radices, npass,
+                         group_rows, nstage, smem, s);
+    case 1:
+      return cgemm<T, float, false>(xr, xi, wr, wi, nullptr, nullptr, o_r,
+                                    o_i, 1, r, n, n, 0, 0, 0, s);
+    case 2:
+      if (n != 8) return cudaErrorInvalidValue;
+      return last_rows<8, T>(xr, xi, wr, wi, o_r, o_i, r, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cgemm<T, float, false>(xr, xi, wr, wi, nullptr, nullptr, o_r, o_i, 1,
-                                r, n, n, 0, 0, 0, s);
 }
 
 template <typename T>
@@ -304,14 +606,20 @@ cudaError_t stage(const void* xr, const void* xi, const void* wr,
 
 extern "C" {
 
-// tiled: run the tiled GEMM also where the row kernel applies (n = 8).
+// design: 0 the FFT over the plan `radices[0..npass)` in groups of
+// `group_rows` rows, `nstage` stage buffers, `smem` bytes of shared memory
+// (checked against this file's layout); 1 the tiled GEMM; 2 the row kernel
+// (n = 8).
 int dft_last_launch(const void* xr, const void* xi, const void* wr,
                     const void* wi, void* o_r, void* o_i, long long r, int n,
-                    int bf16, int tiled, void* stream) {
+                    int bf16, int design, const int* radices, int npass,
+                    int group_rows, int nstage, long long smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bf16 ? last<__nv_bfloat16>(xr, xi, wr, wi, o_r, o_i, r, n, tiled, s)
-           : last<float>(xr, xi, wr, wi, o_r, o_i, r, n, tiled, s);
+      bf16 ? last<__nv_bfloat16>(xr, xi, wr, wi, o_r, o_i, r, n, design,
+                                 radices, npass, group_rows, nstage, smem, s)
+           : last<float>(xr, xi, wr, wi, o_r, o_i, r, n, design, radices,
+                         npass, group_rows, nstage, smem, s);
   return (int)err;
 }
 

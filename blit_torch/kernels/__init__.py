@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``.  Libraries land in ``blit_torch/kernels/build/`` under a name
-keyed by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing is built at import time:
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source builds anew and an unchanged one is
+reused.  Nothing is built at import time:
 :func:`load` builds on first use, :func:`build_all` builds every source
 in parallel (one ``nvcc`` process each).  A failed build raises.
 """
@@ -45,8 +46,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
+    # The headers of csrc/ count too: a source may include any of them.
+    parts = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                    if f.endswith(".cuh"))
+    src = b""
+    for f in parts:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            src += fh.read()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
 

@@ -10,9 +10,11 @@ Counterpart of ``blit/ops/channelize.py``::
 
 The plan follows ``blit``'s rules, in ``blit``'s order, with the Hopper
 kernels' fit gates in place of the TPU's VMEM gates; ``"auto"`` means the
-plan ``blit`` resolves on the TPU (``fft_method="matmul"``).  Under
-``"auto"``, for two-pol input and every nfft :func:`default_factors`
-splits:
+plan ``blit`` resolves on the TPU (``fft_method="matmul"``), and for an
+nfft :func:`default_factors` cannot split the one ``blit`` resolves off
+it (``torch.fft``: ``"direct"`` up to 8192, ``"four_step"`` above).
+Under ``"auto"``, for two-pol input and every nfft
+:func:`default_factors` splits:
 
 - ``pfb_dft1`` (dequant + PFB + DFT stage 1, :mod:`blit_torch.ops.pfb`)
   when nfft has >= 2 factors and its gate passes; then ``tail2_detect``
@@ -119,11 +121,25 @@ def pfb_frontend(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def resolve_fft_method(method: str) -> str:
+# Largest FFT blit runs as one FFT call off the TPU; above it, four-step
+# (blit/ops/channelize.py _DIRECT_FFT_MAX).
+_DIRECT_FFT_MAX = 8192
+
+
+def resolve_fft_method(method: str, n: Optional[int] = None) -> str:
     """``"auto"`` → ``"matmul"``: the planar matmul DFT of ``blit``'s TPU
-    plan, run through the DFT kernels on CUDA and their twins on the CPU.
-    ``"direct"`` and ``"four_step"`` (``torch.fft``) pass through."""
+    plan, run through the DFT kernels on CUDA and their twins on the CPU
+    — except for an ``n`` that :func:`default_factors` cannot split,
+    where it resolves as ``blit`` does off the TPU: ``"direct"`` up to
+    8192 (``blit``'s ``_DIRECT_FFT_MAX``), ``"four_step"`` above
+    (``torch.fft``).  ``"matmul"``, ``"direct"`` and ``"four_step"`` pass
+    through."""
     if method == "auto":
+        if n is not None:
+            try:
+                default_factors(n)
+            except NotImplementedError:
+                return "direct" if n <= _DIRECT_FFT_MAX else "four_step"
         return "matmul"
     if method not in ("matmul", "direct", "four_step"):
         raise ValueError(f"unknown fft method {method!r}")
@@ -179,7 +195,7 @@ def fft_planar(fr: torch.Tensor, fi: torch.Tensor, *, method: str = "auto",
     (:func:`blit_torch.ops.dft.untwist` restores them).  ``"direct"`` and
     ``"four_step"`` go through :func:`fft` (``torch.fft``, bf16 planes
     widened to f32) and always emit natural order."""
-    method = resolve_fft_method(method)
+    method = resolve_fft_method(method, fr.shape[-1])
     if method == "matmul":
         if use_pallas is None:
             use_pallas = fr.device.type == "cuda"
@@ -245,13 +261,14 @@ def _resolve_plan(nfft: int, npol: int, stokes: str, *,
     ``dft.tail2_fits`` for ``dft_tail2`` — in place of the VMEM gates.
     Raises ``ValueError`` naming the knob where ``blit`` refuses, or
     where a gate refuses an explicit kernel; ``NotImplementedError``
-    where the matmul DFT has no factorization."""
+    where an explicit ``fft_method="matmul"`` has no factorization
+    (``"auto"`` then takes ``torch.fft``, see :func:`resolve_fft_method`)."""
     for knob, value in (("dft_order", dft_order), ("pfb_kernel", pfb_kernel),
                         ("detect_kernel", detect_kernel),
                         ("tail_kernel", tail_kernel)):
         if value not in _KNOBS[knob]:
             raise ValueError(f"bad {knob} {value!r}")
-    method = resolve_fft_method(fft_method)
+    method = resolve_fft_method(fft_method, nfft)
     twisted = method == "matmul" and dft_order == "twisted"
     factors = None
     if method == "matmul":
@@ -373,8 +390,9 @@ def channelize(
       coeffs: ``(ntap, nfft)`` PFB prototype from :func:`pfb_coeffs`.
       nint: spectra integrated per output sample.
       stokes: detection product (see ``detect_stokes_planar``).
-      fft_method: "auto" (= "matmul") | "matmul" | "direct" |
-        "four_step" (see :func:`fft_planar`).
+      fft_method: "auto" (= "matmul", or torch.fft where nfft has no
+        factorization) | "matmul" | "direct" | "four_step" (see
+        :func:`fft_planar` and :func:`resolve_fft_method`).
       dtype: working dtype of the PFB output / stage-1 spectra
         ("float32" | "bfloat16"); the DFT levels after it, detection and
         integration are f32 either way.

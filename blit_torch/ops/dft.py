@@ -14,10 +14,14 @@ hand-written Hopper kernels of ``blit_torch/csrc/dft.cu``, and
 ``blit_torch/csrc/dft_tail2.cu``; on a CPU tensor they run their plain
 twins (:func:`dft_last_plain`, :func:`dft_stage_plain`,
 :func:`dft_tail2_plain`: f32 ``torch.matmul`` with the four real
-products).  :func:`dft` and :func:`dft_tail` walk the Cooley-Tukey levels
-with them (``use_pallas=True``, ``blit``'s name for its kernel route) or
-with the twins, in natural order or in the twisted (digit-permuted) order
-that :func:`untwist` restores.
+products).  ``dft_last`` and ``dft_tail2`` compute their DFTs as FFTs in
+shared memory, reading only row 1 of the DFT matrices (the table of
+roots, ``W[j, k] == W[1, (j·k) mod n]``), over the radix plans of
+:func:`fft_plan`; ``dft_stage`` keeps the dense product.  :func:`dft`
+and :func:`dft_tail` walk the Cooley-Tukey levels with them
+(``use_pallas=True``, ``blit``'s name for its kernel route) or with the
+twins, in natural order or in the twisted (digit-permuted) order that
+:func:`untwist` restores.
 """
 
 from __future__ import annotations
@@ -135,7 +139,8 @@ def _lib() -> ctypes.CDLL:
     if lib.dft_last_launch.argtypes is None:
         lib.dft_last_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+            + [ctypes.c_longlong, ctypes.c_void_p])
         lib.dft_last_launch.restype = ctypes.c_int
         lib.dft_stage_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
@@ -144,11 +149,88 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# Shared memory a block may take on an H100 or H200 (227 KB, opt-in).
+SMEM_MAX = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def fft_plan(n: int) -> Tuple[int, ...]:
+    """The radices of the shared-memory FFT of n points, in pass order
+    (their product is n): the power of two 2^k in ceil(k/4) passes of
+    radix 16, 8, 4 or 2 as even as can be, largest first; then 3, 5 and
+    7 once per factor; then every other prime factor as one dense pass."""
+    if n < 2:
+        raise ValueError(f"fft_plan: n={n} < 2")
+    k = (n & -n).bit_length() - 1
+    m = n >> k
+    radices = []
+    if k:
+        npass = -(-k // 4)
+        base, extra = divmod(k, npass)
+        radices = [1 << (base + (i < extra)) for i in range(npass)]
+    for p in (3, 5, 7):
+        while m % p == 0:
+            radices.append(p)
+            m //= p
+    f = 11
+    while m > 1:
+        while m % f == 0:
+            radices.append(f)
+            m //= f
+        f += 2
+    return tuple(radices)
+
+
+# Values of a row group of dft_last's FFT kernel: csrc/dft.cu FE.
+_LAST_GROUP = 4096
+# dft_last at n = 8: the row kernel ("rows") or the FFT ("fft"), the one
+# chip_smoke.py (c) times faster on the 0001 chunk (PERF.md §6).
+_N8_DESIGN = "rows"
+
+
+def dft_last_design(n: int) -> str:
+    """The design :func:`dft_last` launches for n points: ``"rows"``
+    (csrc/dft.cu's row kernel) at n = 8, where the smoke timed it
+    against the FFT; else ``"fft"`` for 2 <= n <= DIRECT_DFT_MAX; the
+    tiled GEMM (``"tiled"``) for n = 1."""
+    if n == 8:
+        return _N8_DESIGN
+    return "fft" if 2 <= n <= DIRECT_DFT_MAX else "tiled"
+
+
+def _padded(e: int) -> int:
+    return (max(e + e // 32 + 1, e + 8) + 7) & ~7
+
+
+def last_fft_geometry(n: int, esize: int) -> Tuple[int, int, int]:
+    """``(rows a group, stage buffers, shared-memory bytes)`` of
+    dft_last's FFT kernel for n points of ``esize``-byte input, the
+    layout ``csrc/dft.cu`` ``last_fft_smem`` checks: groups of up to 4096
+    values, two stage buffers where they fit in :data:`SMEM_MAX`."""
+    rows = max(1, _LAST_GROUP // n)
+    e = rows * n
+    pe = _padded(e)
+    se = pe if esize == 4 else (e + 16 + 7) & ~7
+    we = 0 if esize == 4 else pe
+    n4 = (n + 3) & ~3
+
+    def smem(nstage):  # the root and pass tables, stages, work
+        return 4 * n4 * 4 + nstage * 2 * se * esize + 2 * we * 4
+
+    nstage = 2 if smem(2) <= SMEM_MAX else 1
+    return rows, nstage, smem(nstage)
+
+
+def _radices(plan) -> ctypes.Array:
+    return (ctypes.c_int * len(plan))(*plan)
+
+
 def dft_last(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
              wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planar DFT along the last axis, the recursion's base case:
     ``o[..., k] = Σ_j x[..., j] · W[j, k]``.  ``xr, xi``: f32 or bf16
-    ``(..., n)``; ``wr, wi``: the f32 ``(n, n)`` DFT matrix.  Returns f32."""
+    ``(..., n)``; ``wr, wi``: the f32 ``(n, n)`` DFT matrix (the kernel
+    reads its row 1).  Returns f32."""
     if xr.device.type == "cpu":
         return dft_last_plain(xr, xi, wr, wi)
     if xr.device.type != "cuda":
@@ -161,29 +243,41 @@ def dft_last(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
 
 dft_last.launches = 0  # kernel launches (CUDA tensors only)
 
+_DESIGNS = {"fft": 0, "tiled": 1, "rows": 2}
 
-def dft_last_cuda(xr, xi, wr, wi, *, tiled: bool = False
+
+def dft_last_cuda(xr, xi, wr, wi, *, tiled: bool = False,
+                  design: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/dft.cu``'s ``dft_last`` on CUDA tensors, uncounted.
-    ``tiled=True`` runs the tiled GEMM also at n = 8, where the row kernel
-    takes the call otherwise (to time the two side by side)."""
+    """Launch ``csrc/dft.cu``'s ``dft_last`` on CUDA tensors, uncounted:
+    the design :func:`dft_last_design` picks, or ``design`` (``"fft"``,
+    ``"rows"`` at n = 8, ``"tiled"``).  ``tiled=True`` runs the dense
+    tiled GEMM (the first port's design) at any n, to time it beside the
+    FFT."""
     n = xr.shape[-1]
     _planar_check("dft_last", xr, xi)
     _f32_check("dft_last", xr.device, wr=(wr, (n, n)), wi=(wi, (n, n)))
     if n > DIRECT_DFT_MAX:
         raise ValueError(f"dft_last: n={n} > DIRECT_DFT_MAX={DIRECT_DFT_MAX}")
+    design = "tiled" if tiled else design or dft_last_design(n)
+    if design not in _DESIGNS or (design == "rows" and n != 8) or (
+            design == "fft" and n < 2):
+        raise ValueError(f"dft_last: no design {design!r} at n={n}")
     or_ = torch.empty(xr.shape, dtype=torch.float32, device=xr.device)
     oi = torch.empty_like(or_)
     rows = xr.numel() // n if n else 0
     if rows == 0:
         return or_, oi
+    plan = fft_plan(n) if design == "fft" else (n,)
+    group, nstage, smem = last_fft_geometry(n, xr.element_size())
     lib = _lib()
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.dft_last_launch(
             xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
             or_.data_ptr(), oi.data_ptr(), rows, n,
-            int(xr.dtype == torch.bfloat16), int(tiled), stream)
+            int(xr.dtype == torch.bfloat16), _DESIGNS[design],
+            _radices(plan), len(plan), group, nstage, smem, stream)
     kernels.check(lib, rc, "dft_last")
     return or_, oi
 
@@ -256,39 +350,91 @@ def dft_stage_plain(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     return sr * tr - si * ti, sr * ti + si * tr
 
 
-# Column widths f3 compiled into csrc/dft_tail2.cu, the rows of W2 a block
-# holds (4096 // f3 of them), and the largest f2 its table takes.
-TAIL2_F3 = (128, 256, 512)
-_TAIL2_BLOCK = 4096
-TAIL2_MAX_F2 = 1024
+# dft_tail2's Hopper kernel: f2 and f3 powers of two in these ranges
+# (f3 as blit's VMEM gate takes it at f2 = 128: up to 512, not 2^24's
+# 1024); panels of up to 16384 values in one launch, larger ones in two
+# through a scratch panel, tiles of 8192 values (csrc/dft_tail2.cu NT·MAXV).
+TAIL2_F2 = (8, 1024)
+TAIL2_F3 = (32, 512)
+TAIL2_ONE_PASS = 16384
+_TAIL2_TILE = 8192
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
 
 
 def tail2_fits(f2: int, f3: int) -> bool:
-    """Hopper fit gate of :func:`dft_tail2`'s kernel: ``f3`` one of its
-    compiled widths, ``f2`` a power of two from the ``4096 // f3`` rows a
-    block owns up to 1024.  The three-factor sizes it takes are 2^21,
-    2^22 and 2^23, the ones ``blit``'s VMEM gate passes."""
-    return (f3 in TAIL2_F3 and f2 > 0 and f2 & (f2 - 1) == 0
-            and _TAIL2_BLOCK // f3 <= f2 <= TAIL2_MAX_F2)
+    """Hopper fit gate of :func:`dft_tail2`'s kernel: f2 and f3 powers of
+    two, 8 <= f2 <= 1024 and 32 <= f3 <= 512.  The three-factor sizes it
+    takes are 2^20 to 2^23 (f3 64 to 512), the ones ``blit``'s VMEM gate
+    passes."""
+    return (_pow2(f2) and _pow2(f3) and TAIL2_F2[0] <= f2 <= TAIL2_F2[1]
+            and TAIL2_F3[0] <= f3 <= TAIL2_F3[1])
+
+
+def _tail2_smem(mode, f2, f3, tr, tc, nstage, esize) -> int:
+    """csrc/dft_tail2.cu ``tail2_smem``: mode 0 both levels on whole
+    panels, 1 the column level, 2 the row level."""
+    ss, ws = tc + 16 // esize, tc + 4
+    work = 0 if esize == 4 else 2 * tr * ws * 4
+    # Whole f32 panels larger than a round stage their twiddle a round
+    # (two planes of _TAIL2_TILE floats) at a time.
+    twiddle = (2 * _TAIL2_TILE * 4 if mode == 0 and esize == 4
+               and f2 * f3 > _TAIL2_TILE else 0)
+    return 2 * (f2 + f3) * 4 + nstage * 2 * tr * ss * esize + work + twiddle
+
+
+def tail2_geometry(f2: int, f3: int, esize: int) -> dict:
+    """How :func:`dft_tail2`'s kernel runs (f2, f3) on ``esize``-byte
+    input: the radix plans of both levels, the column tile width ``ct``
+    and row tile height ``rt`` (``ct == f3`` and ``rt == f2``: one launch
+    over whole panels; else the column level on (f2, ct) tiles to a
+    scratch panel, then the row level on (rt, f3) tiles), and each
+    launch's stage buffers and shared-memory bytes (two buffers where
+    they fit in :data:`SMEM_MAX`), the layout ``csrc/dft_tail2.cu``
+    checks.  Raises where the layout does not fit."""
+    if not tail2_fits(f2, f3):
+        raise ValueError(f"dft_tail2: no Hopper geometry for ({f2}, {f3})")
+
+    def stages(mode, tr, tc, es):
+        for nstage in (2, 1):
+            smem = _tail2_smem(mode, f2, f3, tr, tc, nstage, es)
+            if smem <= SMEM_MAX:
+                return nstage, smem
+        return None
+
+    one = stages(0, f2, f3, esize) if f2 * f3 <= TAIL2_ONE_PASS else None
+    if one is not None:
+        ct, rt, a, b = f3, f2, one, one
+    else:
+        ct, rt = min(f3, _TAIL2_TILE // f2), min(f2, _TAIL2_TILE // f3)
+        a, b = stages(1, f2, ct, esize), stages(2, rt, f3, 4)
+        if a is None or b is None:
+            raise ValueError(f"dft_tail2: ({f2}, {f3}) tiles do not fit")
+    return dict(plans=(fft_plan(f2), fft_plan(f3)), ct=ct, rt=rt,
+                launches=1 if one is not None else 2,
+                nstage=(a[0], b[0]), smem=(a[1], b[1]))
 
 
 def _tail2_lib() -> ctypes.CDLL:
     lib = kernels.load("dft_tail2")
     if lib.dft_tail2_launch.argtypes is None:
+        ip = ctypes.POINTER(ctypes.c_int)
         lib.dft_tail2_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+            + [ip, ctypes.c_int, ip] + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_void_p])
         lib.dft_tail2_launch.restype = ctypes.c_int
-        lib.dft_tail2_rows_per_block.argtypes = [ctypes.c_int]
-        lib.dft_tail2_rows_per_block.restype = ctypes.c_int
-        lib.dft_tail2_max_f2.argtypes = []
-        lib.dft_tail2_max_f2.restype = ctypes.c_int
-        geom = (lib.dft_tail2_max_f2(),
-                tuple(lib.dft_tail2_rows_per_block(f3) for f3 in TAIL2_F3))
-        want = (TAIL2_MAX_F2, tuple(_TAIL2_BLOCK // f3 for f3 in TAIL2_F3))
-        if geom != want:
-            raise RuntimeError(f"dft_tail2.cu geometry {geom} disagrees "
-                               "with blit_torch/ops/dft.py")
+        lib.dft_tail2_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.dft_tail2_smem_bytes.restype = ctypes.c_longlong
+        # The layout this module plans for is the one the kernel uses.
+        for args in ((0, 128, 128, 128, 128, 1, 4), (0, 128, 64, 128, 64, 2, 2),
+                     (1, 128, 512, 128, 64, 2, 4), (2, 128, 512, 16, 512, 2, 4)):
+            if lib.dft_tail2_smem_bytes(*args) != _tail2_smem(*args):
+                raise RuntimeError("csrc/dft_tail2.cu's shared-memory "
+                                   "layout disagrees with ops/dft.py")
     return lib
 
 
@@ -309,8 +455,9 @@ def dft_tail2(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
     _planar_check("dft_tail2", xr, xi)
     if not tail2_fits(f2, f3):
         raise ValueError(
-            f"dft_tail2: the Hopper kernel takes f3 in {TAIL2_F3} and f2 a "
-            f"power of two from 4096/f3 to {TAIL2_MAX_F2} (got {f2}, {f3})")
+            f"dft_tail2: the Hopper kernel takes f2 and f3 powers of two, "
+            f"f2 in {TAIL2_F2} and f3 in {TAIL2_F3} (got {f2}, {f3})")
+    geo = tail2_geometry(f2, f3, xr.element_size())
     dev = xr.device
     w2r, w2i = as_tensors(dft_matrices(f2), dev)
     w3r, w3i = as_tensors(dft_matrices(f3), dev)
@@ -320,13 +467,20 @@ def dft_tail2(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
     panels = xr.numel() // m
     if panels == 0:
         return or_, oi
+    scratch = ((torch.empty_like(or_), torch.empty_like(or_))
+               if geo["launches"] == 2 else (None, None))
+    p2, p3 = geo["plans"]
     lib = _tail2_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dft_tail2_launch(
             xr.data_ptr(), xi.data_ptr(), w2r[1].data_ptr(), w2i[1].data_ptr(),
-            w3r.data_ptr(), w3i.data_ptr(), tr.data_ptr(), ti.data_ptr(),
-            or_.data_ptr(), oi.data_ptr(), panels, f2, f3,
+            w3r[1].data_ptr(), w3i[1].data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            or_.data_ptr(), oi.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch),
+            panels, f2, f3, _radices(p2), len(p2), _radices(p3), len(p3),
+            geo["ct"], geo["rt"], geo["nstage"][0], geo["smem"][0],
+            geo["nstage"][1], geo["smem"][1],
             int(xr.dtype == torch.bfloat16), stream)
     kernels.check(lib, rc, "dft_tail2")
     dft_tail2.launches += 1

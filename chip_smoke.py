@@ -31,10 +31,11 @@ Phases, in order; any failure exits non-zero:
       the same function, its time: pfb_dft1 and tail2_detect at the 0000
       chunk (64 coarse channels, nfft 2^20, 4 frames); pfb_dequant at the
       0002 (2048 frames of 1024) and 0001 (2^17 frames of 8) chunks;
-      dft_last at n = 1024 and n = 8 on those chunks' PFB output (at
-      n = 8 also the tiled GEMM that the row kernel stands in for);
-      dft_tail2 in (e) and dft_stage and dft_last in (f) at their paths'
-      shapes;
+      dft_last at n = 1024 and n = 8 on those chunks' PFB output, each
+      beside the dense tiled GEMM (tiled=True, the first port's design:
+      tiled_ms) and, at n = 8, the FFT the row kernel stands in for;
+      dft_tail2 in (e), dft_stage and dft_last in (f), dft_last in (m)
+      and (l) at their paths' shapes;
   (d) main paths: a synthetic 2.95 GB RAW file (128 MiB blocks, a tone
       at 0.375 of one coarse channel, on the fine grid of all three
       products) → reducer_for_product(p).reduce_to_file(.fil) on the GPU
@@ -46,10 +47,12 @@ Phases, in order; any failure exits non-zero:
       chunks against the plan run through the plain twins (the second
       starts from the PFB state carried across); prints stage seconds,
       RAW GB/s and the real-time factor against one bank's 0.75 GB/s;
-  (e) the 2^21 path (128·128·128): channelize on 64 coarse channels × one
+  (e) the 2^21 path (128·128·128): dft_tail2 against its twin on the
+      path's stage-1 spectra, then channelize on 64 coarse channels × one
       chunk of 4 frames (int8 made on the card from a seeded generator):
       pfb_dft1, dft_tail2 (levels 2 and 3, inner untwist), the level-0
-      swap and torch detect, as blit runs it.  Device memory: 3.8 GB of
+      swap and torch detect, as blit runs it; then dft_tail2 at 2^20's
+      (128, 64) on (c)'s stage-1 spectra, against its twin and timed.  Device memory: 3.8 GB of
       voltages; 8.6 GB each for the stage-1 spectra, the dft_tail2 output
       and the swapped spectra, of which two live at once: ~25 GB at the
       peak of the 80 GB card (the dft_tail2 check before it, with the
@@ -57,8 +60,9 @@ Phases, in order; any failure exits non-zero:
       with the twins;
   (f) the 6144 path (64·96, outside pfb_dft1's gate): channelize on 64
       coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
-      twiddle), dft_last (96 points), the swap and torch detect; all 64
-      channels compared with the twins (~30 GB at the peak);
+      twiddle), dft_last (96 points, also timed beside the tiled GEMM),
+      the swap and torch detect; all 64 channels compared with the twins
+      (~30 GB at the peak);
   (m) run after (f), once its tensors are freed: the opt-in routes.
       detect_untwist_i against detect_untwist_i_plain on twisted spectra
       of the 0000 chunk's shape (64, 2, 4, 2^20), factors (128, 128, 64),
@@ -69,7 +73,11 @@ Phases, in order; any failure exits non-zero:
       at 2^20 on (c)'s chunk: pfb_dft1, dft_stage + dft_last in twisted
       order, detect_untwist_i, held against the twins on 4 channels and
       against the default plan's (tail2_detect) output, and timed beside
-      it (medians of 7 channelize calls); route (a) at 2^13 (two factors,
+      it (medians of 7 channelize calls); the dft_tail2 route,
+      channelize(tail_kernel="pallas", detect_kernel="xla") at 2^20 on the
+      same chunk (pfb_dft1, dft_tail2 at f3 = 64, torch detect), the same
+      way; dft_last at route (a) 2^13's n = 64 (64 × 2 × 64 × 128 rows)
+      beside the tiled GEMM; route (a) at 2^13 (two factors,
       mid = 1; 64 frames) against the twins and the default plan; route
       (b), dft_order="twisted" on (f)'s chunk (pfb_dequant, the twisted
       DFT, detect, the untwist of the power) against the twins on 4
@@ -126,6 +134,8 @@ Phases, in order; any failure exits non-zero:
       4 must take the CUDA X-engine and one dft_last launch, and agree
       with the plain route (F-engine DFT through dft_last's twin,
       xengine_packed_plain; rtol 1e-4, atol 1e-3 of the noise rms);
+      dft_last at n = 512 on the F-engine's FIR output against its twin,
+      beside the tiled GEMM and torch.fft.fft;
       xengine_packed against its plain version at (64, 16, 2, 61, 512)
       in f32 and bf16 (atol 1e-3 of the spectra's mean square), timed
       beside the batched complex64 torch.matmul of the packed spectra;
@@ -503,11 +513,58 @@ def tail2_cost(nout, f2, f3, in_esize):
             [(nout * 8 * (f2 + f3) + tw, F32_FLOPS)])
 
 
+def dft_last_record(torch, xr, xi, n, where, **extra):
+    """dft_last on (xr, xi) (rows of n points) against its plain version,
+    timed beside the tiled GEMM (``tiled=True``, the dense design of the
+    first port, also held to the bound) and, for f32, ``torch.fft.fft``
+    of the same rows; at n = 8 also the design the gate did not pick
+    (the row kernel or the FFT), checked and timed."""
+    from blit_torch.ops import dft as tdft
+
+    dev = xr.device
+    dtype = "bfloat16" if xr.dtype == torch.bfloat16 else "float32"
+    w = tdft.as_tensors(tdft.dft_matrices(n), dev)
+    want = tdft.dft_last_plain(xr, xi, *w)
+    got = tdft.dft_last(xr, xi, *w)
+    err, atol, ok = check_bound(torch, got, want, "dft_last", dtype,
+                                inputs=(xr, xi))
+    del got
+    design = tdft.dft_last_design(n)
+    others = ["tiled"] + [d for d in ("fft", "rows")
+                          if n == 8 and d != design]
+    designs = {}
+    for other in others:
+        got = tdft.dft_last_cuda(xr, xi, *w, design=other)
+        oerr, _, ook = check_bound(torch, got, want, "dft_last", dtype,
+                                   inputs=(xr, xi))
+        del got
+        ok = ok and ook
+        designs[other] = dict(max_abs_err=oerr, ms=median_ms(
+            torch, lambda: tdft.dft_last_cuda(xr, xi, *w, design=other)))
+    del want
+    torch.cuda.empty_cache()
+    ms = median_ms(torch, lambda: tdft.dft_last(xr, xi, *w))
+    plain_ms = median_ms(torch, lambda: tdft.dft_last_plain(xr, xi, *w), runs=5)
+    lib_ms = None
+    if dtype == "float32":
+        z = torch.complex(xr, xi)
+        lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
+        del z
+    torch.cuda.empty_cache()
+    return kernel_record(
+        "dft_last", dtype, "blit_torch/csrc/dft.cu",
+        "blit/ops/pallas_dft.py:325", err, atol, ok, ms, plain_ms,
+        dft_cost(xr.numel(), n, xr.element_size()), lib_ms, n=n,
+        design=design, plan=list(tdft.fft_plan(n)), path=where,
+        library="torch.fft.fft", tiled_ms=designs["tiled"]["ms"],
+        tiled_max_abs_err=designs["tiled"]["max_abs_err"],
+        designs=designs, **extra)
+
+
 def phase_front_kernels(torch, dev):
     """(c) for the 0002 and 0001 paths: pfb_dequant at both chunk shapes
     (f32, bf16) and dft_last on their PFB output (n = 1024, n = 8)."""
     from blit_torch.ops import channelize as tch
-    from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb
     from blit_torch.pipeline import PRODUCT_PRESETS
 
@@ -543,42 +600,12 @@ def phase_front_kernels(torch, dev):
                 product=product, **agg))
             planes[dtype] = got
         del v
-        w = tdft.as_tensors(tdft.dft_matrices(nfft), dev)
         for dtype in ("float32", "bfloat16"):
             if dtype == "bfloat16" and product == "0001":
                 continue
             xr, xi = planes.pop(dtype)
-            got = tdft.dft_last(xr, xi, *w)
-            want = tdft.dft_last_plain(xr, xi, *w)
-            err, atol, ok = check_bound(torch, got, want, "dft_last", dtype,
-                                        inputs=(xr, xi))
-            extra = {}
-            if nfft == 8:
-                # The row kernel against the tiled GEMM at the same call.
-                tiled = tdft.dft_last_cuda(xr, xi, *w, tiled=True)
-                terr, _, tok = check_bound(torch, tiled, want, "dft_last", dtype,
-                                           inputs=(xr, xi))
-                del tiled
-                ok = ok and tok
-                extra = dict(tiled_max_abs_err=terr, tiled_ms=median_ms(
-                    torch, lambda: tdft.dft_last_cuda(xr, xi, *w, tiled=True)))
-            del got, want
-            ms = median_ms(torch, lambda: tdft.dft_last(xr, xi, *w))
-            plain_ms = median_ms(torch, lambda: tdft.dft_last_plain(xr, xi, *w),
-                                 runs=5)
-            lib_ms = matmul_ms = None
-            if dtype == "float32":
-                z = torch.complex(xr, xi)
-                wc = torch.complex(*w)
-                lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
-                matmul_ms = median_ms(torch, lambda: torch.matmul(z, wc))
-                del z, wc
-            records.append(kernel_record(
-                "dft_last", dtype, "blit_torch/csrc/dft.cu",
-                "blit/ops/pallas_dft.py:325", err, atol, ok, ms, plain_ms,
-                dft_cost(xr.numel(), nfft, xr.element_size()), lib_ms,
-                product=product, n=nfft, library="torch.fft.fft",
-                complex_matmul_ms=matmul_ms, **extra))
+            records.append(dft_last_record(torch, xr, xi, nfft, product,
+                                           product=product))
             del xr, xi
         planes.clear()
         torch.cuda.empty_cache()
@@ -644,6 +671,7 @@ EXPECTED = {
                        ("pfb_dft1", "dft_last", "detect_untwist_i")),
     "route (b) 6144": (_plan("pallas", "dft_stage+dft_last", dft_order="twisted"),
                        ("pfb_dequant", "dft_stage", "dft_last")),
+    "route tail2 2^20": (_plan("fused1", "dft_tail2"), ("pfb_dft1", "dft_tail2")),
     "route (c) one pol": (_plan("torch", "dft_last", fft_method="matmul"),
                           ("dft_last",)),
     "route (d) direct": (_plan("torch", "torch", fft_method="direct"), ()),
@@ -818,9 +846,44 @@ def run_path(torch, dev, path, v, coeffs, nfft, nchan_ref, **knobs):
     return launches, out
 
 
+def tail2_record(torch, ur, ui, f2, f3, product):
+    """dft_tail2 on stage-1 spectra against its twin, timed beside the
+    twin and ``torch.fft.fft`` of the same rows."""
+    from blit_torch.ops import dft as tdft
+
+    got = tdft.dft_tail2(ur, ui, f2, f3)
+    want = tdft.dft_tail2_plain(ur, ui, f2, f3)
+    # blit's bound is for its tests' panels of <= 128 points; the outputs
+    # of an m-point DFT, and the f32 rounding of their sums, grow as
+    # sqrt(m), and so does the atol (as in tests/test_torch_cuda.py).
+    err, atol, ok = check_bound(torch, got, want, "dft_tail2", "float32",
+                                inputs=(ur, ui), grow=(f2 * f3 / 128) ** 0.5)
+    del got, want
+    torch.cuda.empty_cache()
+    ms = median_ms(torch, lambda: tdft.dft_tail2(ur, ui, f2, f3))
+    plain_ms = median_ms(torch, lambda: tdft.dft_tail2_plain(ur, ui, f2, f3), runs=5)
+    torch.cuda.empty_cache()
+    # One PyTorch call for the same function: each row's (f2·f3)-point DFT.
+    z = torch.complex(ur, ui)
+    lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
+    del z
+    torch.cuda.empty_cache()
+    geo = tdft.tail2_geometry(f2, f3, ur.element_size())
+    rec = kernel_record(
+        "dft_tail2", "float32", "blit_torch/csrc/dft_tail2.cu",
+        "blit/ops/pallas_dft.py:246", err, atol, ok, ms, plain_ms,
+        tail2_cost(ur.numel(), f2, f3, 4), lib_ms,
+        product=product, f2=f2, f3=f3, plans=[list(p) for p in geo["plans"]],
+        kernel_launches=geo["launches"], library="torch.fft.fft")
+    if not ok:
+        raise AssertionError(f"dft_tail2 disagrees with its twin: {rec}")
+    return rec
+
+
 def phase_2pow21(torch, dev):
-    """(e): dft_tail2 against its twin at this path's shape, then the
-    2^21 path through channelize.  Returns (launch counts, record)."""
+    """(e): dft_tail2 against its twin at this path's shape and at 2^20's
+    (128, 64) on (c)'s chunk, then the 2^21 path through channelize.
+    Returns (launch counts, [2^21 record, 2^20 record])."""
     from blit_torch.ops import channelize as tch
     from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb
@@ -838,35 +901,29 @@ def phase_2pow21(torch, dev):
     h = (coeffs * sign).contiguous()
     mats = tdft.as_tensors(tdft.dft_matrices(f1) + tdft.twiddles(f1, nfft // f1), dev)
     ur, ui = tpfb.pfb_dft1(v, h, *mats)
-    got = tdft.dft_tail2(ur, ui, f2, f3)
-    want = tdft.dft_tail2_plain(ur, ui, f2, f3)
-    # blit's bound is for its tests' panels of <= 128 points; the outputs
-    # of an m-point DFT, and the f32 rounding of their sums, grow as
-    # sqrt(m), and so does the atol (as in tests/test_torch_cuda.py).
-    err, atol, ok = check_bound(torch, got, want, "dft_tail2", "float32",
-                                inputs=(ur, ui), grow=(f2 * f3 / 128) ** 0.5)
-    del got, want
-    torch.cuda.empty_cache()
-    ms = median_ms(torch, lambda: tdft.dft_tail2(ur, ui, f2, f3))
-    plain_ms = median_ms(torch, lambda: tdft.dft_tail2_plain(ur, ui, f2, f3), runs=5)
-    torch.cuda.empty_cache()
-    # One PyTorch call for the same function: each row's (f2·f3)-point DFT.
-    z = torch.complex(ur, ui)
-    lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
-    del z
-    rec = kernel_record(
-        "dft_tail2", "float32", "blit_torch/csrc/dft_tail2.cu",
-        "blit/ops/pallas_dft.py:246", err, atol, ok, ms, plain_ms,
-        tail2_cost(ur.numel(), f2, f3, 4), lib_ms,
-        product="2^21", f2=f2, f3=f3, library="torch.fft.fft")
+    records = [tail2_record(torch, ur, ui, f2, f3, "2^21")]
     del ur, ui
     torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"dft_tail2 disagrees with its twin: {rec}")
     launches, _ = run_path(torch, dev, "2^21", v, coeffs, nfft, REF_CHANNELS_21)
     del v
     torch.cuda.empty_cache()
-    return launches, rec
+
+    # 2^20 = (128, 128, 64) on (c)'s chunk: the stage-1 spectra of the
+    # 0000 chunk, which tail2_detect takes on the default plan and
+    # dft_tail2 on tail_kernel="pallas", detect_kernel="xla" ((m)).
+    f1, f2, f3 = tdft.default_factors(NFFT)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    v = torch.randint(-128, 128, (NCHAN, (CHUNK_FRAMES + NTAP - 1) * NFFT, 2, 2),
+                      generator=g, device=dev, dtype=torch.int8)
+    sign = torch.where(torch.arange(NFFT, device=dev) % 2 == 0, 1.0, -1.0)
+    h = (torch.from_numpy(tch.pfb_coeffs(NTAP, NFFT)).to(dev) * sign).contiguous()
+    mats = tdft.as_tensors(tdft.dft_matrices(f1) + tdft.twiddles(f1, NFFT // f1), dev)
+    ur, ui = tpfb.pfb_dft1(v, h, *mats)
+    del v
+    records.append(tail2_record(torch, ur, ui, f2, f3, "2^20"))
+    del ur, ui
+    torch.cuda.empty_cache()
+    return launches, records
 
 
 def phase_6144(torch, dev):
@@ -914,22 +971,7 @@ def phase_6144(torch, dev):
     # Level 2: the stage's rows, n2 points along the last axis.
     ur, ui = got
     del got
-    w = tdft.as_tensors(tdft.dft_matrices(n2), dev)
-    got = tdft.dft_last(ur, ui, *w)
-    want = tdft.dft_last_plain(ur, ui, *w)
-    err, atol, ok = check_bound(torch, got, want, "dft_last", "float32",
-                                inputs=(ur, ui))
-    del got, want
-    ms = median_ms(torch, lambda: tdft.dft_last(ur, ui, *w))
-    plain_ms = median_ms(torch, lambda: tdft.dft_last_plain(ur, ui, *w), runs=5)
-    z = torch.complex(ur, ui)
-    lib_ms = median_ms(torch, lambda: torch.fft.fft(z, dim=-1))
-    del z
-    records.append(kernel_record(
-        "dft_last", "float32", "blit_torch/csrc/dft.cu",
-        "blit/ops/pallas_dft.py:325", err, atol, ok, ms, plain_ms,
-        dft_cost(ur.numel(), n2, 4), lib_ms, product="6144", n=n2,
-        library="torch.fft.fft"))
+    records.append(dft_last_record(torch, ur, ui, n2, "6144", product="6144"))
     del ur, ui
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
@@ -1027,11 +1069,34 @@ def phase_routes(torch, dev):
         v, coeffs, nfft=NFFT, ntap=NTAP, device=dev, **knobs))
     default_ms = median_ms(torch, lambda: tch.channelize(
         v, coeffs, nfft=NFFT, ntap=NTAP, device=dev))
-    summary["channelize 2^20 ms"] = dict(route_a=route_ms, default=default_ms)
-    log(f"route (a) 2^20: channelize {route_ms:.4f} ms, default plan "
-        f"(pfb_dft1 + tail2_detect) {default_ms:.4f} ms")
+    # The dft_tail2 route at 2^20 on the same chunk: pfb_dft1, dft_tail2
+    # (f3 = 64), the level-0 swap, torch detect; held against the twins
+    # and the default plan, and timed beside it.
+    knobs2 = dict(tail_kernel="pallas", detect_kernel="xla")
+    counts["route tail2 2^20"], out = run_path(
+        torch, dev, "route tail2 2^20", v, coeffs, NFFT, REF_CHANNELS_M, **knobs2)
+    default = tch.channelize(v, coeffs, nfft=NFFT, ntap=NTAP, device=dev)
+    summary["route tail2 2^20 vs tail2_detect"] = compare_outputs(
+        torch, "route tail2 2^20 vs the default plan", out, default)
+    del out, default
+    torch.cuda.empty_cache()
+    tail2_ms = median_ms(torch, lambda: tch.channelize(
+        v, coeffs, nfft=NFFT, ntap=NTAP, device=dev, **knobs2))
+    summary["channelize 2^20 ms"] = dict(route_a=route_ms, default=default_ms,
+                                         route_tail2=tail2_ms)
+    log(f"2^20: channelize route (a) {route_ms:.4f} ms, route tail2 "
+        f"{tail2_ms:.4f} ms, default plan (pfb_dft1 + tail2_detect) "
+        f"{default_ms:.4f} ms")
     del v, coeffs
     torch.cuda.empty_cache()
+
+    # dft_last at route (a) 2^13's level: rows of 64 points, the stage-1
+    # spectra's shape (64 channels, 2 pols, 64 frames, 128 rows).
+    shape = (NCHAN, 2, FRAMES_13, 128, 64)
+    xr = torch.randn(shape, generator=g, device=dev)
+    xi = torch.randn(shape, generator=g, device=dev)
+    records.append(dft_last_record(torch, xr, xi, 64, "route (a) 2^13"))
+    del xr, xi
 
     # Route (a) at 2^13: two factors (128, 64), so mid = 1.
     v = torch.randint(-128, 128, (NCHAN, (FRAMES_13 + NTAP - 1) * NFFT_13, 2, 2),
@@ -1589,9 +1654,14 @@ def phase_correlator(torch, dev, tmp):
         raise AssertionError("correlate: the one-shot path disagrees with the plain route")
     del want
 
-    # The kernel against its plain version on the F-engine's spectra.
+    # dft_last at the F-engine's n = 512 on its FIR output, then the
+    # X-engine against its plain version on the F-engine's spectra.
+    sign = torch.ones(FX_NFFT, device=dev)
+    sign[1::2] = -1
+    fr, fi = (tch.pfb_frontend(x.movedim(3, 2), h * sign).contiguous() for x in v)
+    records = [dft_last_record(torch, fr, fi, FX_NFFT, "correlate")]
+    del fr, fi
     sr, si = C.f_engine_planar(v[0].movedim(3, 2), v[1].movedim(3, 2), h)
-    records = []
     for dtype in ("float32", "bfloat16"):
         xr, xi = sr.to(getattr(torch, dtype)), si.to(getattr(torch, dtype))
         got = txe.xengine_packed(xr, xi)
@@ -1718,8 +1788,8 @@ def main() -> int:
         launches["drift"] = phase_drift(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches["2^21"], tail2_rec = phase_2pow21(torch, dev)
-    records.append(tail2_rec)
+    launches["2^21"], tail2_recs = phase_2pow21(torch, dev)
+    records.extend(tail2_recs)
     launches["6144"], level_recs = phase_6144(torch, dev)
     records.extend(level_recs)
 

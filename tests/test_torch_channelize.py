@@ -249,8 +249,18 @@ def test_one_pol_direct_method_takes_torch_fft(stokes):
 
 
 def test_unfactorable_nfft_raises():
-    nfft = 2 * 4099  # 2 × a prime above DIRECT_DFT_MAX
-    v = np.zeros((1, 5 * nfft, 2, 2), np.int8)
+    # 2 × a prime above DIRECT_DFT_MAX: the matmul DFT has no
+    # factorization, so an explicit fft_method="matmul" raises, as in
+    # blit; "auto" takes torch.fft as blit does off the TPU ("four_step"
+    # above 8192) and returns blit's product.
+    nfft = 2 * 4099
+    v = _volts(1, 5, nfft=nfft, seed=9)
+    h = bch.pfb_coeffs(NTAP, nfft)
     with pytest.raises(NotImplementedError, match="factorization"):
-        tch.channelize(v, np.zeros((NTAP, nfft), np.float32), nfft=nfft,
-                       device="cpu")
+        tch.channelize(v, h, nfft=nfft, fft_method="matmul", device="cpu")
+    got = tch.channelize(v, h, nfft=nfft, nint=2, device="cpu").numpy()
+    plan = tch.last_kernel_plan()
+    assert (plan["fft_method"], plan["pfb_kernel"], plan["tail_kernel"]) == (
+        "four_step", "pallas", "torch")
+    want = np.asarray(bch.channelize(v, h, nfft=nfft, ntap=NTAP, nint=2))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)

@@ -144,8 +144,12 @@ def _planar(dev, shape, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,rows", [(4, 1000), (8, 5000), (16, 999),
                                     (64, 4097), (80, 130), (1024, 300),
-                                    (6, 333), (2049, 70)])
+                                    (6, 333), (2049, 70), (96, 1000),
+                                    (512, 37), (1024, 301), (4096, 9),
+                                    (4093, 5)])
 def test_dft_last_matches_plain(dev, n, rows, dtype):
+    # Row counts that are not a multiple of the FFT's row group (4096 // n
+    # rows) leave a partial last group; 4093 is prime (one dense pass).
     xr, xi = _planar(dev, (rows, n), dtype, n)
     w = tdft.as_tensors(tdft.dft_matrices(n), dev)
     n0 = tdft.dft_last.launches
@@ -158,23 +162,58 @@ def test_dft_last_matches_plain(dev, n, rows, dtype):
 
 @pytest.mark.cuda
 def test_dft_last_row_kernel_and_tile_agree_at_n8(dev):
-    # n = 8 takes the row kernel; the tiled GEMM (timed beside it by
-    # chip_smoke.py) computes the same function.
+    # n = 8: the row kernel, the FFT and the tiled GEMM (each timed beside
+    # the others by chip_smoke.py) compute the same function.
     xr, xi = _planar(dev, (5000, 8), torch.float32, 8)
     w = tdft.as_tensors(tdft.dft_matrices(8), dev)
-    rows = tdft.dft_last_cuda(xr, xi, *w)
-    tiled = tdft.dft_last_cuda(xr, xi, *w, tiled=True)
-    for a, b, want in zip(rows, tiled, tdft.dft_last_plain(xr, xi, *w)):
-        _close(a, want, 1e-4, 1e-3 / want.abs().max().item())
-        _close(b, want, 1e-4, 1e-3 / want.abs().max().item())
+    want = tdft.dft_last_plain(xr, xi, *w)
+    for got in (tdft.dft_last_cuda(xr, xi, *w, design="rows"),
+                tdft.dft_last_cuda(xr, xi, *w, design="fft"),
+                tdft.dft_last_cuda(xr, xi, *w, tiled=True)):
+        for g, ref in zip(got, want):
+            _close(g, ref, 1e-4, 1e-3 / ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dft_last_tiled_gemm_matches_plain_at_n1024(dev, dtype):
+    xr, xi = _planar(dev, (300, 1024), dtype, 1024)
+    w = tdft.as_tensors(tdft.dft_matrices(1024), dev)
+    got = tdft.dft_last_cuda(xr, xi, *w, tiled=True)
+    for g, want in zip(got, tdft.dft_last_plain(xr, xi, *w)):
+        _close(g, want, 1e-4, 1e-3 / want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 64, 96, 1024, 2049])
+def test_dft_last_rows_do_not_depend_on_the_call(dev, n, dtype):
+    # A row's output depends only on that row: the same rows at another
+    # position of a call, or in a call of another row count, give bitwise
+    # equal outputs (the pins of correlate_stream, route (a) and the
+    # search rest on this).
+    xr, xi = _planar(dev, (301, n), dtype, n + 1)
+    w = tdft.as_tensors(tdft.dft_matrices(n), dev)
+    whole = tdft.dft_last(xr, xi, *w)
+    for k0, k1 in ((0, 1), (3, 40), (17, 301), (299, 301)):
+        part = tdft.dft_last(xr[k0:k1].clone(), xi[k0:k1].clone(), *w)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[k0:k1])
+    shifted = [torch.cat([x[:5], x]) for x in (xr, xi)]
+    for a, b in zip(tdft.dft_last(*shifted, *w), whole):
+        assert torch.equal(a[5:], b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f2,f3", [(40, 128, 128), (3, 128, 256),
                                      (5, 128, 512), (7, 32, 128),
-                                     (2, 1024, 128), (4, 8, 512)])
+                                     (2, 1024, 128), (4, 8, 512),
+                                     (9, 128, 64)])
 def test_dft_tail2_matches_plain(dev, b, f2, f3, dtype):
+    # (128, 64) and (128, 128) run whole panels in one launch; (128, 256),
+    # (128, 512) and (1024, 128) the column level, then the row level
+    # through a scratch panel.
     xr, xi = _planar(dev, (b, f2 * f3), dtype, f2 + f3)
     n0 = tdft.dft_tail2.launches
     got = tdft.dft_tail2(xr, xi, f2, f3)
@@ -188,8 +227,8 @@ def test_dft_tail2_matches_plain(dev, b, f2, f3, dtype):
         assert g.dtype == torch.float32
         _close(g, want, 1e-4, atol / want.abs().max().item())
     with pytest.raises(ValueError, match="Hopper kernel"):
-        tdft.dft_tail2(xr[:, :16 * 128].contiguous(),
-                       xi[:, :16 * 128].contiguous(), 16, 128)
+        tdft.dft_tail2(xr[:, :4 * 128].contiguous(),
+                       xi[:, :4 * 128].contiguous(), 4, 128)
 
 
 @pytest.mark.cuda
@@ -510,7 +549,13 @@ def test_detect_untwist_i_refuses_more_than_3_factors(dev):
      ("dft_stage", "dft_last")),
     (1024, 1, 2, dict(fft_method="direct"),
      ("direct", "torch", "torch", "torch", "natural"), ()),
-], ids=["a-2^20", "a-2^13", "b-6144", "c-1pol", "c-xla-2^13", "d-direct"])
+    (NFFT, 2, 1, dict(tail_kernel="pallas", detect_kernel="xla"),
+     ("matmul", "fused1", "dft_tail2", "torch", "natural"),
+     ("pfb_dft1", "dft_tail2")),
+    (2 * 4099, 2, 1, dict(),
+     ("four_step", "pallas", "torch", "torch", "natural"), ("pfb_dequant",)),
+], ids=["a-2^20", "a-2^13", "b-6144", "c-1pol", "c-xla-2^13", "d-direct",
+        "tail2-2^20", "auto-8198"])
 def test_channelize_opt_in_routes_run_the_kernels(dev, case):
     nfft, npol, nint, knobs, plan, names = case
     rng = np.random.default_rng(nfft + npol)

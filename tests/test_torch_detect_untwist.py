@@ -334,21 +334,25 @@ def test_one_pol_reducer_matches_blit(tmp_path):
 
 @pytest.mark.parametrize("method", ["auto", "direct", "four_step"])
 def test_one_pol_unfactorable_nfft_needs_a_torch_fft_method(method):
-    # Under "auto" one-pol input takes the matmul DFT, which has no
-    # factorization for 2 × a prime above DIRECT_DFT_MAX; torch.fft does.
+    # The matmul DFT has no factorization for 2 × a prime above
+    # DIRECT_DFT_MAX; torch.fft does.  "auto" resolves to it as blit does
+    # off the TPU ("four_step" above 8192); an explicit "matmul" raises.
     nfft, nint = 2 * 4099, 1
     v = _volts(1, NTAP, nfft, npol=1, seed=8)
     h = bch.pfb_coeffs(NTAP, nfft)
     if method == "auto":
         with pytest.raises(NotImplementedError, match="factorization"):
-            tch.channelize(v, h, nfft=nfft, nint=nint, device="cpu")
-        return
+            tch.channelize(v, h, nfft=nfft, nint=nint, fft_method="matmul",
+                           device="cpu")
     got = tch.channelize(v, h, nfft=nfft, nint=nint, fft_method=method,
                          device="cpu").numpy()
     plan = tch.last_kernel_plan()
     assert (plan["fft_method"], plan["pfb_kernel"], plan["tail_kernel"]) == (
-        method, "torch", "torch")
+        "four_step" if method == "auto" else method, "torch", "torch")
     _close(got, bch.channelize_np(v, h, nfft=nfft, ntap=NTAP, nint=nint))
+    if method == "auto":
+        want = np.asarray(bch.channelize(v, h, nfft=nfft, ntap=NTAP, nint=nint))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
 
 
 # -- channelize_blocked --------------------------------------------------------
@@ -457,19 +461,14 @@ def test_knob_table_2pow20_matches_blit(tail, detect):
     # Three factors (128, 128, 64): tail2_detect is eligible, so the
     # tail and detect knobs pick between it, detect_untwist_i and
     # dft_tail2.  The port's side is its resolution (what channelize runs
-    # first).  One gate differs by design: dft_tail2's Hopper kernel takes
-    # f3 in (128, 256, 512), so at f3 = 64, where blit's VMEM gate passes,
-    # the port keeps the DFT levels under "auto" and refuses an explicit
-    # tail_kernel="pallas".
+    # first).  dft_tail2's Hopper gate takes f3 = 64 as blit's VMEM gate
+    # does, so every row equals blit's traced plan.
     nfft = 1 << 20
-    assert not tD.tail2_fits(128, 64)
+    assert tD.tail2_fits(128, 64)
     for stokes in ("I", "IQUV"):
         kw = dict(fft_method="matmul", pfb_kernel="fused1", tail_kernel=tail,
                   detect_kernel=detect, dft_order="auto")
         want = _blit_plan(nfft, stokes, kw)
-        if isinstance(want, dict) and want["tail_kernel"] == "dft_tail2":
-            want = (ValueError("tail_kernel refused by dft.tail2_fits")
-                    if tail == "pallas" else dict(want, tail_kernel="xla"))
 
         def port():
             return dict(tch._resolve_plan(nfft, 2, stokes, **kw)[2],

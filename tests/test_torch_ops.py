@@ -180,13 +180,13 @@ def test_hopper_fit_gates():
     assert not tdet.fits((128, 128, 128), 2, "I")
     assert not tdet.fits((128, 128, 64), 1, "I")
     # dft_tail2 takes the three-factor tails blit's VMEM gate passes
-    # (2^21 to 2^23: f3 128 to 512), not 2^24's f3 = 1024.
-    for f3 in (128, 256, 512):
+    # (2^20 to 2^23: f3 64 to 512), not 2^24's f3 = 1024.
+    for f3 in (64, 128, 256, 512):
         assert tdft.tail2_fits(128, f3)
         assert pallas_dft.tail2_fits(2 * 128, 128, f3)
     assert not tdft.tail2_fits(128, 1024)
     assert not pallas_dft.tail2_fits(2 * 128, 128, 1024)
-    assert not tdft.tail2_fits(16, 128)  # fewer rows than a block owns
+    assert not tdft.tail2_fits(4, 128)  # fewer rows than the row level's lanes
     assert not tdft.tail2_fits(96, 128)  # not a power of two
 
 

@@ -135,5 +135,10 @@ def test_cuda_plan_takes_every_two_pol_nfft(nfft, plan):
     route, factors, rec = tch._resolve_plan(nfft, 2, "I")
     assert route in ("tail2_detect", "fused1_tail2", "fused1", "front")
     assert (rec["pfb_kernel"], rec["tail_kernel"], rec["detect_kernel"]) == plan
+    # An nfft default_factors cannot split takes torch.fft under "auto"
+    # (blit's off-TPU resolution); an explicit "matmul" still raises.
+    route, _, rec = tch._resolve_plan(2 * 4099, 2, "I")
+    assert (route, rec["fft_method"], rec["tail_kernel"]) == (
+        "front", "four_step", "torch")
     with pytest.raises(NotImplementedError, match="factorization"):
-        tch._resolve_plan(2 * 4099, 2, "I")
+        tch._resolve_plan(2 * 4099, 2, "I", fft_method="matmul")
