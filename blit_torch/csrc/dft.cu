@@ -40,10 +40,32 @@
 //   - f32 stays f32 on the CUDA cores (no TF32).
 // For n = 8 a row kernel (dft_last_rows_kernel: one thread a row, W in
 // shared memory, 16-byte loads and stores) can take the call instead;
-// ops/dft.py dft_last_design picks the one the smoke timed faster.  The
-// dense tiled GEMM (cgemm_kernel) still serves dft_stage and runs
-// dft_last at any n when asked (the design of the first port, timed beside
-// the FFT by chip_smoke.py):
+// ops/dft.py dft_last_design picks the one the smoke timed faster.
+//
+// dft_stage is bound by its bytes the same way (6144's first level: 805 M
+// outputs of 64 points, 3.85 ms of bytes against 6.2 ms of dense f32
+// products), so it too is an FFT (dft_stage_fft_kernel), down the columns:
+//   - a persistent block walks over tiles of n rows x tc columns of a
+//     panel (ops/dft.py stage_fft_geometry: tc a multiple of 32 that pads m
+//     least, up to 4096 values a tile; 8 or 16 for n above 128), stages the
+//     next tile with 16-byte cp.async copies of each row's segment (from
+//     its first value aligned down, so a row may start anywhere) while this
+//     tile's passes run, two stage buffers where they fit;
+//   - consecutive threads take consecutive columns, so every pass reads and
+//     writes shared memory without bank conflicts and the roots broadcast;
+//     the passes and the plan are fft_smem.cuh's and fft_plan's, roots from
+//     row 1 of the W it is given; the last pass multiplies by the twiddle
+//     and stores natural k order, coalesced along j, only the columns that
+//     exist;
+//   - the main paths' stages have plan and tile compiled in (64 and 128
+//     points at 32 columns, 6 at 352); any other n reads them at run time;
+//   - a column's arithmetic is the same wherever it falls, so the twisted
+//     order (route (b)) equals the natural one bitwise.
+// ops/dft.py dft_stage_design keeps the dense tiled GEMM (cgemm_kernel)
+// for what the FFT's tiles do not fit (n = 1, n above 1383) and where it
+// timed faster (a dense prime pass p with n < 8p, n = 48); it also runs
+// dft_last and dft_stage at any n when asked (the design of the first
+// port, timed beside the FFTs by chip_smoke.py):
 //   - C = A·B per batch element: dft_last takes A = x, B = W; dft_stage
 //     takes A = W (shared by the batch), B = x.  A block computes a 64 x 64
 //     tile of C from 16-deep slices of A and B staged in shared memory;
@@ -533,6 +555,286 @@ cudaError_t last_fft(const void* xr_, const void* xi_, const void* wr,
       s);
 }
 
+// ---- dft_stage as an FFT down the columns -------------------------------
+
+constexpr int SE = 4096;  // values one round of a column FFT's passes holds
+
+// Shared memory of the column FFT: the root table ((re, im) pairs, n
+// rounded up to 4), `nstage` stage buffers of two planes of n rows x ss
+// values of T and, for bf16 input, two f32 work planes of n rows x ws;
+// f32 works in place in its stage buffer (ws = ss).  A row holds its tc
+// columns after the offset of the 16-byte copy that staged them (a row
+// may start anywhere), so ss = tc + one copy.
+__host__ __device__ inline size_t stage_fft_smem(int n, int tc, int nstage,
+                                                 int esize, int* ss,
+                                                 int* ws) {
+  const int s = tc + 16 / esize;
+  const int w = esize == 4 ? s : tc + 4;
+  if (ss) *ss = s;
+  if (ws) *ws = w;
+  const size_t n4 = (size_t)((n + 3) & ~3);
+  return 8 * n4 + (size_t)nstage * 2 * n * s * esize +
+         (esize == 4 ? 0 : 2 * (size_t)n * w * 4);
+}
+
+// Element idx (a row) of transform t (a column of the tile) of a staged
+// (n, tc) tile: the stage planes on the first pass (values of T at shared
+// offsets sr, si, row stride ss, each row from its own offset in its first
+// copy), the f32 work planes (wr, wi, row stride ws) after it; the last
+// pass multiplies by the twiddle, if any, and stores row idx, column t of
+// the tile to the output panel (row stride m), only the w columns that
+// exist.  Butterfly b of a round takes column b % count: consecutive
+// threads take consecutive columns, so loads, stores and the copies of a
+// row are conflict-free and the global stores are coalesced along j.
+// CNT > 0: the round is CNT columns, a compile-time constant.
+template <typename T, int CNT>
+struct ColIO {
+  float* gr;
+  float* gi;
+  const float* twr;
+  const float* twi;
+  int sr, si, wr, wi, ss, ws, m, w, off0, offm, t0, count;
+  bool from_stage, to_global;
+
+  __device__ __forceinline__ int pass_table() const { return -1; }
+  __device__ __forceinline__ void set_pass(bool first, bool last) {
+    from_stage = first;
+    to_global = last;
+  }
+  __device__ __forceinline__ void round(int first, int c) {
+    t0 = first;
+    count = c;
+  }
+  __device__ __forceinline__ int cnt() const { return CNT ? CNT : count; }
+  __device__ __forceinline__ void map(int b, int, int& t, int& j) const {
+    const int c = cnt();
+    j = b / c;
+    t = t0 + b - j * c;
+  }
+  __device__ __forceinline__ void map_out(int o, int L, int& t, int& j,
+                                          int& r) const {
+    const int c = cnt();
+    const int rem = o / c;
+    t = t0 + o - rem * c;
+    r = rem / L;
+    j = rem - r * L;
+  }
+  __device__ __forceinline__ void ld(int t, int idx, float& a, float& b) const {
+    if (from_stage) {
+      constexpr int V = 16 / sizeof(T);
+      const int e = idx * ss + ((off0 + idx * offm) & (V - 1)) + t;
+      a = fft::smem_ld<T>(sr + e);
+      b = fft::smem_ld<T>(si + e);
+    } else {
+      a = fft::fft_smem[wr + idx * ws + t];
+      b = fft::fft_smem[wi + idx * ws + t];
+    }
+  }
+  __device__ __forceinline__ void st(int t, int idx, float a, float b) const {
+    if (to_global) {
+      if (t < w) {
+        const size_t g = (size_t)idx * m + t;
+        if (twr != nullptr) fft::cmul(a, b, __ldg(twr + g), __ldg(twi + g));
+        gr[g] = a;
+        gi[g] = b;
+      }
+    } else {
+      fft::fft_smem[wr + idx * ws + t] = a;
+      fft::fft_smem[wi + idx * ws + t] = b;
+    }
+  }
+};
+
+// dft_stage on (panels, n, m): a persistent block walks over tiles of n
+// rows x tc columns of a panel (ceil(m / tc) a panel, the last ragged),
+// stages the next tile with 16-byte cp.async copies while this one's
+// passes run (two stage buffers where they fit), runs the n-point plan
+// down every column and stores natural k order, times the twiddle.  N > 0:
+// n, the plan P and the tile TC (one round) are compile-time constants;
+// N = 0: they come from the arguments, a round being `pr` columns.  rr, ri:
+// row 1 of W, the n-th roots.
+template <typename T, int N, class P, int TC, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+dft_stage_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                     const float* __restrict__ rr, const float* __restrict__ ri,
+                     const float* __restrict__ twr,
+                     const float* __restrict__ twi, float* __restrict__ o_r,
+                     float* __restrict__ o_i, long long panels, int n_arg,
+                     int m, int tc_arg, int pr, fft::Plan plan, int nstage,
+                     int ss, int ws) {
+  constexpr int V = 16 / sizeof(T);  // values of one 16-byte copy
+  constexpr int MAXV = SE / NT;
+  const int n = N ? N : n_arg;
+  const int tc = TC ? TC : tc_arg;
+  // Shared memory: the root table at float2 offset 0, the stage buffers
+  // from `stage` (values of T), the work planes from `work` (floats).
+  const int n4 = (n + 3) & ~3;
+  const int se = n * ss;
+  const int stage = 8 * n4 / (int)sizeof(T);
+  const int work = (8 * n4 + nstage * 2 * se * (int)sizeof(T)) / 4;
+  T* smem_t = reinterpret_cast<T*>(fft::fft_smem);
+  const int tid = threadIdx.x;
+  for (int k = tid; k < n; k += NT) {
+    fft::fft_smem[2 * k] = rr[k];
+    fft::fft_smem[2 * k + 1] = ri[k];
+  }
+  const int ntc = (m + tc - 1) / tc;
+  const long long ntiles = panels * ntc;
+  const long long pm = (long long)n * m;
+  const long long total = panels * pm;
+  const int offm = m & (V - 1);
+  const int cpr = tc / V + 1;  // copies a row at most
+
+  // Stage tile g into buffer s: each row's columns c0 .. c0+w from the
+  // 16-byte copy that holds its first value (aligned down), the copy that
+  // holds the tensor's last value reading only up to it.
+  auto issue = [&](long long g, int s) {
+    const long long panel = g / ntc;
+    const int c0 = (int)(g - panel * ntc) * tc;
+    const int w = min(tc, m - c0);
+    const long long base = panel * pm + c0;
+    const int off0 = (int)(base & (V - 1));
+    T* dr = smem_t + stage + s * 2 * se;
+    T* di = dr + se;
+    for (int k = tid; k < n * cpr; k += NT) {
+      const int row = k / cpr, q = k - row * cpr;
+      const int off = (off0 + row * offm) & (V - 1);
+      if (q * V < off + w) {
+        const long long c = base + (long long)row * m - off + q * V;
+        const int bytes = (int)min((long long)V, total - c) * (int)sizeof(T);
+        fft::cp16(dr + row * ss + q * V, xr + c, bytes);
+        fft::cp16(di + row * ss + q * V, xi + c, bytes);
+      }
+    }
+  };
+
+  long long g = blockIdx.x;
+  if (g < ntiles) issue(g, 0);
+  fft::cp_commit();
+  for (int it = 0; g < ntiles; g += gridDim.x, ++it) {
+    const int s = nstage == 2 ? (it & 1) : 0;
+    const long long gn = g + gridDim.x;
+    if (nstage == 2) {
+      if (gn < ntiles) issue(gn, s ^ 1);
+      fft::cp_commit();
+      fft::cp_wait_prev();
+    } else {
+      fft::cp_wait_all();
+    }
+    __syncthreads();
+
+    const long long panel = g / ntc;
+    const int c0 = (int)(g - panel * ntc) * tc;
+    ColIO<T, TC> io;
+    io.sr = stage + s * 2 * se;
+    io.si = io.sr + se;
+    // f32 works in place in its stage buffer (T = float: the same offsets).
+    io.wr = sizeof(T) == 4 ? io.sr : work;
+    io.wi = sizeof(T) == 4 ? io.si : work + n * ws;
+    io.ss = ss;
+    io.ws = ws;
+    io.m = m;
+    io.w = min(tc, m - c0);
+    io.off0 = (int)((panel * pm + c0) & (V - 1));
+    io.offm = offm;
+    io.gr = o_r + panel * pm + c0;
+    io.gi = o_i + panel * pm + c0;
+    io.twr = twr != nullptr ? twr + c0 : nullptr;
+    io.twi = twi != nullptr ? twi + c0 : nullptr;
+    if constexpr (N > 0) {
+      fft::static_plan<NT, MAXV, N, 1>(io, TC, TC, 0, P());
+    } else {
+      fft::run_plan<NT, MAXV>(io, n, plan, tc, pr, 0);
+    }
+    // Every pass ends in a barrier: the stage buffer is free again.
+    if (nstage == 1) {
+      if (gn < ntiles) issue(gn, 0);
+      fft::cp_commit();
+    }
+  }
+}
+
+template <typename T, int N, class P, int TC, int NT>
+cudaError_t launch_stage_fft(const T* xr, const T* xi, const float* rr,
+                             const float* ri, const float* twr,
+                             const float* twi, float* o_r, float* o_i,
+                             long long panels, int n, int m, int tc, int pr,
+                             const fft::Plan& plan, int nstage, int ss, int ws,
+                             size_t smem, cudaStream_t s) {
+  auto kernel = dft_stage_fft_kernel<T, N, P, TC, NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem)) != cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = panels * ((m + tc - 1) / tc);
+  const long long slots = (long long)per_sm * sms;
+  const long long grid = tiles < slots ? tiles : slots;
+  kernel<<<(unsigned)grid, NT, smem, s>>>(xr, xi, rr, ri, twr, twi, o_r, o_i,
+                                          panels, n, m, tc, pr, plan, nstage,
+                                          ss, ws);
+  return cudaGetLastError();
+}
+
+// The main paths' stages with their plans and tiles compiled in: n = 64
+// (6144's first level), 128 (2^24's middle level, route (a) 2^20's
+// (128, 64)), 6 (4098 = 6 x 683).  Any other n runs the kernel that reads
+// its plan at run time.
+using P128 = fft::Radices<16, 8>;
+using P6 = fft::Radices<2, 3>;
+
+template <typename T>
+cudaError_t stage_fft(const void* xr_, const void* xi_, const void* wr,
+                      const void* wi, const void* tr, const void* ti,
+                      void* o_r_, void* o_i_, long long panels, int n, int m,
+                      const int* radices, int npass, int tc, int pr,
+                      int nstage, long long smem_want, cudaStream_t s) {
+  if (npass < 1 || npass > fft::MAX_PASSES || n < 2 || n > SE || m < 1 ||
+      tc < 8 || tc % 8 || pr < 1 || pr > tc || pr * n > SE ||
+      (nstage != 1 && nstage != 2)) {
+    return cudaErrorInvalidValue;
+  }
+  fft::Plan plan;
+  plan.np = npass;
+  long long prod = 1;
+  for (int p = 0; p < npass; ++p) {
+    plan.r[p] = radices[p];
+    prod *= radices[p];
+  }
+  if (prod != n) return cudaErrorInvalidValue;
+  int ss = 0, ws = 0;
+  const size_t smem = stage_fft_smem(n, tc, nstage, sizeof(T), &ss, &ws);
+  if ((long long)smem != smem_want) return cudaErrorInvalidValue;
+  const T* xr = static_cast<const T*>(xr_);
+  const T* xi = static_cast<const T*>(xi_);
+  float* o_r = static_cast<float*>(o_r_);
+  float* o_i = static_cast<float*>(o_i_);
+  // Row 1 of W: the n-th roots of unity.
+  const float* rr = static_cast<const float*>(wr) + n;
+  const float* ri = static_cast<const float*>(wi) + n;
+  const float* twr = static_cast<const float*>(tr);
+  const float* twi = static_cast<const float*>(ti);
+#define BLIT_STAGE_STATIC(NN, PP, TT, NT)                                    \
+  if (n == NN && tc == TT && pr == TT && is_plan(plan, PP())) {             \
+    return launch_stage_fft<T, NN, PP, TT, NT>(xr, xi, rr, ri, twr, twi,    \
+                                               o_r, o_i, panels, n, m, tc,  \
+                                               pr, plan, nstage, ss, ws,    \
+                                               smem, s);                    \
+  }
+  BLIT_STAGE_STATIC(64, P64, 32, FT_POW2)
+  BLIT_STAGE_STATIC(128, P128, 32, FT_POW2)
+  BLIT_STAGE_STATIC(6, P6, 352, FT_OTHER)
+#undef BLIT_STAGE_STATIC
+  return launch_stage_fft<T, 0, fft::Radices<>, 0, FT_OTHER>(
+      xr, xi, rr, ri, twr, twi, o_r, o_i, panels, n, m, tc, pr, plan, nstage,
+      ss, ws, smem, s);
+}
+
 template <typename TA, typename TB, bool TW>
 cudaError_t cgemm(const void* ar, const void* ai, const void* br,
                   const void* bi, const void* tr, const void* ti, void* cr,
@@ -589,10 +891,18 @@ cudaError_t last(const void* xr, const void* xi, const void* wr,
   }
 }
 
+// design: 0 the column FFT (stage_fft), 1 the tiled GEMM.
 template <typename T>
 cudaError_t stage(const void* xr, const void* xi, const void* wr,
                   const void* wi, const void* tr, const void* ti, void* o_r,
-                  void* o_i, long long b, int n, int m, cudaStream_t s) {
+                  void* o_i, long long b, int n, int m, int design,
+                  const int* radices, int npass, int tc, int pr, int nstage,
+                  long long smem, cudaStream_t s) {
+  if (design == 0) {
+    return stage_fft<T>(xr, xi, wr, wi, tr, ti, o_r, o_i, b, n, m, radices,
+                        npass, tc, pr, nstage, smem, s);
+  }
+  if (design != 1) return cudaErrorInvalidValue;
   const long long panel = (long long)n * m;
   if (tr != nullptr) {
     return cgemm<float, T, true>(wr, wi, xr, xi, tr, ti, o_r, o_i, b, n, m, n,
@@ -623,15 +933,22 @@ int dft_last_launch(const void* xr, const void* xi, const void* wr,
   return (int)err;
 }
 
-// tr/ti may be null: no twiddle.
+// tr/ti may be null: no twiddle.  design: 0 the column FFT over the plan
+// `radices[0..npass)` on tiles of `tc` columns, `pr` columns a round,
+// `nstage` stage buffers, `smem` bytes of shared memory (checked against
+// this file's layout); 1 the tiled GEMM (the FFT arguments unread).
 int dft_stage_launch(const void* xr, const void* xi, const void* wr,
                      const void* wi, const void* tr, const void* ti, void* o_r,
                      void* o_i, long long b, int n, int m, int bf16,
-                     void* stream) {
+                     int design, const int* radices, int npass, int tc, int pr,
+                     int nstage, long long smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bf16 ? stage<__nv_bfloat16>(xr, xi, wr, wi, tr, ti, o_r, o_i, b, n, m, s)
-           : stage<float>(xr, xi, wr, wi, tr, ti, o_r, o_i, b, n, m, s);
+      bf16 ? stage<__nv_bfloat16>(xr, xi, wr, wi, tr, ti, o_r, o_i, b, n, m,
+                                  design, radices, npass, tc, pr, nstage,
+                                  smem, s)
+           : stage<float>(xr, xi, wr, wi, tr, ti, o_r, o_i, b, n, m, design,
+                          radices, npass, tc, pr, nstage, smem, s);
   return (int)err;
 }
 

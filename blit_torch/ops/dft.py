@@ -14,10 +14,12 @@ hand-written Hopper kernels of ``blit_torch/csrc/dft.cu``, and
 ``blit_torch/csrc/dft_tail2.cu``; on a CPU tensor they run their plain
 twins (:func:`dft_last_plain`, :func:`dft_stage_plain`,
 :func:`dft_tail2_plain`: f32 ``torch.matmul`` with the four real
-products).  ``dft_last`` and ``dft_tail2`` compute their DFTs as FFTs in
-shared memory, reading only row 1 of the DFT matrices (the table of
-roots, ``W[j, k] == W[1, (j·k) mod n]``), over the radix plans of
-:func:`fft_plan`; ``dft_stage`` keeps the dense product.  :func:`dft`
+products).  All three compute their DFTs as FFTs in shared memory,
+reading only row 1 of the DFT matrices (the table of roots, ``W[j, k]
+== W[1, (j·k) mod n]``), over the radix plans of :func:`fft_plan`;
+``dft_stage`` keeps the dense product for the shapes whose column tiles
+do not fit or where it timed faster, such as a large prime factor of n
+(:func:`dft_stage_design`).  :func:`dft`
 and :func:`dft_tail` walk the Cooley-Tukey levels with them
 (``use_pallas=True``, ``blit``'s name for its kernel route) or with the
 twins, in natural order or in the twisted (digit-permuted) order that
@@ -143,8 +145,9 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_longlong, ctypes.c_void_p])
         lib.dft_last_launch.restype = ctypes.c_int
         lib.dft_stage_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_void_p])
         lib.dft_stage_launch.restype = ctypes.c_int
     return lib
 
@@ -290,6 +293,74 @@ def dft_last_plain(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     return xr @ wr - xi @ wi, xi @ wr + xr @ wi
 
 
+# Values one round of dft_stage's column FFT holds (csrc/dft.cu SE).
+_STAGE_ROUND = 4096
+
+
+def _stage_tc(n: int, m: int) -> int:
+    """Columns of a dft_stage FFT tile: where a round holds 32 or more
+    columns of n points, the multiple of 32 (up to a round) that pads m
+    least, the largest of those; else 16 or 8."""
+    cap = _STAGE_ROUND // n
+    if cap < 32:
+        return 16 if cap >= 16 else 8
+    best = None
+    for tc in range(32, min(cap, -(-m // 32) * 32) + 1, 32):
+        cost = -(-m // tc) * tc
+        if best is None or cost <= best[0]:
+            best = (cost, tc)
+    return best[1]
+
+
+def stage_fft_geometry(n: int, m: int, esize: int) -> Optional[dict]:
+    """How dft_stage's column FFT runs (n, m) panels of ``esize``-byte
+    input: the radix plan, the tile width ``tc`` (a tile is n rows x tc
+    columns of a panel, the last one of a panel ragged), the columns a
+    round of passes takes (``per_round``), the stage buffers (two where
+    they fit in :data:`SMEM_MAX`) and the shared-memory bytes, the layout
+    ``csrc/dft.cu`` ``stage_fft_smem`` checks.  None where no layout
+    fits (or n < 2)."""
+    if not 2 <= n <= DIRECT_DFT_MAX:
+        return None
+    tc = _stage_tc(n, m)
+    ss = tc + 16 // esize
+    ws = ss if esize == 4 else tc + 4
+    n4 = (n + 3) & ~3
+    for nstage in (2, 1):
+        smem = (8 * n4 + nstage * 2 * n * ss * esize
+                + (0 if esize == 4 else 2 * n * ws * 4))
+        if smem <= SMEM_MAX:
+            return dict(plan=fft_plan(n), tc=tc,
+                        per_round=min(tc, max(1, _STAGE_ROUND // n)),
+                        nstage=nstage, smem=smem)
+    return None
+
+
+# n where chip_smoke.py's design sweep timed the tiled GEMM faster than
+# the column FFT although the FFT has no dense pass: 48 = 16·3, whose
+# radix-16 pass keeps 96 of a block's threads busy (PERF.md §6, PR 7).
+_STAGE_TILED_N = frozenset({48})
+
+
+def dft_stage_design(n: int, m: int) -> str:
+    """The design :func:`dft_stage` launches for (n, m) panels, by shape
+    alone: ``"fft"`` (csrc/dft.cu's column FFT) where its tiles fit in
+    shared memory for f32 and bf16 input alike and it timed faster, else
+    ``"tiled"`` (the dense tiled GEMM).  The GEMM keeps n = 1, n above
+    1383 (a bf16 tile of 8 columns no longer fits), every n whose plan
+    has a dense pass of a prime p > 7 with n < 8p (that pass multiplies
+    p times an output in shared memory, where the GEMM's register tiles
+    multiply n times; the sweep timed a multiply of the dense pass about
+    5 times slower and the two designs even near n = 8p), and
+    :data:`_STAGE_TILED_N`."""
+    if not all(stage_fft_geometry(n, m, e) for e in (4, 2)):
+        return "tiled"
+    dense = max((r for r in fft_plan(n) if r > 7 and r % 2), default=0)
+    if n < 8 * dense or n in _STAGE_TILED_N:
+        return "tiled"
+    return "fft"
+
+
 def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
               wi: torch.Tensor, tr: Optional[torch.Tensor] = None,
               ti: Optional[torch.Tensor] = None
@@ -297,13 +368,28 @@ def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     """One planar DFT stage down axis -2 of ``(..., n, m)`` panels:
     ``o[b, k, j] = tw[k, j] · Σ_l W[k, l] · x[b, l, j]`` with the optional
     f32 ``(n, m)`` twiddle ``tr, ti``.  ``xr, xi``: f32 or bf16; ``wr, wi``:
-    the f32 ``(n, n)`` DFT matrix.  Returns f32."""
+    the f32 ``(n, n)`` DFT matrix (the column FFT reads its row 1).
+    Returns f32."""
     if (tr is None) != (ti is None):
         raise ValueError("dft_stage: pass both twiddle parts or neither")
     if xr.device.type == "cpu":
         return dft_stage_plain(xr, xi, wr, wi, tr, ti)
     if xr.device.type != "cuda":
         raise ValueError(f"dft_stage: unsupported device {xr.device}")
+    out = dft_stage_cuda(xr, xi, wr, wi, tr, ti)
+    if xr.numel():
+        dft_stage.launches += 1
+    return out
+
+
+def dft_stage_cuda(xr, xi, wr, wi, tr=None, ti=None, *, tiled: bool = False,
+                   design: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/dft.cu``'s ``dft_stage`` on CUDA tensors, uncounted:
+    the design :func:`dft_stage_design` picks, or ``design`` (``"fft"``
+    where its tiles fit, ``"tiled"``).  ``tiled=True`` runs the dense
+    tiled GEMM (the first port's design) at any shape, to time it beside
+    the FFT."""
     if xr.ndim < 2:
         raise ValueError("dft_stage: (..., n, m) panels required")
     n, m = xr.shape[-2], xr.shape[-1]
@@ -319,6 +405,11 @@ def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     panels = xr.numel() // (n * m) if n * m else 0
     if panels == 0:
         return or_, oi
+    design = "tiled" if tiled else design or dft_stage_design(n, m)
+    geo = (stage_fft_geometry(n, m, xr.element_size()) if design == "fft"
+           else dict(plan=(n,), tc=0, per_round=0, nstage=0, smem=0))
+    if design not in ("fft", "tiled") or geo is None:
+        raise ValueError(f"dft_stage: no design {design!r} at (n, m) = ({n}, {m})")
     lib = _lib()
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream(xr.device).cuda_stream
@@ -327,9 +418,10 @@ def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
             None if tr is None else tr.data_ptr(),
             None if ti is None else ti.data_ptr(),
             or_.data_ptr(), oi.data_ptr(), panels, n, m,
-            int(xr.dtype == torch.bfloat16), stream)
+            int(xr.dtype == torch.bfloat16), _DESIGNS[design],
+            _radices(geo["plan"]), len(geo["plan"]), geo["tc"],
+            geo["per_round"], geo["nstage"], geo["smem"], stream)
     kernels.check(lib, rc, "dft_stage")
-    dft_stage.launches += 1
     return or_, oi
 
 

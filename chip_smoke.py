@@ -52,7 +52,9 @@ Phases, in order; any failure exits non-zero:
       chunk of 4 frames (int8 made on the card from a seeded generator):
       pfb_dft1, dft_tail2 (levels 2 and 3, inner untwist), the level-0
       swap and torch detect, as blit runs it; then dft_tail2 at 2^20's
-      (128, 64) on (c)'s stage-1 spectra, against its twin and timed.  Device memory: 3.8 GB of
+      (128, 64) on (c)'s stage-1 spectra, against its twin and timed,
+      and dft_stage down route (a) 2^20's (128, 64) panels of the same
+      rows, as in (f).  Device memory: 3.8 GB of
       voltages; 8.6 GB each for the stage-1 spectra, the dft_tail2 output
       and the swapped spectra, of which two live at once: ~25 GB at the
       peak of the 80 GB card (the dft_tail2 check before it, with the
@@ -60,9 +62,14 @@ Phases, in order; any failure exits non-zero:
       with the twins;
   (f) the 6144 path (64·96, outside pfb_dft1's gate): channelize on 64
       coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
-      twiddle), dft_last (96 points, also timed beside the tiled GEMM),
+      twiddle; the column FFT dft_stage_design picks, timed beside the
+      dense tiled GEMM, tiled_ms, and the complex torch.matmul of W and
+      the panels), dft_last (96 points, also timed beside the tiled GEMM),
       the swap and torch detect; all 64 channels compared with the twins
-      (~30 GB at the peak);
+      (~30 GB at the peak); then dft_stage_design's sweep: both designs
+      (the column FFT, the tiled GEMM) at 38 panel sizes n ≤ 1383 and m
+      96 and 1024, f32 and bf16, each held to dft_stage's bound against
+      the plain version and timed, beside the design picked;
   (m) run after (f), once its tensors are freed: the opt-in routes.
       detect_untwist_i against detect_untwist_i_plain on twisted spectra
       of the 0000 chunk's shape (64, 2, 4, 2^20), factors (128, 128, 64),
@@ -137,8 +144,10 @@ Phases, in order; any failure exits non-zero:
       dft_last at n = 512 on the F-engine's FIR output against its twin,
       beside the tiled GEMM and torch.fft.fft;
       xengine_packed against its plain version at (64, 16, 2, 61, 512)
-      in f32 and bf16 (atol 1e-3 of the spectra's mean square), timed
-      beside the batched complex64 torch.matmul of the packed spectra;
+      in f32 (three tf32 passes) and bf16 (atol 1e-3 of the spectra's
+      mean square), the mirrored half bitwise the conjugate transpose
+      (vr == vr.mT, vi == -vi.mT), timed beside the batched complex64
+      torch.matmul of the packed spectra;
       correlate_stream over windows of 15 frames (5 windows, 5 launches
       of each) bitwise equal to correlate(acc_frames=15); stage seconds
       and RAW GB/s.
@@ -880,6 +889,100 @@ def tail2_record(torch, ur, ui, f2, f3, product):
     return rec
 
 
+def dft_stage_record(torch, xr, xi, n, m, where, **extra):
+    """dft_stage (the design dft_stage_design picks, with the twiddle) on
+    (..., n, m) panels against its plain version, timed beside the dense
+    tiled GEMM (``tiled=True``, the first port's design, also checked)
+    and the complex ``torch.matmul`` of W and the panels (no twiddle)."""
+    from blit_torch.ops import dft as tdft
+
+    st = tdft.as_tensors(tdft.dft_matrices(n) + tdft.twiddles(n, m), xr.device)
+    want = tdft.dft_stage_plain(xr, xi, *st)
+    got = tdft.dft_stage(xr, xi, *st)
+    err, atol, ok = check_bound(torch, got, want, "dft_stage", "float32",
+                                inputs=(xr, xi))
+    del got
+    got = tdft.dft_stage_cuda(xr, xi, *st, tiled=True)
+    tiled_err, _, tiled_ok = check_bound(torch, got, want, "dft_stage",
+                                         "float32", inputs=(xr, xi))
+    del got, want
+    torch.cuda.empty_cache()
+    ms = median_ms(torch, lambda: tdft.dft_stage(xr, xi, *st))
+    tiled_ms = median_ms(torch, lambda: tdft.dft_stage_cuda(xr, xi, *st, tiled=True))
+    plain_ms = median_ms(torch, lambda: tdft.dft_stage_plain(xr, xi, *st), runs=5)
+    torch.cuda.empty_cache()
+    z = torch.complex(xr, xi)
+    wc = torch.complex(st[0], st[1])
+    lib_ms = median_ms(torch, lambda: torch.matmul(wc, z))
+    del z, wc
+    torch.cuda.empty_cache()
+    geo = tdft.stage_fft_geometry(n, m, xr.element_size())
+    rec = kernel_record(
+        "dft_stage", "float32", "blit_torch/csrc/dft.cu",
+        "blit/ops/pallas_dft.py:83", err, atol, ok and tiled_ok, ms, plain_ms,
+        dft_cost(xr.numel(), n, xr.element_size(), twiddle=n * m), lib_ms,
+        n=n, m=m, path=where, design=tdft.dft_stage_design(n, m),
+        plan=list(geo["plan"]), tc=geo["tc"], tiled_ms=tiled_ms,
+        tiled_max_abs_err=tiled_err,
+        library="torch.matmul(complex W, complex panels), no twiddle", **extra)
+    if not rec["ok"]:
+        raise AssertionError(f"dft_stage disagrees with its twin: {rec}")
+    return rec
+
+
+# dft_stage_design's sweep: panel sizes n off the main paths (no plan
+# compiled in: the column FFT reads its plan at run time; powers of two,
+# 3/5/7 passes, dense prime passes of 11 to 641 at several n / p) and the
+# compiled ones for scale, each at m = 96 (6144's width) and 1024, about
+# 2^23 complex values a call.
+DESIGN_SWEEP_N = (3, 5, 6, 11, 12, 13, 22, 24, 31, 44, 48, 62, 64, 80, 88, 96,
+                  100, 112, 124, 127, 128, 144, 160, 176, 208, 248, 256, 352,
+                  384, 496, 512, 641, 704, 768, 992, 1000, 1024, 1383)
+DESIGN_SWEEP_M = (96, 1024)
+
+
+def stage_design_sweep(torch, dev):
+    """Both dft_stage designs (the column FFT, the dense tiled GEMM) on the
+    same panels, with the twiddle, f32 and bf16: each held against the
+    plain version and timed, beside the design dft_stage_design picks.
+    Returns the rows; fails if a design disagrees with its twin."""
+    from blit_torch.ops import dft as tdft
+
+    rows = []
+    for n in DESIGN_SWEEP_N:
+        for m in DESIGN_SWEEP_M:
+            st = tdft.as_tensors(tdft.dft_matrices(n) + tdft.twiddles(n, m), dev)
+            b = max(1, (1 << 23) // (n * m))
+            g = torch.Generator(device=dev).manual_seed(SEED + n + m)
+            x32 = [torch.randn((b, n, m), generator=g, device=dev) for _ in range(2)]
+            for dtype in ("float32", "bfloat16"):
+                xr, xi = (x.to(getattr(torch, dtype)) for x in x32)
+                want = tdft.dft_stage_plain(xr, xi, *st)
+                row = dict(n=n, m=m, dtype=dtype, panels=b,
+                           plan=list(tdft.fft_plan(n)),
+                           picked=tdft.dft_stage_design(n, m))
+                for design in ("fft", "tiled"):
+                    run = (lambda d=design: tdft.dft_stage_cuda(
+                        xr, xi, *st, design=d))
+                    err, atol, ok = check_bound(torch, run(), want, "dft_stage",
+                                                "float32", inputs=(xr, xi))
+                    row[design] = dict(ms=median_ms(torch, run),
+                                       max_abs_err=err, ok=ok)
+                del want, xr, xi
+                row["faster"] = min(("fft", "tiled"), key=lambda d: row[d]["ms"])
+                log(f"dft_stage design {json.dumps(row)}")
+                rows.append(row)
+            del x32, st
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not (r["fft"]["ok"] and r["tiled"]["ok"])]
+    if bad:
+        raise AssertionError(f"dft_stage designs disagree with the twin: {bad}")
+    picked = sum(r["picked"] == r["faster"] for r in rows)
+    log(f"dft_stage design sweep: the picked design timed faster in {picked} "
+        f"of {len(rows)} rows")
+    return rows
+
+
 def phase_2pow21(torch, dev):
     """(e): dft_tail2 against its twin at this path's shape and at 2^20's
     (128, 64) on (c)'s chunk, then the 2^21 path through channelize.
@@ -921,6 +1024,11 @@ def phase_2pow21(torch, dev):
     ur, ui = tpfb.pfb_dft1(v, h, *mats)
     del v
     records.append(tail2_record(torch, ur, ui, f2, f3, "2^20"))
+    # Route (a)'s level 2 at 2^20: dft_stage down the (128, 64) panels of
+    # the same rows (line=False: the kernels line keeps 6144's level 1).
+    shape = ur.shape[:-1] + (f2, f3)
+    records.append(dft_stage_record(torch, ur.reshape(shape), ui.reshape(shape),
+                                    f2, f3, "route (a) 2^20", line=False))
     del ur, ui
     torch.cuda.empty_cache()
     return launches, records
@@ -948,24 +1056,10 @@ def phase_6144(torch, dev):
 
     # Level 1: (nchan·2·frames) panels of (n1, n2), with the twiddle.
     xr, xi = fr.reshape(-1, n1, n2), fi.reshape(-1, n1, n2)
+    records.append(dft_stage_record(torch, xr, xi, n1, n2, "6144",
+                                    product="6144"))
     st = tdft.as_tensors(tdft.dft_matrices(n1) + tdft.twiddles(n1, n2), dev)
     got = tdft.dft_stage(xr, xi, *st)
-    want = tdft.dft_stage_plain(xr, xi, *st)
-    err, atol, ok = check_bound(torch, got, want, "dft_stage", "float32",
-                                inputs=(xr, xi))
-    del want
-    ms = median_ms(torch, lambda: tdft.dft_stage(xr, xi, *st))
-    plain_ms = median_ms(torch, lambda: tdft.dft_stage_plain(xr, xi, *st), runs=5)
-    z = torch.complex(xr, xi)
-    wc = torch.complex(st[0], st[1])
-    lib_ms = median_ms(torch, lambda: torch.matmul(wc, z))
-    del z, wc
-    records.append(kernel_record(
-        "dft_stage", "float32", "blit_torch/csrc/dft.cu",
-        "blit/ops/pallas_dft.py:83", err, atol, ok, ms, plain_ms,
-        dft_cost(xr.numel(), n1, 4, twiddle=n1 * n2), lib_ms,
-        product="6144", n=n1, m=n2,
-        library="torch.matmul(complex W, complex panels), no twiddle"))
     del xr, xi, fr, fi
 
     # Level 2: the stage's rows, n2 points along the last axis.
@@ -1664,20 +1758,25 @@ def phase_correlator(torch, dev, tmp):
     sr, si = C.f_engine_planar(v[0].movedim(3, 2), v[1].movedim(3, 2), h)
     for dtype in ("float32", "bfloat16"):
         xr, xi = sr.to(getattr(torch, dtype)), si.to(getattr(torch, dtype))
-        got = txe.xengine_packed(xr, xi)
         want = txe.xengine_packed_plain(xr, xi)
-        err, atol, ok = check_bound(torch, got, want, "xengine_packed", dtype,
-                                    inputs=(sr, si))
+        got = txe.xengine_packed(xr, xi)
+        err, atol, ok = check_bound(torch, got, want, "xengine_packed",
+                                    dtype, inputs=(sr, si))
+        # The mirrored half is exactly the conjugate transpose.
+        herm = bool(torch.equal(got[0], got[0].mT)
+                    and torch.equal(got[1], -got[1].mT))
+        del got
         agg = {}
         if dtype == "bfloat16":
             # Control: the f32 spectra, not rounded, with the visibilities
             # rounded at their store (as (c)'s pfb_dft1 control).  The
             # spectra's rounding alone averages down over the frames, to
             # about the bound.
+            got = txe.xengine_packed(xr, xi)
             control = [x.to(torch.bfloat16) for x in txe.xengine_packed_plain(sr, si)]
             agg = bf16_aggregate(torch, got, want, control)
-            del control
-        del got, want
+            del control, got
+        del want
         torch.cuda.empty_cache()
         ms = median_ms(torch, lambda: txe.xengine_packed(xr, xi))
         plain_ms = median_ms(torch, lambda: txe.xengine_packed_plain(xr, xi), runs=5)
@@ -1694,9 +1793,12 @@ def phase_correlator(torch, dev, tmp):
         records.append(kernel_record(
             "xengine_packed", dtype, "blit_torch/csrc/xengine.cu",
             "blit/ops/pallas_xengine.py:119", err, atol,
-            ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+            ok and herm and agg.get("rel_rms_ok", True), ms,
+            plain_ms,
             xe_cost(ARRAY_NANT, FX_NCHAN, 2, nframes, FX_NFFT, xr.element_size()),
             lib_ms, library="torch.matmul(complex64 packed spectra, conj transpose)",
+            hermitian=herm,
+            arithmetic="bf16 MMA" if dtype == "bfloat16" else "three tf32 MMA passes",
             **agg))
         del xr, xi
     del sr, si
@@ -1792,6 +1894,7 @@ def main() -> int:
     records.extend(tail2_recs)
     launches["6144"], level_recs = phase_6144(torch, dev)
     records.extend(level_recs)
+    stage_design_sweep(torch, dev)
 
     # (m) the opt-in routes and detect_untwist_i
     counts, recs, _ = phase_routes(torch, dev)
@@ -1814,7 +1917,8 @@ def main() -> int:
     line = {"kernels": []}
     for name in COUNTED:
         r = next(r for r in records if r["name"] == name
-                 and r["dtype"] == "float32" and r.get("stokes", "I") == "I")
+                 and r["dtype"] == "float32" and r.get("stokes", "I") == "I"
+                 and r.get("line", True))
         line["kernels"].append(
             {k: r[k] for k in ("name", "route", "source", "replaces")}
             | {"launches": total[name], "max_abs_err": r["max_abs_err"],

@@ -138,10 +138,12 @@ class TestXengineKernel:
                 assert TPX.eligible(nap, 16, nfft, itemsize)
 
     def test_gate_holds_the_kernels_limits(self):
-        # The grid's limits: nchan and nfft / 32 up to 65535.
+        # A persistent grid walks the work items: no channel or fine-channel
+        # count is beyond the kernel (the grid of the first port's kernel
+        # stopped at 65535 of each).  Spectra are f32 or bf16.
         assert TPX.eligible(128, 65535, 32 * 65535)
-        assert not TPX.eligible(128, 65536, 512)
-        assert not TPX.eligible(128, 16, 32 * 65535 + 1)
+        assert TPX.eligible(128, 65536, 512)
+        assert TPX.eligible(128, 16, 32 * 65535 + 1)
         assert not TPX.eligible(128, 16, 512, itemsize=8)
         # Offsets are 64-bit: spectra past 2^31 elements (64 antennas x 64
         # channels x 2 pols x 1100 frames x 512, bf16) stay on the kernel.
@@ -220,14 +222,15 @@ class TestCorrelate:
             close(g, w, 1e-4, 1e-4)
 
     def test_refused_packed_shape_takes_the_matmul_route(self, coeffs, monkeypatch):
-        # A shape past the kernel's grid (here: nchan = 2 against a grid
-        # limit cut to 1) takes the matmul route, with the same result.
+        # A shape the gate refuses (here: nap = 128 against blit's
+        # dispatch rule raised to 129) takes the matmul route, with the same
+        # result.
         x = voltage_case(ntime=NFFT * 6, nant=64, nchan=2, seed=9)
         v = tuple(t(x.real, x.imag))
         want = TC.correlate(v, coeffs, nfft=NFFT, ntap=NTAP, vis_layout="packed",
                             device=CPU)
         assert TC.last_xengine_plan()["engine"] == "plain"
-        monkeypatch.setattr(TPX, "_GRID_YZ_MAX", 1)
+        monkeypatch.setattr(TPX, "MIN_NAP", 129)
         got = TC.correlate(v, coeffs, nfft=NFFT, ntap=NTAP, vis_layout="packed",
                            device=CPU)
         assert TC.last_xengine_plan()["engine"] == "matmul"

@@ -250,6 +250,72 @@ def test_dft_stage_matches_plain(dev, b, n, m, dtype, twiddle):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m", [(300, 64, 96), (40, 128, 64),
+                                   (3, 128, 1024), (20, 6, 683)])
+def test_dft_stage_fft_at_the_main_paths_shapes(dev, b, n, m, dtype):
+    # 6144's first level, route (a) 2^20's (128, 64), 2^24's middle level
+    # and 4098's (6, 683), with the twiddle: the column FFT with its plan
+    # and tile compiled in; the dense design (tiled=True) agrees too.
+    assert tdft.dft_stage_design(n, m) == "fft"
+    xr, xi = _planar(dev, (b, n, m), dtype, 7 * n + m)
+    mats = tdft.as_tensors(tdft.dft_matrices(n) + tdft.twiddles(n, m), dev)
+    want = tdft.dft_stage_plain(xr, xi, *mats)
+    for got in (tdft.dft_stage(xr, xi, *mats),
+                tdft.dft_stage_cuda(xr, xi, *mats, tiled=True)):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            _close(g, w, 1e-4, 1e-3 / w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,design", [
+    (5, 176, 40, "fft"),     # 16·11: a dense pass of 11, n >= 8p
+    (3, 333, 40, "fft"),     # 3·3·37: a dense pass of 37
+    (7, 127, 33, "tiled"),   # prime: the GEMM
+    (9, 48, 96, "tiled"),    # timed faster as the GEMM
+    (2, 1383, 3, "tiled"),   # 3·461
+], ids=lambda x: str(x))
+def test_dft_stage_designs_agree_where_the_rule_splits(dev, b, n, m, design,
+                                                       dtype):
+    # dft_stage_design's pick by shape, and both designs (the run-time
+    # plan's column FFT with its dense prime pass, the tiled GEMM) within
+    # the plain version's bounds there.
+    assert tdft.dft_stage_design(n, m) == design
+    xr, xi = _planar(dev, (b, n, m), dtype, 5 * n + m)
+    mats = tdft.as_tensors(tdft.dft_matrices(n) + tdft.twiddles(n, m), dev)
+    want = tdft.dft_stage_plain(xr, xi, *mats)
+    for got in (tdft.dft_stage(xr, xi, *mats),
+                tdft.dft_stage_cuda(xr, xi, *mats, design="fft"),
+                tdft.dft_stage_cuda(xr, xi, *mats, design="tiled")):
+        for g, w in zip(got, want):
+            _close(g, w, 1e-4, 1e-3 / w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m", [(64, 96), (6, 683), (75, 80)])
+def test_dft_stage_columns_do_not_depend_on_the_call(dev, n, m, dtype):
+    # A column's output depends only on that column: the same panel at
+    # another place of a call, in a call of another panel count, or
+    # shifted by columns (another tile, another staging offset) gives
+    # bitwise equal outputs (route (b)'s twisted order rests on this).
+    xr, xi = _planar(dev, (9, n, m), dtype, n + 3 * m)
+    mats = tdft.as_tensors(tdft.dft_matrices(n) + tdft.twiddles(n, m), dev)
+    whole = tdft.dft_stage(xr, xi, *mats)
+    part = tdft.dft_stage(xr[4:6].clone(), xi[4:6].clone(), *mats)
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[4:6])
+    # Columns 5 .. m-1 of each panel as the first m-5 of a narrower call.
+    narrow = [x[..., 5:].contiguous() for x in (xr, xi)]
+    tw = [t[:, 5:].contiguous() for t in mats[2:]]
+    sub = tdft.dft_stage(*narrow, *mats[:2], *tw)
+    for a, b in zip(sub, whole):
+        assert torch.equal(a, b[..., 5:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nfft,nint,nchan,plan", [
     (8, 128, 4, ("pallas", "dft_last")),
     (1024, 16, 4, ("pallas", "dft_last")),
@@ -424,6 +490,28 @@ def test_xengine_packed_matches_plain(dev, nant, nchan, npol, nframes, nfft,
     want = txe.xengine_packed_plain(sr, si)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
+        _close(g, w, 1e-4, 1e-3 / w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nant,nchan,npol,nframes,nfft", [
+    (128, 2, 2, 9, 16),    # nap 256: 8 tile rows, several items a channel
+    (64, 2, 2, 15, 64),    # one correlate_stream window of 15 frames
+    (65, 1, 2, 17, 8),     # nap 130: a ragged tile row and column
+], ids=lambda x: str(x))
+def test_xengine_packed_is_exactly_hermitian(dev, nant, nchan, npol, nframes,
+                                             nfft, dtype):
+    # Within the bounds of the plain version, and the half below the
+    # diagonal exactly the conjugate transpose of the half above it (the
+    # kernel computes one and mirrors it).
+    from blit_torch.ops import xengine as txe
+
+    sr, si = _spectra(dev, (nant, nchan, npol, nframes, nfft), dtype, nant + 9)
+    want = txe.xengine_packed_plain(sr, si)
+    vr, vi = txe.xengine_packed(sr, si)
+    assert torch.equal(vr, vr.mT) and torch.equal(vi, -vi.mT)
+    for g, w in zip((vr, vi), want):
         _close(g, w, 1e-4, 1e-3 / w.abs().max().item())
 
 
