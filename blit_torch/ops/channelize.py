@@ -250,7 +250,7 @@ def _levels(factors) -> str:
     return "dft_last" if len(factors) == 1 else "dft_stage+dft_last"
 
 
-def _resolve_plan(nfft: int, npol: int, stokes: str, *,
+def _resolve_plan(nfft: int, npol: int, stokes: str, *, ntap: int = 4,
                   fft_method: str = "auto", dft_order: str = "auto",
                   pfb_kernel: str = "auto", tail_kernel: str = "auto",
                   detect_kernel: str = "auto"):
@@ -285,7 +285,7 @@ def _resolve_plan(nfft: int, npol: int, stokes: str, *,
         if two_pol:
             fused = (method == "matmul" and len(factors) >= 2
                      and not twisted  # fused1 emits natural order
-                     and pfb_mod.fits(nfft, factors[0], npol))
+                     and pfb_mod.fits(nfft, factors[0], npol, ntap))
             pfb_kernel = "fused1" if fused else "pallas"
     elif pfb_kernel in ("pallas", "fused1"):
         if not two_pol:
@@ -304,11 +304,10 @@ def _resolve_plan(nfft: int, npol: int, stokes: str, *,
                 raise ValueError(
                     "pfb_kernel='fused1' emits natural order; it does not "
                     "combine with dft_order='twisted'")
-            if not pfb_mod.fits(nfft, factors[0], npol):
+            if not pfb_mod.fits(nfft, factors[0], npol, ntap):
                 raise ValueError(
                     f"pfb_kernel='fused1': the Hopper gate (pfb.fits) takes "
-                    f"n1 = {pfb_mod.KERNEL_N1} and nfft a multiple of "
-                    f"{pfb_mod.KERNEL_N1 * pfb_mod.KERNEL_TILE_COLS} "
+                    f"an n1 whose tile of {ntap} taps fits in shared memory "
                     f"(got factors {factors})")
 
     # The tail and the detection after pfb_dft1.
@@ -455,8 +454,8 @@ def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
     if tuple(coeffs.shape) != (ntap, nfft):
         raise ValueError(f"coeffs shape {tuple(coeffs.shape)} != ({ntap}, {nfft})")
     route, factors, plan = _resolve_plan(
-        nfft, npol, stokes, fft_method=fft_method, dft_order=dft_order,
-        pfb_kernel=pfb_kernel, tail_kernel=tail_kernel,
+        nfft, npol, stokes, ntap=ntap, fft_method=fft_method,
+        dft_order=dft_order, pfb_kernel=pfb_kernel, tail_kernel=tail_kernel,
         detect_kernel=detect_kernel)
     if npol == 1 and stokes not in ("I", "XX"):
         raise ValueError(f"stokes={stokes!r} needs 2 pols, got 1")

@@ -37,19 +37,22 @@ from blit_torch.ops.pfb import HOPPER_SMEM_MAX
 STOKES_NIF = {"I": 1, "XX": 1, "YY": 1, "XXYY": 2, "full": 4, "IQUV": 4}
 _STOKES_CODE = {"I": 0, "XX": 1, "YY": 2, "XXYY": 3, "full": 4, "IQUV": 5}
 
-# Kernel geometry (mirrors csrc/tail2_detect.cu; checked when it loads).
+# Kernel geometry (mirrors csrc/tail2_detect.cu; checked when it loads):
+# f2 and f3 compiled in, a thread-block cluster of KERNEL_K1_TILE blocks on
+# consecutive k1.
 KERNEL_F2 = 128
 KERNEL_F3 = 64
 KERNEL_K1_TILE = 8
 
 
-def kernel_smem_bytes(nif: int) -> int:
-    """Dynamic shared memory of one tail2_detect block: the f2 table, the
-    f3 matrix, the twiddled rows and the staged input tile of both pols,
-    and the staged output."""
-    f2, f3, g2, tk1, at = KERNEL_F2, KERNEL_F3, 16, KERNEL_K1_TILE, 16
-    return ((2 * f2 + 2 * f3 * f3) * 4 + (2 * g2 * f3 + 2 * at * f3) * 8
-            + nif * f3 * (g2 * tk1 + 1) * 4)
+def kernel_smem_bytes() -> int:
+    """Dynamic shared memory of one tail2_detect block: the rows of W2
+    and W3, the (f2, f3) twiddle's two planes, and the four planes of a
+    panel pair (re, im of both pols; rows padded by 4 floats), over which
+    the detected product's planes are written.  The same for every
+    Stokes product."""
+    f2, f3 = KERNEL_F2, KERNEL_F3
+    return (2 * (f2 + f3) + 2 * f2 * f3 + 4 * f2 * (f3 + 4)) * 4
 
 
 def detect_stokes_planar(sr: torch.Tensor, si: torch.Tensor, stokes: str
@@ -98,13 +101,14 @@ def _check(ur: torch.Tensor, f2: int, f3: int, stokes: str):
 
 def fits(factors, npol: int = 2, stokes: str = "I") -> bool:
     """Hopper fit gate of the CUDA kernel: exactly three factors
-    ``(f1, 128, 64)`` with ``f1`` a multiple of the k1 tile, two pols,
-    and the staged output of ``stokes``'s planes inside shared memory."""
+    ``(f1, 128, 64)`` with ``f1`` a multiple of the cluster's k1 tile
+    (8), two pols, any Stokes product (the detected planes are written
+    over the panel pair in shared memory, :func:`kernel_smem_bytes`)."""
     if len(factors) != 3 or stokes not in STOKES_NIF or npol != 2:
         return False
     f1, f2, f3 = factors
     return (f2 == KERNEL_F2 and f3 == KERNEL_F3 and f1 % KERNEL_K1_TILE == 0
-            and kernel_smem_bytes(STOKES_NIF[stokes]) <= HOPPER_SMEM_MAX)
+            and kernel_smem_bytes() <= HOPPER_SMEM_MAX)
 
 
 def tail2_detect(ur: torch.Tensor, ui: torch.Tensor, f2: int, f3: int, *,
@@ -132,12 +136,9 @@ def _lib() -> ctypes.CDLL:
         lib.tail2_detect_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.tail2_detect_launch.restype = ctypes.c_int
-        lib.tail2_detect_smem_bytes.argtypes = [ctypes.c_int]
         geom = (lib.tail2_detect_f2(), lib.tail2_detect_f3(),
-                lib.tail2_detect_k1_tile(),
-                lib.tail2_detect_smem_bytes(1), lib.tail2_detect_smem_bytes(4))
-        want = (KERNEL_F2, KERNEL_F3, KERNEL_K1_TILE, kernel_smem_bytes(1),
-                kernel_smem_bytes(4))
+                lib.tail2_detect_k1_tile(), lib.tail2_detect_smem_bytes())
+        want = (KERNEL_F2, KERNEL_F3, KERNEL_K1_TILE, kernel_smem_bytes())
         if geom != want:
             raise RuntimeError(f"tail2_detect.cu geometry {geom} disagrees "
                                "with blit_torch/ops/detect.py")
@@ -166,14 +167,17 @@ def _tail2_detect_cuda(ur, ui, f2, f3, stokes):
     t2r, t2i = as_tensors(twiddles(f2, f3), dev)
     out = torch.empty((nframes, nif, nchan, f1 * m), dtype=torch.float32,
                       device=dev)
+    if out.numel() == 0:
+        return out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tail2_detect_launch(
             ur.data_ptr(), ui.data_ptr(), w2r[1].data_ptr(), w2i[1].data_ptr(),
-            w3r.data_ptr(), w3i.data_ptr(), t2r.data_ptr(), t2i.data_ptr(),
-            out.data_ptr(), nchan, nframes, f1, _STOKES_CODE[stokes], nif,
-            int(ur.dtype == torch.bfloat16), stream)
+            w3r[1].data_ptr(), w3i[1].data_ptr(), t2r.data_ptr(),
+            t2i.data_ptr(), out.data_ptr(), nchan, nframes, f1,
+            _STOKES_CODE[stokes], nif, int(ur.dtype == torch.bfloat16),
+            stream)
     kernels.check(lib, rc, "tail2_detect")
     tail2_detect.launches += 1
     return out

@@ -12,19 +12,20 @@ TPU kernel's rounding points) step by step.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from blit_torch import kernels
-from blit_torch.ops.dft import round_bf16
+from blit_torch.ops.dft import _radices, fft_plan, round_bf16
 
-# Kernel geometry (mirrors csrc/pfb_dft1.cu; checked when it loads).
-KERNEL_N1 = 128
-KERNEL_TILE_COLS = 16
-KERNEL_SMEM_BYTES = (2 * 128 + 4 * 4 * 128 * 16) * 4
 # Dynamic shared memory one block may use on an H100.
 HOPPER_SMEM_MAX = 232448
+# csrc/pfb_dft1.cu: frames a tile holds at most (FG), values one round of
+# an FFT pass covers (SE), and the tile widths it takes.
+KERNEL_FRAMES = 4
+KERNEL_ROUND = 8192
+KERNEL_TILE_COLS = (16, 8)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,12 +46,54 @@ def _geometry(voltages: torch.Tensor, coeffs: torch.Tensor, n1: int):
     return nchan, nfft, ntap, nblk, nframes
 
 
-def fits(nfft: int, n1: int, npol: int = 2) -> bool:
-    """Hopper fit gate of the CUDA kernel: its shared-memory tile holds
-    ``n1 = 128`` rows of 16 columns for 4 frames, both pols."""
-    return (npol == 2 and n1 == KERNEL_N1
-            and nfft % (n1 * KERNEL_TILE_COLS) == 0
-            and KERNEL_SMEM_BYTES <= HOPPER_SMEM_MAX)
+def _panel_floats(n1: int, tc: int) -> int:
+    return ((n1 * tc + 31) & ~31) + tc
+
+
+def _smem(n1: int, tc: int, fg: int, ntap: int, nstage: int) -> int:
+    """csrc/pfb_dft1.cu ``pfb_smem``: the root table, the FIR tile (two
+    planes of fg·2 padded panels) and the stage buffers (fg + ntap - 1
+    blocks of n1 rows × tc int8 samples, then the window's ntap rows of
+    the same columns; 4 bytes each)."""
+    return (8 * ((n1 + 1) & ~1) + 2 * fg * 2 * _panel_floats(n1, tc) * 4
+            + nstage * (fg + 2 * ntap - 1) * n1 * tc * 4)
+
+
+def kernel_geometry(n1: int, ntap: int = 4) -> Optional[dict]:
+    """How csrc/pfb_dft1.cu runs stage 1 of n1 points with an ntap-tap
+    window: the radix plan (:func:`blit_torch.ops.dft.fft_plan`), the
+    tile (``tc`` columns × ``fg`` frames × 2 pols, the FIR tile in shared
+    memory), the columns a round of passes takes, the stage buffers (two
+    where they fit, else one whose next tile's copies start after the
+    FIR) and the shared-memory bytes, the layout the kernel checks.  The
+    widest tile first (16 columns store 64-byte runs; at n1 = 128 a tile
+    of 8 took 3.3 times as long, PERF.md §6), then the most frames (each
+    int8 block is read by fewer tiles), then two stage buffers.  None
+    where no layout fits in :data:`HOPPER_SMEM_MAX` (or n1 < 2)."""
+    if not 2 <= n1 <= KERNEL_ROUND or ntap < 1:
+        return None
+    for tc in KERNEL_TILE_COLS:
+        for fg in (KERNEL_FRAMES, 2, 1):
+            for nstage in (2, 1):
+                smem = _smem(n1, tc, fg, ntap, nstage)
+                if smem <= HOPPER_SMEM_MAX:
+                    return dict(plan=fft_plan(n1), tc=tc, fg=fg,
+                                per_round=min(fg * 2 * tc,
+                                              KERNEL_ROUND // n1),
+                                nstage=nstage, smem=smem)
+    return None
+
+
+def fits(nfft: int, n1: int, npol: int = 2, ntap: int = 4) -> bool:
+    """Hopper fit gate of the CUDA kernel: two pols, an n1 >= 2 that
+    divides nfft, and a tile of n1 rows (the FIR output of up to 4 frames
+    and both pols, and the int8 rows it reads) that fits in shared memory
+    (:func:`kernel_geometry`; n1 up to 592 at ntap = 4).  Every n1 is an
+    FFT of ``fft_plan``'s passes, a ragged last column tile is masked, so
+    any m = nfft / n1 is taken.  Like ``blit``'s ``fused1_fits`` it
+    depends on the shape, not on the number of frames."""
+    return (npol == 2 and n1 >= 2 and nfft % n1 == 0
+            and kernel_geometry(n1, ntap) is not None)
 
 
 def pfb_dft1(
@@ -87,13 +130,18 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.load("pfb_dft1")
     if lib.pfb_dft1_launch.argtypes is None:
         lib.pfb_dft1_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         lib.pfb_dft1_launch.restype = ctypes.c_int
-        geom = (lib.pfb_dft1_n1(), lib.pfb_dft1_tile_cols(),
-                lib.pfb_dft1_smem_bytes())
-        if geom != (KERNEL_N1, KERNEL_TILE_COLS, KERNEL_SMEM_BYTES):
-            raise RuntimeError(f"pfb_dft1.cu geometry {geom} disagrees with "
-                               "blit_torch/ops/pfb.py")
+        lib.pfb_dft1_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.pfb_dft1_smem_bytes.restype = ctypes.c_longlong
+        # The layout this module plans for is the one the kernel uses.
+        for args in ((128, 16, 4, 4, 1), (64, 16, 4, 4, 2), (192, 8, 2, 4, 1),
+                     (6, 16, 1, 9, 2)):
+            if lib.pfb_dft1_smem_bytes(*args) != _smem(*args):
+                raise RuntimeError("csrc/pfb_dft1.cu's shared-memory layout "
+                                   "disagrees with blit_torch/ops/pfb.py")
     return lib
 
 
@@ -113,24 +161,35 @@ def _pfb_dft1_cuda(voltages, coeffs, w1r, w1i, tr, ti, dtype):
             raise ValueError(f"pfb_dft1: {name} must be contiguous on {dev}")
     if not voltages.is_contiguous():
         raise ValueError("pfb_dft1: voltages must be contiguous")
-    if not fits(nfft, n1):
+    if not fits(nfft, n1, ntap=ntap):
         raise ValueError(
-            f"pfb_dft1: the Hopper kernel takes n1={KERNEL_N1} and nfft a "
-            f"multiple of {KERNEL_N1 * KERNEL_TILE_COLS} (got n1={n1}, "
+            f"pfb_dft1: the Hopper kernel takes an n1 >= 2 whose tile "
+            f"({KERNEL_FRAMES} frames at most, {ntap} taps) fits in "
+            f"{HOPPER_SMEM_MAX} bytes of shared memory (got n1={n1}, "
             f"nfft={nfft})")
-    if tr.data_ptr() % 16 or ti.data_ptr() % 16 or voltages.data_ptr() % 4:
+    if voltages.data_ptr() % 4 or coeffs.data_ptr() % 4:
         raise ValueError("pfb_dft1: misaligned input")
     out_dtype = _DTYPES[dtype]
     ur = torch.empty((nchan, 2, nframes, n1, m), dtype=out_dtype, device=dev)
     ui = torch.empty_like(ur)
+    if ur.numel() == 0:
+        return ur, ui
+    # 16-byte copies where every row of the voltages and of the window
+    # starts on 16 bytes.
+    vec = int(m % 4 == 0 and voltages.data_ptr() % 16 == 0
+              and coeffs.data_ptr() % 16 == 0)
+    geo = kernel_geometry(n1, ntap)
+    plan = geo["plan"]
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pfb_dft1_launch(
             voltages.data_ptr(), coeffs.data_ptr(), w1r[1].data_ptr(),
             w1i[1].data_ptr(), tr.data_ptr(), ti.data_ptr(), ur.data_ptr(),
-            ui.data_ptr(), nchan, nfft, ntap, nblk, nframes,
-            int(dtype == "bfloat16"), stream)
+            ui.data_ptr(), nchan, n1, m, ntap, nblk, nframes, _radices(plan),
+            len(plan), geo["tc"], geo["fg"], geo["per_round"],
+            geo["nstage"], vec, geo["smem"], int(dtype == "bfloat16"),
+            stream)
     kernels.check(lib, rc, "pfb_dft1")
     pfb_dft1.launches += 1
     return ur, ui

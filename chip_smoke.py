@@ -22,14 +22,18 @@ Phases, in order; any failure exits non-zero:
       detect_untwist.cu) with nvcc for sm_90a, started together, timed;
   (c) kernels vs twins at the main paths' chunk shapes, elementwise
       (bf16 outputs also in relative rms against a control that skips
-      the bf16 rounding), with CUDA-event times (median of 7 runs after
+      the bf16 rounding; pfb_dft1 and tail2_detect, FFTs that cannot
+      round their DFT matrices to bf16 as the twins do, against the
+      twins' arithmetic at the kernels' rounding points, their distance
+      from the twins recorded beside), with CUDA-event times (median of 7 runs after
       a warm-up), the least time the card could take for the function
       (bound_ms: the larger of its bytes over HBM's rate and its
       operations, a DFT counted as an FFT's 5·log2(n) flops per output,
       over the f32 peak), the same bound for the dense products the
       kernels compute (contract_ms) and, where one PyTorch call computes
       the same function, its time: pfb_dft1 and tail2_detect at the 0000
-      chunk (64 coarse channels, nfft 2^20, 4 frames); pfb_dequant at the
+      chunk (64 coarse channels, nfft 2^20, 4 frames), pfb_dft1 also at
+      the 6144 chunk (n1 = 64, m = 96, 1024 frames); pfb_dequant at the
       0002 (2048 frames of 1024) and 0001 (2^17 frames of 8) chunks;
       dft_last at n = 1024 and n = 8 on those chunks' PFB output, each
       beside the dense tiled GEMM (tiled=True, the first port's design:
@@ -60,12 +64,13 @@ Phases, in order; any failure exits non-zero:
       peak of the 80 GB card (the dft_tail2 check before it, with the
       twin's four products, ~50 GB).  The first 4 channels are compared
       with the twins;
-  (f) the 6144 path (64·96, outside pfb_dft1's gate): channelize on 64
-      coarse channels × 1024 frames: pfb_dequant, dft_stage (64 points,
-      twiddle; the column FFT dft_stage_design picks, timed beside the
-      dense tiled GEMM, tiled_ms, and the complex torch.matmul of W and
-      the panels), dft_last (96 points, also timed beside the tiled GEMM),
-      the swap and torch detect; all 64 channels compared with the twins
+  (f) the 6144 path (64·96): dft_stage (64 points, twiddle; the column
+      FFT dft_stage_design picks, timed beside the dense tiled GEMM,
+      tiled_ms, and the complex torch.matmul of W and the panels) on
+      pfb_dequant's frames, as route (b) runs it, and dft_last (96 points,
+      also timed beside the tiled GEMM) on its output; then channelize on
+      64 coarse channels × 1024 frames: pfb_dft1 (n1 = 64), dft_last, the
+      swap and torch detect; all 64 channels compared with the twins
       (~30 GB at the peak); then dft_stage_design's sweep: both designs
       (the column FFT, the tiled GEMM) at 38 panel sizes n ≤ 1383 and m
       96 and 1024, f32 and bf16, each held to dft_stage's bound against
@@ -373,13 +378,13 @@ def fft_flops(nout, n) -> float:
     return 5.0 * nout * math.log2(n)
 
 
-def pfb_cost(nchan, ntime, nframes, n1, dtype):
+def pfb_cost(nchan, ntime, nframes, n1, dtype, nfft=NFFT):
     """pfb_dft1: FIR 2 flops per tap per real value, the n1-point DFT
     stage, 6 flops per complex output for the twiddle."""
     esize = 2 if dtype == "bfloat16" else 4
-    m = NFFT // n1
-    nout = nchan * 2 * nframes * NFFT
-    nbytes = (nchan * ntime * 4 + NTAP * NFFT * 4 + 2 * n1 * n1 * 4
+    m = nfft // n1
+    nout = nchan * 2 * nframes * nfft
+    nbytes = (nchan * ntime * 4 + NTAP * nfft * 4 + 2 * n1 * n1 * 4
               + 2 * n1 * m * 4 + 2 * nout * esize)
     rest = nout * (2 * 2 * NTAP + 6)
     dft_rate = BF16_TC_FLOPS if dtype == "bfloat16" else F32_FLOPS
@@ -408,13 +413,74 @@ def bf16_aggregate(torch, got, want, control) -> dict:
                 rel_rms_ok=r <= BF16_REL_RMS < c)
 
 
+def bf16_fft_aggregate(torch, got, want, fft_ref, control) -> dict:
+    """The aggregate bf16 check of a kernel that computes its DFT as an
+    FFT: the twin rounds the DFT matrices to bf16 as the TPU contract
+    does, which an FFT cannot.  So the kernel is held within
+    ``BF16_REL_RMS`` of ``fft_ref`` (the same plain arithmetic at the
+    kernel's rounding points: the contract's other bf16 roundings, f32
+    roots), the control beyond it.  Its distance from the twin, and the
+    control's, are recorded beside (the matrices' rounding, about 2e-3)."""
+    agg = bf16_aggregate(torch, got, fft_ref, control)
+    return dict(agg, twin_rel_rms=rel_rms(torch, got, want),
+                twin_control_rel_rms=rel_rms(torch, control, want))
+
+
+def pfb_fft_reference(torch, v, h, mats):
+    """pfb_dft1 in bf16 at its kernel's rounding points: the FIR sum
+    rounded to bf16 (pfb_dequant_plain's, the twin's FIR), the n1-point
+    stage and twiddle in f32 with f32 roots (dft_stage_plain), stored as
+    bf16."""
+    from blit_torch.ops import dft as tdft
+    from blit_torch.ops import pfb as tpfb
+
+    n1 = mats[0].shape[0]
+    fr, fi = tpfb.pfb_dequant_plain(v, h, dtype="bfloat16")
+    shape = fr.shape[1:-1] + (n1, fr.shape[-1] // n1)
+    out = [torch.empty((fr.shape[0],) + shape, dtype=torch.bfloat16,
+                       device=v.device) for _ in range(2)]
+    for c in range(fr.shape[0]):
+        sr, si = tdft.dft_stage_plain(fr[c].reshape(shape), fi[c].reshape(shape),
+                                      *mats)
+        out[0][c], out[1][c] = sr, si
+    return out
+
+
+def tail2_fft_reference(torch, ur, ui, f2, f3, stokes):
+    """tail2_detect on bf16 spectra at its kernel's rounding points: the
+    f2-point level and the twiddle in f32 with f32 roots, rounded to bf16
+    (the contract's rounding of the twiddled rows), the f3-point level in
+    f32, the detect; the twin's order of operations otherwise."""
+    from blit_torch.ops import detect as tdet
+    from blit_torch.ops import dft as tdft
+
+    nchan, npol, nframes, f1, m = ur.shape
+    dev = ur.device
+    w2 = tdft.as_tensors(tdft.dft_matrices(f2), dev)
+    tw = tdft.as_tensors(tdft.twiddles(f2, f3), dev)
+    w3 = tdft.as_tensors(tdft.dft_matrices(f3), dev)
+    out = torch.empty((nframes, tdet.STOKES_NIF[stokes], nchan, f1 * m),
+                      device=dev)
+    shape = (npol, nframes, f1, f2, f3)
+    for c in range(nchan):
+        yr, yi = tdft.dft_stage_plain(ur[c].float().reshape(shape),
+                                      ui[c].float().reshape(shape), *w2, *tw)
+        zr, zi = tdft.dft_last_plain(tdft.round_bf16(yr), tdft.round_bf16(yi),
+                                     *w3)
+        del yr, yi
+        # (pol, frame, k1, k2, k3) → natural order k1 + f1·k2 + f1·f2·k3.
+        zr = zr.permute(0, 1, 4, 3, 2).reshape(npol, nframes, f1 * m)
+        zi = zi.permute(0, 1, 4, 3, 2).reshape(npol, nframes, f1 * m)
+        out[:, :, c] = tdet.detect_stokes_planar(zr, zi, stokes).transpose(0, 1)
+    return out
+
+
 def phase_kernels(torch, dev):
     """(c): every kernel variant against its plain twin at the chunk
     shape.  Returns the main-path variants' records."""
     from blit_torch.ops import channelize as tch
     from blit_torch.ops import detect as tdet
     from blit_torch.ops import dft as tdft
-    from blit_torch.ops import pfb as tpfb
 
     ntime = (CHUNK_FRAMES + NTAP - 1) * NFFT
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -427,26 +493,11 @@ def phase_kernels(torch, dev):
     records = []
     spectra = {}
     for dtype in ("float32", "bfloat16"):
-        got = tpfb.pfb_dft1(v, h, *mats, dtype=dtype)
-        want = tpfb.pfb_dft1_plain(v, h, *mats, dtype=dtype)
-        err, atol, ok = check_bound(torch, got, want, "pfb_dft1", dtype)
-        agg = {}
-        if dtype == "bfloat16":
-            # Control: the f32 twin rounded only at its store.
-            control = [x.to(torch.bfloat16)
-                       for x in tpfb.pfb_dft1_plain(v, h, *mats)]
-            agg = bf16_aggregate(torch, got, want, control)
-            del control
-        del want
-        ms = median_ms(torch, lambda: tpfb.pfb_dft1(v, h, *mats, dtype=dtype))
-        plain_ms = median_ms(torch, lambda: tpfb.pfb_dft1_plain(v, h, *mats, dtype=dtype),
-                             runs=5)
-        records.append(kernel_record(
-            "pfb_dft1", dtype, "blit_torch/csrc/pfb_dft1.cu",
-            "blit/ops/pallas_pfb.py:175", err, atol,
-            ok and agg.get("rel_rms_ok", True), ms, plain_ms,
-            pfb_cost(NCHAN, ntime, CHUNK_FRAMES, f1, dtype), None, **agg))
+        got, rec = pfb_record(torch, v, h, mats, dtype, NFFT, CHUNK_FRAMES,
+                              "0000")
+        records.append(rec)
         spectra[dtype] = got
+    del v
     for dtype in ("float32", "bfloat16"):
         ur, ui = spectra[dtype]
         for stokes in ("I", "IQUV"):
@@ -459,8 +510,9 @@ def phase_kernels(torch, dev):
                 # Control: the twin in f32 on the same bf16 input.
                 control = tdet.tail2_detect_plain(ur.float(), ui.float(), f2,
                                                   f3, stokes=stokes)
-                agg = bf16_aggregate(torch, [got], [want], [control])
-                del control
+                ref = tail2_fft_reference(torch, ur, ui, f2, f3, stokes)
+                agg = bf16_fft_aggregate(torch, [got], [want], [ref], [control])
+                del control, ref
             del got, want
             ms = median_ms(torch, lambda: tdet.tail2_detect(ur, ui, f2, f3, stokes=stokes))
             plain_ms = median_ms(
@@ -472,12 +524,66 @@ def phase_kernels(torch, dev):
                 ok and agg.get("rel_rms_ok", True), ms, plain_ms,
                 tail_cost(NCHAN, CHUNK_FRAMES, f2, f3, stokes, dtype, nif), None,
                 stokes=stokes, **agg))
-    del spectra, v
+    del spectra
+    torch.cuda.empty_cache()
+
+    # pfb_dft1 at 6144's first factor, n1 = 64 (m = 96), on the 6144 path's
+    # chunk shape ((f)); the kernels line keeps the 0000 record.
+    n1, m = tdft.default_factors(NFFT_6144)
+    ntime = (FRAMES_6144 + NTAP - 1) * NFFT_6144
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    v = torch.randint(-128, 128, (NCHAN, ntime, 2, 2), generator=g,
+                      device=dev, dtype=torch.int8)
+    sign = torch.where(torch.arange(NFFT_6144, device=dev) % 2 == 0, 1.0, -1.0)
+    h = (torch.from_numpy(tch.pfb_coeffs(NTAP, NFFT_6144)).to(dev)
+         * sign).contiguous()
+    mats = tdft.as_tensors(tdft.dft_matrices(n1) + tdft.twiddles(n1, m), dev)
+    for dtype in ("float32", "bfloat16"):
+        got, rec = pfb_record(torch, v, h, mats, dtype, NFFT_6144,
+                              FRAMES_6144, "6144", line=False)
+        records.append(rec)
+        del got
+    del v
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return records
+
+
+def pfb_record(torch, v, h, mats, dtype, nfft, nframes, product, **extra):
+    """pfb_dft1 on int8 voltages against its twin in ``dtype`` (bf16 also
+    in relative rms, :func:`bf16_fft_aggregate`), timed beside the twin.
+    Returns (the kernel's spectra, the record)."""
+    from blit_torch.ops import pfb as tpfb
+
+    got = tpfb.pfb_dft1(v, h, *mats, dtype=dtype)
+    want = tpfb.pfb_dft1_plain(v, h, *mats, dtype=dtype)
+    err, atol, ok = check_bound(torch, got, want, "pfb_dft1", dtype)
+    agg = {}
+    if dtype == "bfloat16":
+        # Control: the f32 twin rounded only at its store.
+        control = [x.to(torch.bfloat16) for x in tpfb.pfb_dft1_plain(v, h, *mats)]
+        ref = pfb_fft_reference(torch, v, h, mats)
+        agg = bf16_fft_aggregate(torch, got, want, ref, control)
+        del control, ref
+    del want
+    torch.cuda.empty_cache()
+    ms = median_ms(torch, lambda: tpfb.pfb_dft1(v, h, *mats, dtype=dtype))
+    plain_ms = median_ms(torch, lambda: tpfb.pfb_dft1_plain(v, h, *mats, dtype=dtype),
+                         runs=5)
+    torch.cuda.empty_cache()
+    n1 = mats[0].shape[0]
+    geo = tpfb.kernel_geometry(n1, h.shape[0])
+    rec = kernel_record(
+        "pfb_dft1", dtype, "blit_torch/csrc/pfb_dft1.cu",
+        "blit/ops/pallas_pfb.py:175", err, atol,
+        ok and agg.get("rel_rms_ok", True), ms, plain_ms,
+        pfb_cost(v.shape[0], v.shape[1], nframes, n1, dtype, nfft), None,
+        product=product, n1=n1, m=nfft // n1, plan=list(geo["plan"]),
+        tc=geo["tc"], fg=geo["fg"], nstage=geo["nstage"], smem=geo["smem"],
+        **agg, **extra)
+    return got, rec
 
 
 def kernel_record(name, dtype, source, replaces, err, atol, ok, ms, plain_ms,
@@ -666,8 +772,7 @@ EXPECTED = {
     "0002": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
     "0001": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
     "2^21": (_plan("fused1", "dft_tail2"), ("pfb_dft1", "dft_tail2")),
-    "6144": (_plan("pallas", "dft_stage+dft_last"),
-             ("pfb_dequant", "dft_stage", "dft_last")),
+    "6144": (_plan("fused1", "dft_last"), ("pfb_dft1", "dft_last")),
     "search": (_plan("pallas", "dft_last"),
                ("pfb_dequant", "dft_last", "taylor_tree")),
     "hi-res search": (_plan("fused1", "tail2_detect", "tail2_detect"),
@@ -1035,11 +1140,12 @@ def phase_2pow21(torch, dev):
 
 
 def phase_6144(torch, dev):
-    """(f): the non-power-of-two path, nfft 6144 = 64·96 (pfb_dft1's gate
-    refuses n1 = 64): pfb_dequant, dft_stage (64 points + twiddle) and
-    dft_last (96 points), each level against its twin at the path's
-    shape, then the path through channelize.  Returns (launch counts,
-    [dft_stage record, dft_last record])."""
+    """(f): the non-power-of-two path, nfft 6144 = 64·96: dft_stage (64
+    points + twiddle) on pfb_dequant's frames, as route (b) and the
+    design sweep run it, and dft_last (96 points) on its output, each
+    against its twin, then the path through channelize, which runs
+    pfb_dft1 (n1 = 64, held in (c)) and dft_last.  Returns (launch
+    counts, [dft_stage record, dft_last record])."""
     from blit_torch.ops import channelize as tch
     from blit_torch.ops import dft as tdft
     from blit_torch.ops import pfb as tpfb

@@ -182,7 +182,7 @@ def test_small_nfft_products_bf16_within_blit_bound(product):
 
 @pytest.mark.parametrize("nfft,nchan,nint,plan,blit_kw", [
     (1 << 13, 2, 2, ("fused1", "dft_last"), dict(pfb_kernel="fused1")),
-    (6144, 2, 2, ("pallas", "dft_stage+dft_last"), dict(pfb_kernel="pallas")),
+    (6144, 2, 2, ("fused1", "dft_last"), dict(pfb_kernel="fused1")),
     # 2^21: blit's plan on the TPU, pfb_dft1 then dft_tail2 (interpreted).
     (1 << 21, 1, 1, ("fused1", "dft_tail2"),
      dict(pfb_kernel="fused1", tail_kernel="pallas")),

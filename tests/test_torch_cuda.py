@@ -50,12 +50,12 @@ def _close(got, want, rtol, atol_frac):
     assert bool((err <= atol + rtol * want.abs()).all()), err.max().item()
 
 
-def _inputs(dev, nchan=2, nblk=6, seed=0):
+def _inputs(dev, nchan=2, nblk=6, seed=0, nfft=NFFT, n1=128, ntap=4):
     rng = np.random.default_rng(seed)
-    v = rng.integers(-128, 128, (nchan, nblk * NFFT, 2, 2), np.int8)
-    sign = np.where(np.arange(NFFT) % 2 == 0, 1.0, -1.0).astype(np.float32)
-    h = tch.pfb_coeffs(4, NFFT) * sign
-    mats = tdft.dft_matrices(128) + tdft.twiddles(128, NFFT // 128)
+    v = rng.integers(-128, 128, (nchan, nblk * nfft, 2, 2), np.int8)
+    sign = np.where(np.arange(nfft) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    h = tch.pfb_coeffs(ntap, nfft) * sign
+    mats = tdft.dft_matrices(n1) + tdft.twiddles(n1, nfft // n1)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in (v, h) + mats]
 
@@ -68,8 +68,19 @@ def test_kernels_build(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pfb_dft1_matches_plain(dev, dtype):
-    args = _inputs(dev)
+@pytest.mark.parametrize("nfft,n1,nblk,ntap", [
+    (NFFT, 128, 6, 4), (128 * 100, 128, 6, 4), (6144, 64, 9, 4),
+    (64 * 100, 64, 6, 4), (12288, 96, 6, 4), (96 * 100, 96, 6, 4),
+    (49152, 192, 6, 4), (192 * 100, 192, 6, 4), (6 * 1367, 6, 6, 4),
+    (8192, 128, 6, 3), (6144, 64, 4, 1)],
+    ids=["2^20", "128-ragged", "6144", "64-ragged", "12288", "96-ragged",
+         "49152", "192-ragged", "6-odd-m", "3-taps", "1-tap"])
+def test_pfb_dft1_matches_plain(dev, dtype, nfft, n1, nblk, ntap):
+    # m = 100 leaves a ragged last column tile; 9 blocks make 6 frames, a
+    # group of 4 and one of 2; m = 1367 is odd (4-byte copies); other tap
+    # counts than 4 take the FIR whose taps are read at run time.
+    args = _inputs(dev, nblk=nblk, nfft=nfft, n1=n1, ntap=ntap)
+    assert tpfb.fits(nfft, n1, ntap=ntap)
     n0 = tpfb.pfb_dft1.launches
     got = tpfb.pfb_dft1(*args, dtype=dtype)
     torch.cuda.synchronize()
@@ -80,15 +91,18 @@ def test_pfb_dft1_matches_plain(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f1", [8, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("stokes", ["I", "XX", "YY", "XXYY", "full", "IQUV"])
-def test_tail2_detect_matches_plain(dev, stokes, dtype):
+def test_tail2_detect_matches_plain(dev, stokes, dtype, f1):
     g = torch.Generator(device=dev).manual_seed(1)
-    shape = (2, 2, 3, 128, 128 * 64)
+    shape = (2, 2, 3, f1, 128 * 64)
     ur = torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
     ui = torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
+    n0 = tdet.tail2_detect.launches
     got = tdet.tail2_detect(ur, ui, 128, 64, stokes=stokes)
     torch.cuda.synchronize()
+    assert tdet.tail2_detect.launches == n0 + 1
     want = tdet.tail2_detect_plain(ur, ui, 128, 64, stokes=stokes)
     rtol, atol = (1e-5, 1e-4) if dtype == "float32" else BOUNDS[dtype]
     _close(got, want, rtol, atol)
@@ -320,8 +334,8 @@ def test_dft_stage_columns_do_not_depend_on_the_call(dev, n, m, dtype):
     (8, 128, 4, ("pallas", "dft_last")),
     (1024, 16, 4, ("pallas", "dft_last")),
     (1 << 13, 1, 2, ("fused1", "dft_last")),
-    (6144, 2, 2, ("pallas", "dft_stage+dft_last")),
-    (4098, 1, 1, ("pallas", "dft_stage+dft_last")),
+    (6144, 2, 2, ("fused1", "dft_last")),
+    (4098, 1, 1, ("fused1", "dft_last")),
     (1 << 21, 1, 1, ("fused1", "dft_tail2")),
     (1 << 24, 1, 1, ("fused1", "dft_stage+dft_last")),
 ], ids=["0001", "nfft1024", "2^13", "6144", "4098", "2^21", "2^24"])
@@ -398,6 +412,37 @@ def test_dedoppler_hits_on_the_card_match_the_cpu(dev, nbands, max_drift):
         assert np.array_equal(a, b)
     assert np.array_equal(g[1], w[1])  # power: the same cells of equal trees
     np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hires_search_window_matches_the_plain_run(dev, tmp_path):
+    # One hi-res window (8 spectra of nfft 2^20, 2 coarse channels) through
+    # pfb_dft1 + tail2_detect + taylor_tree on the card and through the
+    # plain twins and tree on the CPU: the same hit cells in the same
+    # order, SNR and power within rtol 1e-4 (chip_smoke.py (h)'s check).
+    from blit_torch import testing as ttesting
+    from blit_torch.search import DedopplerReducer
+
+    T, nfft = 8, NFFT
+    raw = str(tmp_path / "hires.raw")
+    ttesting.synth_raw(raw, nblocks=2, obsnchan=2,
+                       ntime_per_block=(T + 3) * nfft // 2, seed=3,
+                       tone_chan=1, tone_amp=30.0)
+    kw = dict(nfft=nfft, window_spectra=T, chunk_frames=4, top_k=4,
+              snr_threshold=6.0)
+    counts = [tpfb.pfb_dft1.launches, tdet.tail2_detect.launches]
+    _, hits = DedopplerReducer(device=dev, **kw).search(raw)
+    assert tch.last_kernel_plan()["tail_kernel"] == "tail2_detect"
+    assert tpfb.pfb_dft1.launches > counts[0]
+    assert tdet.tail2_detect.launches > counts[1]
+    _, ref = DedopplerReducer(device="cpu", **kw).search(raw)
+    assert hits and max(hits, key=lambda h: h.snr).band == 1
+    cells = [(h.window, h.drift_bins, h.chan, h.band) for h in hits]
+    assert cells == [(h.window, h.drift_bins, h.chan, h.band) for h in ref]
+    np.testing.assert_allclose([h.snr for h in hits], [h.snr for h in ref],
+                               rtol=1e-4)
+    np.testing.assert_allclose([h.power for h in hits],
+                               [h.power for h in ref], rtol=1e-4)
 
 
 # -- the antenna-array plane: fused_beamform_detect and xengine_packed -------

@@ -479,11 +479,21 @@ def test_knob_table_2pow20_matches_blit(tail, detect):
 
 def test_explicit_kernels_the_hopper_gates_refuse_raise():
     # 2^28 has four factors: pfb_dft1's gate passes, detect_untwist_i's
-    # refuses.  6144 = 64·96: pfb_dft1's gate refuses n1 = 64.
+    # refuses.  6144 = 64·96: pfb_dft1's gate takes n1 = 64, as blit's
+    # fused1_fits does; it refuses one pol, and fused1 refuses the twisted
+    # order.  An n1 whose tile does not fit in shared memory (a window of
+    # 64 taps at 2^20) raises naming the gate.
     with pytest.raises(ValueError, match="detect_kernel.*untwist_fits"):
         tch._resolve_plan(1 << 28, 2, "I", detect_kernel="pallas")
+    rec = tch._resolve_plan(6144, 2, "I", pfb_kernel="fused1")[2]
+    assert (rec["pfb_kernel"], rec["tail_kernel"]) == ("fused1", "dft_last")
+    with pytest.raises(ValueError, match="pfb_kernel.*npol=2"):
+        tch._resolve_plan(6144, 1, "I", pfb_kernel="fused1")
+    with pytest.raises(ValueError, match="pfb_kernel.*twisted"):
+        tch._resolve_plan(6144, 2, "I", pfb_kernel="fused1",
+                          dft_order="twisted")
     with pytest.raises(ValueError, match="pfb_kernel.*pfb.fits"):
-        tch._resolve_plan(6144, 2, "I", pfb_kernel="fused1")
+        tch._resolve_plan(1 << 20, 2, "I", ntap=64, pfb_kernel="fused1")
     with pytest.raises(ValueError, match="fft method"):
         tch._resolve_plan(1024, 2, "I", fft_method="bluestein")
     route, _, rec = tch._resolve_plan(1024, 1, "I")

@@ -55,7 +55,8 @@ def _assert_close(got, want, rtol, atol_frac):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nfft,n1", [(512, 16), (8192, 128)])
+@pytest.mark.parametrize("nfft,n1", [(512, 16), (8192, 128), (6144, 64),
+                                     (12288, 96)])
 def test_pfb_dft1_plain_matches_pallas(nfft, n1, dtype):
     v, h, mats = _pfb_inputs(nfft, n1)
     want = pallas_pfb.pfb_dft1(jnp.asarray(v), jnp.asarray(h),
@@ -172,7 +173,10 @@ def test_dft_matrix_is_a_table_of_its_first_row():
 
 def test_hopper_fit_gates():
     assert tpfb.fits(1 << 20, 128)
-    assert not tpfb.fits(8192, 64)
+    # Any n1 whose tile fits shared memory (8192 = 64·128 too), but one
+    # that divides nfft, and two pols.
+    assert not tpfb.fits(8192, 96)
+    assert not tpfb.fits(1 << 20, 1024)  # the tile of n1 = 1024 does not fit
     assert not tpfb.fits(1 << 20, 128, npol=1)
     for stokes in ("I", "XX", "YY", "XXYY", "full", "IQUV"):
         assert tdet.fits((128, 128, 64), 2, stokes)

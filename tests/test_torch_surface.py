@@ -125,7 +125,7 @@ def test_cuda_plan_refuses_unported_shapes_before_any_copy(monkeypatch, nfft, np
     (1 << 21, ("fused1", "dft_tail2", "torch")),
     (1 << 23, ("fused1", "dft_tail2", "torch")),
     (1 << 24, ("fused1", "dft_stage+dft_last", "torch")),
-    (6144, ("pallas", "dft_stage+dft_last", "torch")),
+    (6144, ("fused1", "dft_last", "torch")),
 ], ids=lambda x: str(x))
 def test_cuda_plan_takes_every_two_pol_nfft(nfft, plan):
     # Every nfft that default_factors splits resolves to a route of
