@@ -12,6 +12,7 @@ in parallel (one ``nvcc`` process each).  A failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
@@ -108,6 +111,23 @@ def load(name: str) -> ctypes.CDLL:
             lib.blit_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+# The current stream's raw handle without building a torch.cuda.Stream (a
+# tenth of the cost of a launch), where this torch has the call.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch_stream(dev: torch.device):
+    """(a context that makes ``dev`` current, the raw handle of its current
+    stream) for a launch: the context is a no-op when ``dev`` already is
+    current."""
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    ctx = contextlib.nullcontext() if idx == cur else torch.cuda.device(idx)
+    if _raw_stream is not None:
+        return ctx, _raw_stream(idx)
+    return ctx, torch.cuda.current_stream(idx).cuda_stream
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -8,13 +8,16 @@ with the voltages over antennas, ``|·|²``, and the sum of ``nint``
 consecutive samples.
 
 On a CUDA tensor :func:`fused_beamform_detect` launches the hand-written
-Hopper kernel of ``blit_torch/csrc/beamform_detect.cu``; on a CPU tensor
-it runs :func:`fused_beamform_detect_plain`.  :func:`fits` is the Hopper
-gate that replaces ``pick_tile``'s TPU VMEM model: the kernel stages 24 KB
-of shared memory whatever the shape, so the gate is about ``nint`` (a
-power of two up to the 128-sample tile, dividing ``ntime``) and the grid's
-limits.  :func:`blit_torch.parallel.beamform.beamform` takes the kernel
-where the gate admits the shape and its matmul route elsewhere.
+Hopper kernel of ``blit_torch/csrc/beamform_detect.cu`` (the complex
+product on the tensor cores: bf16 in one pass, f32 in three tf32 passes);
+on a CPU tensor it runs :func:`fused_beamform_detect_plain`.  :func:`fits`
+is the Hopper gate that replaces ``pick_tile``'s TPU VMEM model: the
+kernel's shared memory (two stage slots of 64 beams x 128 samples) and its
+persistent grid do not depend on the shape, so the gate is about ``nint``
+(a power of two up to the 128-sample tile, dividing ``ntime``), with the
+channel and (beam tile, pol) limits it has always had.
+:func:`blit_torch.parallel.beamform.beamform` takes the kernel where the
+gate admits the shape and its matmul route elsewhere.
 """
 
 from __future__ import annotations
@@ -39,9 +42,9 @@ def fits(nant: int, nbeam: int, npol: int, ntime: int, nint: int,
          itemsize: int = 4, nchan: int = 1) -> bool:
     """Whether the Hopper kernel takes this shape: f32 or bf16 operands,
     ``nint`` a power of two up to :data:`MAX_NINT` dividing ``ntime``, and
-    the channel and (beam tile, pol) grid axes inside CUDA's limit.  Shared
-    memory is fixed (antennas are staged 16 at a time), so nant and nbeam
-    are free."""
+    the channel and (beam tile, pol) counts inside 65535.  Shared memory
+    is fixed (antennas are staged 32 or 64 at a time, beams 64 at a time),
+    so nant and nbeam are free."""
     return (itemsize in (2, 4) and min(nant, nbeam, npol, ntime, nchan) >= 1
             and 1 <= nint <= MAX_NINT and nint & (nint - 1) == 0
             and ntime % nint == 0 and nchan <= _GRID_YZ_MAX
@@ -89,11 +92,10 @@ def fused_beamform_detect(vr: torch.Tensor, vi: torch.Tensor,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"fused_beamform_detect: inputs must be contiguous "
                              f"on {dev}")
-    out = torch.empty((nchan, nbeam, npol, ntime // nint), dtype=torch.float32,
-                      device=dev)
+    out = vr.new_empty((nchan, nbeam, npol, ntime // nint), dtype=torch.float32)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = kernels.launch_stream(dev)
+    with ctx:
         rc = lib.beamform_detect_launch(
             vr.data_ptr(), vi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
             out.data_ptr(), nchan, nant, nbeam, npol, ntime, nint,

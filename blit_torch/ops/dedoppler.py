@@ -14,8 +14,8 @@ Counterpart of ``blit/ops/pallas_dedoppler.py``, with its conventions:
 
 On a CUDA tensor :func:`taylor_tree` and :func:`drift_spectra` launch the
 hand-written Hopper kernel ``blit_torch/csrc/taylor_tree.cu`` (both signs
-in one launch per stage); on a CPU tensor they run the plain version
-:func:`taylor_tree_plain`.  All of them do the same single f32 add per
+in each launch; :func:`kernel_route` states the launches); on a CPU tensor
+they run the plain version :func:`taylor_tree_plain`.  All of them do the same single f32 add per
 element per stage in the same order as ``blit``'s reference, so the three
 agree bitwise.  The rest of :func:`dedoppler_hits` (SNR, threshold,
 per-band top-k, packing) is torch ops, as ``blit`` leaves it to XLA.
@@ -38,8 +38,10 @@ MAX_WINDOW = 1024
 # [snr_bits(f32), power_bits(f32), drift_bins(i32), chan(i32)].
 HIT_PACK_COLS = 4
 
-# csrc/taylor_tree.cu runs every stage of a window up to 2^6 rows in
-# shared memory; :func:`kernel_route` states the routes that follow.
+# csrc/taylor_tree.cu runs up to 2^3 rows as one subtree in registers,
+# up to 2^6 through one shared-memory tile, and each further three stages
+# as one global pass; :func:`kernel_route` states the routes that follow.
+KERNEL_REG_LOG = 3
 KERNEL_SMEM_LOG = 6
 
 
@@ -68,17 +70,20 @@ def _check_window(T: int) -> None:
 
 def kernel_route(T: int) -> Tuple[str, int]:
     """The Hopper kernel's route for window ``T`` and the launches a call
-    should make: ``("shared", 1)`` when every stage fits a block's shared
-    memory (T <= 64), else ``("shared+passes", 1 + log2(T) - 6)``: the
-    first six stages in shared memory, one global pass for each of the
-    rest.  The wrapper counts what the kernel reports it launched; tests
-    and the smoke hold that count to this one.  A window outside 2..1024
-    raises."""
+    should make: ``("registers", 1)`` for T <= 8 (one subtree a thread),
+    ``("shared", 1)`` for T <= 64 (three stages in registers into a
+    shared-memory tile, the rest from it), else ``("shared+passes", 1 +
+    ceil((log2(T) - 6) / 3))``: the shared route on each 64-row group,
+    then one global pass per three further stages.  The wrapper counts
+    what the kernel reports it launched; tests and the smoke hold that
+    count to this one.  A window outside 2..1024 raises."""
     _check_window(T)
     log = T.bit_length() - 1
+    if log <= KERNEL_REG_LOG:
+        return "registers", 1
     if log <= KERNEL_SMEM_LOG:
         return "shared", 1
-    return "shared+passes", 1 + log - KERNEL_SMEM_LOG
+    return "shared+passes", 1 + -(-(log - KERNEL_SMEM_LOG) // KERNEL_REG_LOG)
 
 
 def taylor_tree(power: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,8 @@ def taylor_tree(power: torch.Tensor) -> torch.Tensor:
     f32 path sums for drifts 0..T-1 (module docstring)."""
     T = power.shape[0]
     _check_window(T)
-    power = power.to(torch.float32)
+    if power.dtype != torch.float32:
+        power = power.to(torch.float32)
     if power.device.type == "cpu":
         return taylor_tree_plain(power)
     return _tree_cuda(power, both=False)
@@ -101,7 +107,8 @@ def drift_spectra(power: torch.Tensor) -> torch.Tensor:
     lower channel index).  Drift 0 appears once."""
     T = power.shape[0]
     _check_window(T)
-    power = power.to(torch.float32)
+    if power.dtype != torch.float32:
+        power = power.to(torch.float32)
     if power.device.type == "cpu":
         return drift_spectra_plain(power)
     return _tree_cuda(power, both=True)
@@ -154,24 +161,24 @@ def _lib() -> ctypes.CDLL:
 def _tree_cuda(power: torch.Tensor, both: bool) -> torch.Tensor:
     """Launch the Hopper kernel: ``(T, F)`` → ``(T, F)`` (positive
     drifts) or ``(2T-1, F)`` (both signs)."""
-    if power.device.type != "cuda":
-        raise ValueError(f"taylor_tree: unsupported device {power.device}")
+    dev = power.device
+    if dev.type != "cuda":
+        raise ValueError(f"taylor_tree: unsupported device {dev}")
     if power.ndim != 2 or power.shape[1] < 1:
         raise ValueError("taylor_tree: (T, F) power with F >= 1 required")
     if not power.is_contiguous():
         raise ValueError("taylor_tree: power must be contiguous")
     T, F = power.shape
-    route, _ = kernel_route(T)
-    dev = power.device
+    _, launches = kernel_route(T)
     nsign = 2 if both else 1
-    out = torch.empty(((2 * T - 1) if both else T, F), dtype=torch.float32,
-                      device=dev)
-    scratch = (torch.empty((2, nsign, T, F), dtype=torch.float32, device=dev)
-               if route != "shared" else None)
+    out = power.new_empty(((2 * T - 1) if both else T, F))
+    # One scratch plane set per launch but the last, rows padded to 16 bytes.
+    scratch = (power.new_empty((launches - 1, nsign, T, -(-F // 4) * 4))
+               if launches > 1 else None)
     lib = _lib()
     launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = kernels.launch_stream(dev)
+    with ctx:
         rc = lib.taylor_tree_launch(
             power.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), T, F, int(both),

@@ -366,11 +366,12 @@ def test_channelize_new_plans_run_the_kernels(dev, nfft, nint, nchan, plan,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [257, 70001])
+@pytest.mark.parametrize("F", [3, 257, 4100, 70001])
 @pytest.mark.parametrize("T", [1 << k for k in range(1, 11)])
 def test_taylor_tree_bitwise_equal_to_plain(dev, T, F):
-    # Every window blit allows, on both kernel routes, at a width that is
-    # a multiple of no tile; both signs through drift_spectra.
+    # Every window blit allows, on every kernel route, at widths that are
+    # a multiple of no tile (odd: 4-byte loads; 4100: 16-byte loads and a
+    # ragged last tile); both signs through drift_spectra.
     rng = np.random.default_rng(T + F)
     x = torch.from_numpy(rng.normal(50.0, 5.0, (T, F)).astype(np.float32)).to(dev)
     launches = tpd.kernel_route(T)[1]
@@ -450,9 +451,13 @@ def test_hires_search_window_matches_the_plain_run(dev, tmp_path):
 # (tests/test_pallas_beamform.py:43-46), the X-engine rtol 1e-4 / atol 1e-3
 # on unit-variance spectra (tests/test_pallas_xengine.py:40-43).
 
-def _beam_case(dev, nchan, nant, nbeam, npol, ntime, dtype, seed=0):
+def _beam_case(dev, nchan, nant, nbeam, npol, ntime, dtype, seed=0,
+               integer=True):
+    # Integer voltages as RAW holds them (exact in tf32: the f32 kernel
+    # skips their low pass), or not (all three passes).
     rng = np.random.default_rng(seed)
-    v = rng.integers(-40, 41, (2, nchan, nant, npol, ntime)).astype(np.float32)
+    v = (rng.integers(-40, 41, (2, nchan, nant, npol, ntime)) if integer else
+         rng.standard_normal((2, nchan, nant, npol, ntime)) * 20).astype(np.float32)
     w = rng.standard_normal((2, nchan, nbeam, nant)).astype(np.float32)
     vr, vi = (torch.from_numpy(x).to(dev, dtype) for x in v)
     wr, wi = (torch.from_numpy(x).to(dev, dtype) for x in w)
@@ -496,6 +501,31 @@ def test_fused_beamform_detect_windows_equal_one_shot_bitwise(dev, nint):
                                        vi[..., t:t + 1024].contiguous(), wr, wi,
                                        nint=nint) for t in range(0, 4096, 1024)]
     assert torch.equal(whole, torch.cat(parts, dim=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nbeam", [1, 3, 17, 65, 130])
+@pytest.mark.parametrize("nant", [1, 3, 17, 65, 130])
+def test_fused_beamform_detect_pads_every_nint(dev, nant, nbeam, dtype):
+    # Antennas and beams off the MMA tiles (zero-padded to them), every
+    # nint the gate admits, integer voltages or not; four windows bitwise
+    # equal to the one-shot call.
+    from blit_torch.ops import beamform as tbf
+
+    vr, vi, wr, wi = _beam_case(dev, 2, nant, nbeam, 2, 1024, dtype,
+                                seed=nant * 131 + nbeam,
+                                integer=(nant + nbeam) % 2 == 0)
+    for nint in [1 << k for k in range(8)]:
+        whole = tbf.fused_beamform_detect(vr, vi, wr, wi, nint=nint)
+        _close(whole, tbf.fused_beamform_detect_plain(vr, vi, wr, wi, nint=nint),
+               1e-4, 1e-3)
+        parts = [tbf.fused_beamform_detect(vr[..., t:t + 256].contiguous(),
+                                           vi[..., t:t + 256].contiguous(), wr,
+                                           wi, nint=nint)
+                 for t in range(0, 1024, 256)]
+        assert torch.equal(whole, torch.cat(parts, dim=-1)), nint
 
 
 @pytest.mark.cuda

@@ -111,12 +111,15 @@ def test_window_validation(Tw):
 
 def test_kernel_route_takes_every_window():
     # No window from 2 to 1024 falls back to the plain version on the
-    # card: T <= 64 in one shared-memory launch, larger T with one global
-    # pass per stage past the sixth.
+    # card: T <= 8 in one launch of register subtrees, T <= 64 in one
+    # launch through a shared-memory tile, larger T with one global pass
+    # per three stages past the sixth (T = 1024: two).
+    want = {1: ("registers", 1), 2: ("registers", 1), 3: ("registers", 1),
+            4: ("shared", 1), 5: ("shared", 1), 6: ("shared", 1),
+            7: ("shared+passes", 2), 8: ("shared+passes", 2),
+            9: ("shared+passes", 2), 10: ("shared+passes", 3)}
     for k in range(1, 11):
-        route, launches = tpd.kernel_route(1 << k)
-        assert (route, launches) == (("shared", 1) if k <= 6
-                                     else ("shared+passes", k - 5))
+        assert tpd.kernel_route(1 << k) == want[k]
 
 
 # -- hit extraction ---------------------------------------------------------

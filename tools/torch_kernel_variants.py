@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Time variants of the port's 0000 kernels, pfb_dft1 and tail2_detect, on
-one CUDA GPU: each variant is a copy of ``blit_torch/csrc`` with text
-substitutions (or a whole file replaced), built with the package's own
-nvcc flags, and optionally another tile for pfb_dft1; each is checked
-against the plain twins on 4 channels and timed (CUDA-event median of 7
-runs) at the 0000 chunk: 64 coarse channels, nfft 2^20, 4 frames, f32,
-Stokes I and IQUV.
+"""Time variants of the port's kernels on one CUDA GPU: each variant is a
+copy of ``blit_torch/csrc`` with text substitutions (or a whole file
+replaced), built with the package's own nvcc flags.  Two groups:
 
-    python3 tools/torch_kernel_variants.py tools/torch_kernel_variants.json
+- ``0000`` (the default): pfb_dft1 and tail2_detect, optionally with
+  another tile for pfb_dft1; each checked against the plain twins on 4
+  channels and timed (CUDA-event median of 7 runs) at the 0000 chunk: 64
+  coarse channels, nfft 2^20, 4 frames, f32, Stokes I and IQUV.
+- ``tree_beam`` (and any group named ``tree_beam...``): taylor_tree
+  (both signs, held bitwise to its plain
+  version where that fits in memory) at the smoke's windows (64, 65536),
+  (8, 2^26), (16, 2^26) and (1024, 65536), and fused_beamform_detect at the
+  array scale (64 channels, 64 antennas, 64 beams, 2 pols, 8192 samples,
+  nint 8) in f32 on integer voltages (as RAW holds them), f32 on
+  non-integer voltages and bf16, held to its plain version; each timed as
+  one call (CUDA-event median of 7, as chip_smoke.py times it) and per
+  call over back-to-back calls (the host's cost of a call overlapping the
+  card's work).  The variants build in parallel.
 
-The JSON file lists ``[name, {source: [[old, new], ...] | path}, tile]``
-entries (``tile``: ``{"fg": .., "tc": .., "nstage": ..}`` or null).  A
-variant that skips work (no FFT, no store) measures what the rest costs;
-its error is printed, not checked.  Prints the card's name and power limit,
-each build's register and shared-memory report, and one JSON line a
-variant.  Builds go under ``build/kernel_variants/`` (git-ignored).
+    python3 tools/torch_kernel_variants.py tools/torch_kernel_variants.json [0000|tree_beam]
+
+The JSON file maps each group to ``[name, {source: [[old, new], ...] |
+path}, tile]`` entries (``tile``: ``{"fg": .., "tc": .., "nstage": ..}``
+or null; pfb_dft1 only).  A variant that skips work (no FFT, no store, no
+MMA) measures what the rest costs; its error is printed, not checked.
+Prints the card's name and power limit, each build's register and
+shared-memory report, and one JSON line a variant.  Builds go under
+``build/kernel_variants/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -82,7 +94,7 @@ def make_variant(name, subs):
     return d
 
 
-def main(path) -> int:
+def main(path, group="0000") -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: needs a CUDA device", file=sys.stderr)
         return 2
@@ -91,6 +103,87 @@ def main(path) -> int:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    entries = json.load(open(path))[group]
+    if group.startswith("tree_beam"):
+        return tree_beam(entries, dev)
+    return pair_0000(entries, dev)
+
+
+def use_variant(name, subs=None):
+    """Point the kernel loader at variant ``name`` (made when ``subs`` is
+    given)."""
+    kernels.CSRC = make_variant(name, subs) if subs is not None else os.path.abspath(
+        os.path.join(ROOT, name, "csrc"))
+    kernels.BUILD_DIR = os.path.join(os.path.dirname(kernels.CSRC), "build")
+    kernels._LIBS.clear()
+
+
+def build_variants(entries, sources):
+    """Make every variant and build its ``sources``, all nvcc at once."""
+    jobs = []
+    for name, subs, _ in entries:
+        use_variant(name, subs)
+        jobs += [(name, src, kernels._start_build(src)) for src in sources]
+    for name, src, job in jobs:
+        if job is None:
+            continue
+        proc, tmp, final = job
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed for {src}.cu:\n{out}")
+        os.replace(tmp, final)
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{name}: {src}: {line.strip()}", flush=True)
+
+
+def per_call_ms(fn, k):
+    """Per-call time of ``k`` back-to-back calls (median of 7 runs)."""
+    return median_ms(lambda: [fn() for _ in range(k)]) / k
+
+
+def tree_beam(entries, dev) -> int:
+    from blit_torch.ops import beamform as tbf
+    from blit_torch.ops import dedoppler as tpd
+
+    build_variants(entries, ["taylor_tree", "beamform_detect"])
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(64, 1 << 16), (8, 1 << 26), (16, 1 << 26), (1024, 1 << 16)]
+    xs = {s: torch.empty(s, device=dev).normal_(50.0, 5.0, generator=g) for s in shapes}
+    want = {s: tpd.drift_spectra_plain(x) for s, x in xs.items() if s[0] * s[1] <= 1 << 22}
+    shape = (64, 64, 2, 8192)
+    v = [torch.randint(-40, 41, shape, generator=g, device=dev).float() for _ in range(2)]
+    vf = [torch.randn(shape, generator=g, device=dev) * 20 for _ in range(2)]
+    w = [torch.randn((64, 64, 64), generator=g, device=dev) for _ in range(2)]
+    cases = {"f32": v + w, "f32 non-integer": vf + w,
+             "bf16": [t.to(torch.bfloat16) for t in v + w]}
+    wantb = {k: tbf.fused_beamform_detect_plain(*a, nint=8) for k, a in cases.items()}
+    for name, _, _ in entries:
+        use_variant(name)
+        rec = {"variant": name}
+        for s, x in xs.items():
+            key = f"tree {s[0]}x{s[1]}"
+            got = tpd.drift_spectra(x)
+            if s in want:
+                rec[key + " bitwise"] = bool(torch.equal(got, want[s]))
+            del got
+            rec[key + " ms"] = median_ms(lambda: tpd.drift_spectra(x))
+            rec[key + " back_to_back_ms"] = per_call_ms(
+                lambda: tpd.drift_spectra(x), 20 if s[0] * s[1] <= 1 << 22 else 3)
+            torch.cuda.empty_cache()
+        for key, args in cases.items():
+            got = tbf.fused_beamform_detect(*args, nint=8)
+            rec[f"beamform {key} rel_err"] = rel_err([got], [wantb[key]])
+            del got
+            fn = lambda: tbf.fused_beamform_detect(*args, nint=8)  # noqa: E731
+            rec[f"beamform {key} ms"] = median_ms(fn)
+            rec[f"beamform {key} back_to_back_ms"] = per_call_ms(fn, 10)
+        torch.cuda.empty_cache()
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+def pair_0000(entries, dev) -> int:
     g = torch.Generator(device=dev).manual_seed(5)
     v = torch.randint(-128, 128, (NCHAN, (FRAMES + NTAP - 1) * NFFT, 2, 2),
                       generator=g, device=dev, dtype=torch.int8)
@@ -102,7 +195,7 @@ def main(path) -> int:
     want_td = {st: tdet.tail2_detect_plain(*spectra, 128, 64, stokes=st)
                for st in ("I", "IQUV")}
     geometry = tpfb.kernel_geometry
-    for name, subs, tile in json.load(open(path)):
+    for name, subs, tile in entries:
         kernels.CSRC = make_variant(name, subs)
         kernels.BUILD_DIR = os.path.join(os.path.dirname(kernels.CSRC), "build")
         kernels._LIBS.clear()
@@ -141,4 +234,4 @@ def main(path) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(*sys.argv[1:3]))
