@@ -29,6 +29,12 @@ recordings → tied-array beam power through an eighth kernel
 (``fused_beamform_detect``) and FX visibilities through the F-engine's
 ``dft_last`` and a ninth (``xengine_packed``), on one card.
 
+The reducer, the search and the array streams run on ``blit``'s
+asynchronous ingest and output plane (:mod:`blit_torch.pipeline`'s
+``BufferRotation``, :mod:`blit_torch.outplane`, :mod:`blit_torch.hostmem`):
+host reads, the device's work, readback and the file write overlap;
+``async_output=False`` runs the synchronous path, byte-identical.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -24,26 +24,25 @@ from blit_torch.pipeline import RawReducer
 
 # Fields the port's reducer takes over as they are.
 _PORTED = ("nfft", "ntap", "nint", "stokes", "window", "fqav_by", "dtype",
-           "chunk_frames")
-# blit fields that change the product's bytes and are not ported yet,
-# with the only value the port reproduces.
-_PRODUCT_FIELDS = {"nbits": 32, "quant_scale": 1.0, "quant_offset": 0.0}
+           "chunk_frames", "nbits", "quant_scale", "quant_offset")
+# Execution knobs taken over where the blit reducer has a value for them
+# (blit leaves prefetch_depth/out_depth None until a tuning profile or its
+# default resolves them).
+_EXECUTION = ("prefetch_depth", "out_depth", "async_output")
 
 
 def reducer_from_reference(fields: Dict, coeffs: np.ndarray, *,
                            device=None) -> RawReducer:
     """A port reducer equivalent to the ``blit`` reducer with ``fields``
     (e.g. ``dataclasses.asdict``-style, or a hand-made dict) whose PFB
-    bank is ``coeffs`` (``np.asarray(red._coeffs)``).  Fields that only
-    steer ``blit``'s execution (prefetch depth, output plane, tuning,
-    FFT method) are ignored; product-changing ones the port cannot
-    reproduce raise."""
-    for name, neutral in _PRODUCT_FIELDS.items():
-        if name in fields and fields[name] != neutral:
-            raise NotImplementedError(
-                f"blit field {name}={fields[name]!r} is not ported yet "
-                f"(the port writes {name}={neutral!r} products)")
+    bank is ``coeffs`` (``np.asarray(red._coeffs)``).  The product
+    fields, quantization included, are taken over; so are
+    ``prefetch_depth``, ``out_depth`` and ``async_output`` where given.
+    Fields that only steer ``blit``'s tuning or its FFT method are
+    ignored."""
     kw = {k: fields[k] for k in _PORTED if k in fields}
+    kw.update({k: fields[k] for k in _EXECUTION
+               if fields.get(k) is not None})
     red = RawReducer(device=device, **kw)
     coeffs = np.asarray(coeffs)
     if coeffs.dtype != np.float32 or coeffs.shape != (red.ntap, red.nfft):

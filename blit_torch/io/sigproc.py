@@ -109,26 +109,39 @@ class FilWriter:
     """Streaming ``.fil`` writer: slabs append to a ``.partial`` sibling
     that is renamed onto ``path`` by :meth:`close`, so a crash never
     leaves a valid-looking truncated product (SIGPROC derives nsamps
-    from file size)."""
+    from file size).  ``dtype`` (float32, uint8 or uint16) sets the
+    header's ``nbits`` and the samples' on-disk form."""
 
-    def __init__(self, path: str, header: Dict, nifs: int, nchans: int):
+    def __init__(self, path: str, header: Dict, nifs: int, nchans: int,
+                 dtype=np.float32):
+        self.dtype = np.dtype(dtype)
+        nbits = next((b for b, t in _DTYPES.items() if np.dtype(t) == self.dtype),
+                     None)
+        if nbits is None:
+            raise ValueError(f"FilWriter: unsupported dtype {self.dtype}")
         self.final_path = path
         self.path = path + ".partial"
         self.nifs = nifs
         self.nchans = nchans
         self.nsamps = 0
         self._f = open(self.path, "wb")
-        self._f.write(encode_header(header, 32, nifs, nchans))
+        self._f.write(encode_header(header, nbits, nifs, nchans))
 
     def append(self, slab: np.ndarray) -> None:
-        """Append f32 ``(k, nifs, nchans)`` spectra."""
+        """Append ``(k, nifs, nchans)`` spectra of the writer's dtype."""
         if slab.ndim != 3 or slab.shape[1:] != (self.nifs, self.nchans):
             raise ValueError(f"append: slab shape {slab.shape} does not "
                              f"extend (*, {self.nifs}, {self.nchans})")
-        if slab.dtype != np.float32:
-            raise ValueError(f"append: slab dtype {slab.dtype} is not float32")
+        if slab.dtype != self.dtype:
+            raise ValueError(f"append: slab dtype {slab.dtype} is not {self.dtype}")
         np.ascontiguousarray(slab).tofile(self._f)
         self.nsamps += slab.shape[0]
+
+    def flush(self) -> None:
+        """Push appended bytes to the OS (the write-behind sink's flush
+        barrier hook)."""
+        if self._f is not None:
+            self._f.flush()
 
     def close(self) -> None:
         if self._f is None:

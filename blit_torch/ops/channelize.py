@@ -61,10 +61,9 @@ from blit_torch.ops.detect import (  # noqa: F401  (re-exported names)
     detect_stokes_planar,
 )
 from blit_torch.ops.dft import (
-    as_tensors,
     default_factors,
-    dft_matrices,
-    twiddles,
+    dft_matrices_on,
+    twiddles_on,
     untwist,
 )
 from blit_torch.ops.fqav import fqav as _fqav
@@ -174,10 +173,7 @@ def fft(z: torch.Tensor, *, method: str) -> torch.Tensor:
     # x[j] with j = n2*j1 + j2 → (n1, n2): rows index j1.
     x = z.reshape(z.shape[:-1] + (n1, n2))
     a = torch.fft.fft(x, dim=-2)
-    k1 = np.arange(n1).reshape(n1, 1)
-    j2 = np.arange(n2).reshape(1, n2)
-    tw = np.exp(-2j * np.pi * (k1 * j2) / n).astype(np.complex64)
-    a = a * torch.from_numpy(tw).to(z.device)
+    a = a * _four_step_twiddle(n1, n2, z.device)
     # X[k1 + n1*k2] = b[k1, k2].
     b = torch.fft.fft(a, dim=-1)
     return b.transpose(-1, -2).reshape(z.shape)
@@ -432,6 +428,26 @@ def channelize_blocked(voltages, coeffs, *, channel_block: int, **kw
     return channelize(voltages, coeffs, channel_block=channel_block, **kw)
 
 
+@functools.lru_cache(maxsize=32)
+def _shift_sign(nfft: int, device: torch.device) -> torch.Tensor:
+    """The fftshift folded into the window, on ``device`` (uploaded once):
+    multiplying frame sample j by (-1)^j rolls the spectrum by nfft/2;
+    nfft is even, so the sign pattern is tap-independent."""
+    return torch.from_numpy(
+        np.where(np.arange(nfft) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    ).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _four_step_twiddle(n1: int, n2: int, device: torch.device) -> torch.Tensor:
+    """The complex64 four-step twiddles ``exp(-2πi k1 j2 / n)`` on
+    ``device`` (uploaded once)."""
+    k1 = np.arange(n1).reshape(n1, 1)
+    j2 = np.arange(n2).reshape(1, n2)
+    tw = np.exp(-2j * np.pi * (k1 * j2) / (n1 * n2)).astype(np.complex64)
+    return torch.from_numpy(tw).to(device)
+
+
 def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
                 fft_method="auto", dtype="float32", fqav_by=1,
                 channel_block=0, dft_order="auto", pfb_kernel="auto",
@@ -461,13 +477,7 @@ def _channelize(voltages, coeffs, *, nfft, ntap=4, nint=1, stokes="I",
         raise ValueError(f"stokes={stokes!r} needs 2 pols, got 1")
     voltages = voltages.to(dev)
     coeffs = coeffs.to(device=dev, dtype=torch.float32)
-    # Fold the fftshift into the window (shift theorem: multiplying frame
-    # sample j by (-1)^j rolls the spectrum by nfft/2; nfft is even, so
-    # the sign pattern is tap-independent).
-    sign = torch.from_numpy(
-        np.where(np.arange(nfft) % 2 == 0, 1.0, -1.0).astype(np.float32)
-    ).to(dev)
-    shifted = (coeffs * sign[None, :]).contiguous()
+    shifted = (coeffs * _shift_sign(nfft, dev)[None, :]).contiguous()
 
     _LAST_PLAN.clear()
     _LAST_PLAN.update(plan)
@@ -520,7 +530,7 @@ def _detect_integrate(sr, si, nint, stokes) -> torch.Tensor:
 def _stage1(v, shifted, factors, dtype, twins):
     f1 = factors[0]
     nfft = shifted.shape[1]
-    mats = as_tensors(dft_matrices(f1) + twiddles(f1, nfft // f1), v.device)
+    mats = dft_matrices_on(f1, v.device) + twiddles_on(f1, nfft // f1, v.device)
     dft1 = pfb_mod.pfb_dft1_plain if twins else pfb_mod.pfb_dft1
     return dft1(v, shifted, *mats, dtype=dtype)
 

@@ -24,6 +24,7 @@ per-band top-k, packing) is torch ops, as ``blit`` leaves it to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -240,6 +241,13 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals, torch.gather(idx, 1, order)
 
 
+@functools.lru_cache(maxsize=32)
+def _drift_mask(T: int, max_drift_bins: int, device: torch.device) -> torch.Tensor:
+    """The drift rows beyond ``max_drift_bins``, on ``device`` (uploaded
+    once, not with every window)."""
+    return torch.from_numpy(np.abs(drift_rates(T)) > max_drift_bins).to(device)
+
+
 def dedoppler_hits(
     power: torch.Tensor,
     snr_threshold: float,
@@ -265,8 +273,8 @@ def dedoppler_hits(
     snr = snr_normalize(dd)  # (D, F), D = 2T-1
     D = 2 * T - 1
     if max_drift_bins is not None:
-        drop = torch.from_numpy(np.abs(drift_rates(T)) > max_drift_bins)
-        snr.masked_fill_(drop.to(snr.device)[:, None], -torch.inf)
+        snr.masked_fill_(_drift_mask(T, max_drift_bins, snr.device)[:, None],
+                         -torch.inf)
     Fb = F // nbands
     # (D, nbands, Fb) → (nbands, D·Fb): top-k over every (drift, chan)
     # cell of each band.  Indices stay int64 until the pack.

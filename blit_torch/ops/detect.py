@@ -26,10 +26,9 @@ import torch
 
 from blit_torch import kernels
 from blit_torch.ops.dft import (
-    as_tensors,
-    dft_matrices,
+    dft_matrices_on,
     dft_tail,
-    twiddles,
+    twiddles_on,
     untwist,
 )
 from blit_torch.ops.pfb import HOPPER_SMEM_MAX
@@ -162,9 +161,9 @@ def _tail2_detect_cuda(ur, ui, f2, f3, stokes):
     if ur.data_ptr() % 16 or ui.data_ptr() % 16:
         raise ValueError("tail2_detect: misaligned input")
     nif = STOKES_NIF[stokes]
-    w2r, w2i = as_tensors(dft_matrices(f2), dev)
-    w3r, w3i = as_tensors(dft_matrices(f3), dev)
-    t2r, t2i = as_tensors(twiddles(f2, f3), dev)
+    w2r, w2i = dft_matrices_on(f2, dev)
+    w3r, w3i = dft_matrices_on(f3, dev)
+    t2r, t2i = twiddles_on(f2, f3, dev)
     out = torch.empty((nframes, nif, nchan, f1 * m), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:

@@ -111,6 +111,21 @@ def as_tensors(arrays, device) -> Tuple[torch.Tensor, ...]:
                  for a in arrays)
 
 
+# The DFT matrices and twiddles on each device, uploaded once: a copy
+# from pageable numpy memory stalls the dispatching thread, so constants
+# must not be sent again with every call.  Callers never write to them.
+@functools.lru_cache(maxsize=32)
+def dft_matrices_on(n: int, device: torch.device) -> Planar:
+    """:func:`dft_matrices` ``(n)`` as f32 tensors on ``device``."""
+    return as_tensors(dft_matrices(n), device)
+
+
+@functools.lru_cache(maxsize=32)
+def twiddles_on(n1: int, n2: int, device: torch.device) -> Planar:
+    """:func:`twiddles` ``(n1, n2)`` as f32 tensors on ``device``."""
+    return as_tensors(twiddles(n1, n2), device)
+
+
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """Round f32 values to bf16 precision, keeping the f32 dtype — the
     operand rounding a bf16 dot with f32 accumulation applies."""
@@ -551,9 +566,9 @@ def dft_tail2(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
             f"f2 in {TAIL2_F2} and f3 in {TAIL2_F3} (got {f2}, {f3})")
     geo = tail2_geometry(f2, f3, xr.element_size())
     dev = xr.device
-    w2r, w2i = as_tensors(dft_matrices(f2), dev)
-    w3r, w3i = as_tensors(dft_matrices(f3), dev)
-    tr, ti = as_tensors(twiddles(f2, f3), dev)
+    w2r, w2i = dft_matrices_on(f2, dev)
+    w3r, w3i = dft_matrices_on(f3, dev)
+    tr, ti = twiddles_on(f2, f3, dev)
     or_ = torch.empty(xr.shape, dtype=torch.float32, device=dev)
     oi = torch.empty_like(or_)
     panels = xr.numel() // m
@@ -592,11 +607,11 @@ def dft_tail2_plain(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
         raise ValueError(f"dft_tail2: last axis {m} != {f2}*{f3}")
     batch = xr.shape[:-1]
     dev = xr.device
-    w2 = as_tensors(dft_matrices(f2), dev)
-    tw = as_tensors(twiddles(f2, f3), dev)
+    w2 = dft_matrices_on(f2, dev)
+    tw = twiddles_on(f2, f3, dev)
     ur, ui = dft_stage_plain(xr.reshape(batch + (f2, f3)),
                              xi.reshape(batch + (f2, f3)), *w2, *tw)
-    vr, vi = dft_last_plain(ur, ui, *as_tensors(dft_matrices(f3), dev))
+    vr, vi = dft_last_plain(ur, ui, *dft_matrices_on(f3, dev))
     del ur, ui
     return (vr.transpose(-1, -2).reshape(batch + (m,)),
             vi.transpose(-1, -2).reshape(batch + (m,)))
@@ -651,13 +666,13 @@ def _dft_rec(xr, xi, factors, route: str, twisted: bool = False):
     n = xr.shape[-1]
     dev = xr.device
     if len(factors) == 1:
-        wr, wi = as_tensors(dft_matrices(n), dev)
+        wr, wi = dft_matrices_on(n, dev)
         return last(xr, xi, wr, wi)
     n1 = factors[0]
     n2 = n // n1
     batch = xr.shape[:-1]
-    wr, wi = as_tensors(dft_matrices(n1), dev)
-    tr, ti = as_tensors(twiddles(n1, n2), dev)
+    wr, wi = dft_matrices_on(n1, dev)
+    tr, ti = twiddles_on(n1, n2, dev)
     ur, ui = stage(xr.reshape(batch + (n1, n2)), xi.reshape(batch + (n1, n2)),
                    wr, wi, tr, ti)
     vr, vi = _dft_rec(ur, ui, factors[1:], route, twisted)

@@ -8,5 +8,5 @@ feeds (:mod:`~blit_torch.parallel.antenna`), tied-array beamforming
 mesh: on one card every psum is the identity, each device holds the
 whole antenna axis (so detection fuses into the beamformer), and a
 correlator run is one band segment.  The sharded forms come with the
-``torch.distributed`` mesh (ROADMAP.md Queue 1 item 7).
+``torch.distributed`` mesh (ROADMAP.md Queue 1 item 6).
 """

@@ -16,30 +16,41 @@ correlator's (``(nant, nchan, ntime, npol)``).
   from one window to the next, so windowed spectra equal a one-shot
   F-engine pass over the whole span).
 
-Each window is read into one int8 staging buffer (pinned when the device
-is CUDA), copied to the device as int8, and dequantized and packed there:
-the Timeline records ``ingest`` (RAW bytes read), ``transfer`` (int8
-bytes moved to the device), ``pack`` (planar bytes written) and, for the
-correlator, ``state`` (the PFB tail carried).  The feeds are synchronous:
-a window is read when the consumer asks for it.  ``blit``'s producer
-thread (``prefetch_depth > 1``) and its watchdog (``stall_timeout_s``)
-come with the async plane (ROADMAP.md Queue 1 item 2), its degraded
-continuation (``on_antenna_error="mask"``) with the mesh (Queue 1 item 7);
-until then they raise ``NotImplementedError``.
+Each window is read into an int8 host slot (from the staging pool,
+pinned when the device is CUDA), copied to the device as int8
+(``non_blocking``), and dequantized and packed there: the Timeline
+records ``ingest`` (RAW bytes read), ``transfer`` (int8 bytes moved to
+the device), ``pack`` (planar bytes written) and, for the correlator,
+``state`` (the PFB tail carried).  With ``prefetch_depth > 1`` (the
+default is 2, as in ``blit``) or a ``stall_timeout_s``, a producer thread
+(:class:`blit_torch.pipeline.BufferRotation`, with its watchdog) reads
+windows into a rotation of slots ahead of the consumer;
+``prefetch_depth=1`` reads each window on the consumer's thread when it
+is asked for.  A window's slot is free once its copy to the device has
+completed: the consumer may :meth:`Window.release` it (the streaming
+entry points do, after the compute that read it synchronized, ``blit``'s
+rule), and the feed releases it itself, after waiting on the window's
+``ready`` event, when the next window is asked for.  ``blit``'s degraded
+continuation (``on_antenna_error="mask"``) comes with the mesh (Queue 1
+item 6) and raises until then.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+import threading
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from blit_torch import hostmem
 from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, open_raw
 from blit_torch.observability import Timeline
 from blit_torch.ops.dft import Planar
+from blit_torch.outplane import record_event
+from blit_torch.pipeline import BufferRotation
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -100,8 +111,7 @@ def _span_from(min_samps: int, start_sample: int,
     return avail
 
 
-def _unported(prefetch_depth: int, on_antenna_error: str,
-              stall_timeout_s: Optional[float]) -> None:
+def _unported(on_antenna_error: str) -> None:
     """Raise for ``blit``'s feed options the port does not have yet."""
     if on_antenna_error not in ("raise", "mask"):
         raise ValueError(f"on_antenna_error must be 'raise' or 'mask', "
@@ -109,11 +119,7 @@ def _unported(prefetch_depth: int, on_antenna_error: str,
     if on_antenna_error == "mask":
         raise NotImplementedError(
             "on_antenna_error='mask' (degraded continuation) comes with the "
-            "torch.distributed mesh, ROADMAP.md Queue 1 item 7")
-    if prefetch_depth > 1 or stall_timeout_s is not None:
-        raise NotImplementedError(
-            "prefetch_depth > 1 and stall_timeout_s (the producer thread and "
-            "its watchdog) come with the async plane, ROADMAP.md Queue 1 item 2")
+            "torch.distributed mesh, ROADMAP.md Queue 1 item 6")
 
 
 class _Recordings:
@@ -160,17 +166,17 @@ class _Recordings:
         self.header = dict(self.raws[0].header(0))
         self.header["_nant"] = self.nant
 
-    def staging(self, nsamples: int) -> torch.Tensor:
-        """An int8 ``(nant, nchan, nsamples, npol, 2)`` host buffer, pinned
-        when the device is CUDA."""
-        return torch.empty((self.nant, self.nchan, nsamples, self.npol, 2),
-                           dtype=torch.int8,
-                           pin_memory=self.device.type == "cuda")
+    def staging(self, nsamples: int) -> hostmem.HostSlab:
+        """An int8 ``(nant, nchan, nsamples, npol, 2)`` host slab from the
+        staging pool, pinned when the device is CUDA."""
+        return hostmem.slab_pool().take(
+            (self.nant, self.nchan, nsamples, self.npol, 2), np.int8,
+            pinned=self.device.type == "cuda", timeline=self.timeline)
 
     def read(self, staged: np.ndarray, offset: int, n: int) -> None:
         """Samples ``[start_sample + offset, +n)`` of every antenna into
-        ``staged[a, :, :n]`` (``staged``: a numpy view of a staging
-        buffer, possibly starting inside it)."""
+        ``staged[a, :, :n]`` (``staged``: a numpy view of a slot, possibly
+        starting inside it)."""
         tl = self.timeline
         for a, raw in enumerate(self.raws):
             with tl.stage("ingest", nbytes=self.nchan * n * self.npol * 2):
@@ -180,24 +186,37 @@ class _Recordings:
                 raise ValueError(f"{raw.path}: {v.shape[1]} samples from offset "
                                  f"{self.start_sample + offset}, need {n}")
 
-    def planes(self, staged: torch.Tensor, layout: str) -> Planar:
-        """int8 ``(nant, nchan, n, npol, 2)`` host samples → planar
-        voltages on the device in ``layout``: copied to the device as
-        int8, then dequantized (exact in f32 and bf16) and packed there."""
+    def planes(self, slot: torch.Tensor, n: int, layout: str) -> Planar:
+        """The first ``n`` samples of an int8 ``(nant, nchan, *, npol, 2)``
+        host slot → planar voltages on the device in ``layout``: the slot
+        is copied to the device as int8 (``non_blocking``; whole, then
+        trimmed there, so the copy stays one DMA from pinned memory),
+        then dequantized (exact in f32 and bf16) and packed there.
+        Returns without waiting for the device."""
         tl = self.timeline
-        dev = self.device
-        with tl.stage("transfer", nbytes=staged.numel()):
-            x = staged.to(dev)
-        nplane = staged.numel() // 2 * self.dtype.itemsize
+        nbytes = slot[:, :, :n].numel()
+        with tl.stage("transfer", nbytes=nbytes):
+            x = slot.to(self.device, non_blocking=True)
+            if n < slot.shape[2]:
+                x = x[:, :, :n]
+        nplane = nbytes // 2 * self.dtype.itemsize
         with tl.stage("pack", nbytes=2 * nplane):
             vr, vi = x[..., 0].to(self.dtype), x[..., 1].to(self.dtype)
             if layout == "chan":
                 vr = vr.permute(1, 0, 3, 2)
                 vi = vi.permute(1, 0, 3, 2)
-            vr, vi = vr.contiguous(), vi.contiguous()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        return vr, vi
+            return vr.contiguous(), vi.contiguous()
+
+    def load(self, n: int, layout: str) -> Planar:
+        """The first ``n`` samples of the span as planar voltages, the
+        one-shot loaders' read: complete when it returns."""
+        slab = self.staging(n)
+        self.read(slab.array, 0, n)
+        arrays = self.planes(slab.tensor, n, layout)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        hostmem.slab_pool().give(slab)
+        return arrays
 
     def close(self) -> None:
         for r in self.raws:
@@ -206,7 +225,13 @@ class _Recordings:
 
 @dataclass
 class Window:
-    """One window of a feed: planar ``arrays`` on the feed's device."""
+    """One window of a feed: planar ``arrays`` on the feed's device.
+
+    ``ready`` is the event recorded after the window's copy to the device
+    and its pack (None on the CPU).  :meth:`release` hands the window's
+    host slot back to the feed (idempotent, from any thread); a window
+    the consumer has not released is released by the feed, after
+    ``ready``, when the next window is asked for."""
 
     index: int             # window ordinal in the stream
     start: int             # gap-free sample (AntennaStream) / first frame
@@ -214,6 +239,107 @@ class Window:
     ntime: int             # samples in ``arrays``
     frames: Optional[int]  # F-engine frames it contributes (CorrelatorStream)
     arrays: Planar
+    ready: Optional[torch.cuda.Event] = None
+    _free: Optional[Callable[[], None]] = field(default=None, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def release(self) -> None:
+        with self._lock:
+            free, self._free = self._free, None
+        if free is not None:
+            free()
+
+    def settle(self) -> None:
+        """Wait until the window's copy has completed, then release it."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        self.release()
+
+
+class _Feed:
+    """The window rotation shared by :class:`AntennaStream` and
+    :class:`CorrelatorStream`.  ``_fill(slab, prev_slab, prev_payload, w,
+    span)`` reads window ``w`` into ``slab`` (``prev_slab``: the previous
+    window's slot, for the correlator's PFB tail) and returns its payload
+    ``(index, start, ntime, frames, used)``; ``used`` samples of the slot
+    go to the device."""
+
+    _rec: "_Recordings"
+    spans: List[Tuple[int, int]]
+    prefetch_depth: int
+    stall_timeout_s: Optional[float]
+    _name: str
+    # Whether _fill reads the previous slot (the correlator's PFB tail).
+    _carries_tail = False
+
+    def _layout(self) -> str:
+        return "antenna"
+
+    def _window(self, slab, payload, free) -> Window:
+        w, start, ntime, frames, used = payload
+        arrays = self._rec.planes(slab.tensor, used, self._layout())
+        return Window(w, start, ntime, frames, arrays, record_event(arrays[0]),
+                      free)
+
+    def _threaded(self) -> bool:
+        return self.prefetch_depth > 1 or self.stall_timeout_s is not None
+
+    def _iter_windows(self, width: int) -> Iterator[Window]:
+        rec = self._rec
+        done = False
+        rot: Optional[BufferRotation] = None
+        bufs: List[Optional[hostmem.HostSlab]] = []
+        prev_win: Optional[Window] = None
+        try:
+            if not self._threaded():
+                bufs.append(rec.staging(width))
+                payload = None
+                for w, span in enumerate(self.spans):
+                    if prev_win is not None:
+                        prev_win.settle()
+                    payload = self._fill(bufs[0], bufs[0], payload, w, span)
+                    prev_win = self._window(bufs[0], payload, None)
+                    yield prev_win
+            else:
+                bufs.extend([None] * max(2, self.prefetch_depth))
+
+                def produce(r: BufferRotation) -> None:
+                    prev = payload = None
+                    for w, span in enumerate(self.spans):
+                        j = r.acquire()
+                        if j is None:
+                            return  # the consumer abandoned the stream
+                        if self._carries_tail and j == prev:
+                            raise RuntimeError(
+                                f"{self._name}: window released out of order "
+                                "(the producer re-acquired its PFB-tail slot)")
+                        if bufs[j] is None:
+                            bufs[j] = rec.staging(width)
+                        payload = self._fill(
+                            bufs[j], None if prev is None else bufs[prev],
+                            payload, w, span)
+                        r.emit(j, payload)
+                        prev = j
+
+                rot = BufferRotation(len(bufs), produce, name=self._name,
+                                     stall_timeout_s=self.stall_timeout_s)
+                for j, payload in rot.slots():
+                    if prev_win is not None:
+                        prev_win.settle()
+                    prev_win = self._window(bufs[j], payload,
+                                            lambda j=j: rot.release(j))
+                    yield prev_win
+            if prev_win is not None:
+                prev_win.settle()
+            done = True
+        finally:
+            if rot is not None:
+                rot.close()
+            rec.close()
+            if done:  # every copy completed: the slots may be reused
+                pool = hostmem.slab_pool()
+                for b in bufs:
+                    pool.give(b)
 
 
 def _check_layout(layout: str) -> None:
@@ -242,9 +368,7 @@ def load_antennas(raw_paths: Sequence, *, start_sample: int = 0,
             raise ValueError(f"no common samples across {rec.nant} antennas "
                              f"from offset {start_sample} (common span "
                              f"{rec.min_samples})")
-        staging = rec.staging(rec.total)
-        rec.read(staging.numpy(), 0, rec.total)
-        arrays = rec.planes(staging, layout)
+        arrays = rec.load(rec.total, layout)
     finally:
         rec.close()
     hdr = dict(rec.header, _ntime=rec.total)
@@ -273,15 +397,13 @@ def load_correlator(raw_paths: Sequence, *, nfft: int, ntap: int = 4,
                       timeline=None)
     try:
         seg = _correlator_segment(rec, nfft, ntap)
-        staging = rec.staging(seg)
-        rec.read(staging.numpy(), 0, seg)
-        arrays = rec.planes(staging, "antenna")
+        arrays = rec.load(seg, "antenna")
     finally:
         rec.close()
     return dict(rec.header, _ntime=seg), arrays
 
 
-class AntennaStream:
+class AntennaStream(_Feed):
     """Windowed feed of per-antenna RAW recordings in the beamformer's
     layout: the streaming form of :func:`load_antennas`.
 
@@ -294,13 +416,13 @@ class AntennaStream:
     def __init__(self, raw_paths: Sequence, *, window_samples: int,
                  start_sample: int = 0, max_samples: Optional[int] = None,
                  dtype="float32", layout: str = "antenna",
-                 prefetch_depth: int = 1, timeline: Optional[Timeline] = None,
+                 prefetch_depth: int = 2, timeline: Optional[Timeline] = None,
                  on_antenna_error: str = "raise",
                  stall_timeout_s: Optional[float] = None, device=None):
         if window_samples <= 0:
             raise ValueError(f"window_samples must be > 0, got {window_samples}")
         _check_layout(layout)
-        _unported(prefetch_depth, on_antenna_error, stall_timeout_s)
+        _unported(on_antenna_error)
         self._rec = _Recordings(raw_paths, start_sample=start_sample,
                                 max_samples=max_samples, dtype=dtype,
                                 device=device, timeline=timeline)
@@ -313,6 +435,9 @@ class AntennaStream:
         self.layout = layout
         self.window_samples = window_samples
         self.start_sample = start_sample
+        self.prefetch_depth = prefetch_depth
+        self.stall_timeout_s = stall_timeout_s
+        self._name = "blit-antenna-feed"
         self.timeline = rec.timeline
         self.nant, self.nchan, self.npol = rec.nant, rec.nchan, rec.npol
         self.total_samples = rec.total
@@ -326,20 +451,19 @@ class AntennaStream:
     def nwindows(self) -> int:
         return len(self.spans)
 
+    def _layout(self) -> str:
+        return self.layout
+
+    def _fill(self, slab, prev, prev_payload, w, span):
+        w0, wt = span
+        self._rec.read(slab.array, w0, wt)
+        return w, self.start_sample + w0, wt, None, wt
+
     def __iter__(self) -> Iterator[Window]:
-        rec = self._rec
-        staging = rec.staging(min(self.window_samples, rec.total))
-        host = staging.numpy()
-        try:
-            for w, (w0, wt) in enumerate(self.spans):
-                rec.read(host, w0, wt)
-                yield Window(w, self.start_sample + w0, wt, None,
-                             rec.planes(staging[:, :, :wt], self.layout))
-        finally:
-            rec.close()
+        return self._iter_windows(min(self.window_samples, self._rec.total))
 
 
-class CorrelatorStream:
+class CorrelatorStream(_Feed):
     """Windowed feed in the FX correlator's layout: the streaming form of
     :func:`load_correlator`.
 
@@ -348,19 +472,21 @@ class CorrelatorStream:
     ``window_frames``.  Window ``w`` carries frames ``[w·window_frames,
     ...)`` as ``(nant, nchan, (frames + ntap - 1)·nfft, npol)`` voltages;
     consecutive windows overlap by the ``(ntap-1)·nfft``-sample PFB tail,
-    copied on the host from the previous window's staging (every other
+    copied on the host from the previous window's slot (every other
     sample is read from disk once), so each window's spectra equal the
     matching frames of a one-shot F-engine pass."""
+
+    _carries_tail = True
 
     def __init__(self, raw_paths: Sequence, *, nfft: int, ntap: int = 4,
                  window_frames: int, start_sample: int = 0,
                  max_samples: Optional[int] = None, dtype="float32",
-                 prefetch_depth: int = 1, timeline: Optional[Timeline] = None,
+                 prefetch_depth: int = 2, timeline: Optional[Timeline] = None,
                  on_antenna_error: str = "raise",
                  stall_timeout_s: Optional[float] = None, device=None):
         if window_frames <= 0:
             raise ValueError(f"window_frames must be > 0, got {window_frames}")
-        _unported(prefetch_depth, on_antenna_error, stall_timeout_s)
+        _unported(on_antenna_error)
         self._rec = _Recordings(raw_paths, start_sample=start_sample,
                                 max_samples=max_samples, dtype=dtype,
                                 device=device, timeline=timeline)
@@ -373,6 +499,9 @@ class CorrelatorStream:
         self.nfft, self.ntap = nfft, ntap
         self.window_frames = window_frames
         self.start_sample = start_sample
+        self.prefetch_depth = prefetch_depth
+        self.stall_timeout_s = stall_timeout_s
+        self._name = "blit-correlator-feed"
         self.timeline = rec.timeline
         self.nant, self.nchan, self.npol = rec.nant, rec.nchan, rec.npol
         self.total_frames = self.seg // nfft - ntap + 1
@@ -385,25 +514,22 @@ class CorrelatorStream:
     def nwindows(self) -> int:
         return len(self.spans)
 
+    def _fill(self, slab, prev, prev_payload, w, span):
+        """Window ``w``'s fresh samples read into ``slab``, its PFB tail
+        copied from ``prev`` (the previous window's slot; the same slot
+        when the feed has one, where numpy copies the overlap right)."""
+        f0, fw = span
+        nfft, ov = self.nfft, (self.ntap - 1) * self.nfft
+        used = (fw + self.ntap - 1) * nfft
+        fresh0 = 0 if w == 0 else ov
+        host = slab.array
+        if fresh0:
+            prev_used = prev_payload[4]
+            with self.timeline.stage("state", nbytes=host[:, :, :ov].nbytes):
+                host[:, :, :ov] = prev.array[:, :, prev_used - ov:prev_used]
+        self._rec.read(host[:, :, fresh0:], f0 * nfft + fresh0, used - fresh0)
+        return w, f0, used, fw, used
+
     def __iter__(self) -> Iterator[Window]:
-        rec = self._rec
-        nfft, ntap = self.nfft, self.ntap
-        ov = (ntap - 1) * nfft
-        staging = rec.staging((min(self.window_frames, self.total_frames)
-                               + ntap - 1) * nfft)
-        host = staging.numpy()
-        prev_used = 0
-        try:
-            for w, (f0, fw) in enumerate(self.spans):
-                used = (fw + ntap - 1) * nfft
-                fresh0 = 0 if w == 0 else ov
-                if fresh0:
-                    # numpy copies overlapping ranges correctly.
-                    with self.timeline.stage("state", nbytes=host[:, :, :ov].nbytes):
-                        host[:, :, :ov] = host[:, :, prev_used - ov:prev_used]
-                rec.read(host[:, :, fresh0:], f0 * nfft + fresh0, used - fresh0)
-                yield Window(w, f0, used, fw,
-                             rec.planes(staging[:, :, :used], "antenna"))
-                prev_used = used
-        finally:
-            rec.close()
+        return self._iter_windows(
+            (min(self.window_frames, self.total_frames) + self.ntap - 1) * self.nfft)

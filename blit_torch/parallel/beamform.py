@@ -6,7 +6,7 @@ antenna axis over a mesh and completes the tied-array sum with one
 local, so ``blit``'s gate for fusing detection (``mesh.shape[axis] ==
 1``) always holds.  The entry points take ``device=`` in place of
 ``mesh`` and ``axis``; the sharded forms come with the
-``torch.distributed`` mesh (ROADMAP.md Queue 1 item 7).
+``torch.distributed`` mesh (ROADMAP.md Queue 1 item 6).
 
 Complex values travel planar, as ``(re, im)`` pairs; the entry points
 take a pair or one complex tensor, and the output dtype follows the
@@ -24,9 +24,13 @@ input as in ``blit``.  Two layouts:
 bf16 voltages round the weights to bf16 first, as ``blit`` does.
 :func:`last_beamform_plan` says which route the last call took.
 :func:`beamform_stream` and :func:`beamform_accumulate` run over a
-windowed feed synchronously, one window after another; ``blit``'s
-readback thread and lag-1 fold come with the async plane (ROADMAP.md
-Queue 1 item 2).
+windowed feed on the asynchronous plane (:mod:`blit_torch.outplane`):
+the stream reads each window's power back on an
+:class:`~blit_torch.outplane.OutputRotation` thread while the next window
+is dispatched, the accumulation waits on window ``w-1``'s fold only
+before dispatching window ``w`` (:class:`~blit_torch.outplane.FoldInFlight`),
+and both release a window's feed slot once the compute that read it has
+completed.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from blit_torch.observability import Timeline
 from blit_torch.ops import beamform as beam_ops
 from blit_torch.ops.channelize import integrate
 from blit_torch.ops.dft import ComplexOrPlanar, Planar, as_planar
+from blit_torch.outplane import FoldInFlight, OutputRotation, record_event
 
 # Route of the most recent beamform call (read via last_beamform_plan()).
 _LAST_PLAN: dict = {}
@@ -157,8 +162,9 @@ def _device_weights(weights: ComplexOrPlanar, dev) -> Planar:
 
 def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
                     nint: int = 1, layout: str = "antenna",
-                    timeline: Optional[Timeline] = None,
-                    device=None) -> Iterator[torch.Tensor]:
+                    timeline: Optional[Timeline] = None, device=None,
+                    stall_timeout_s: Optional[float] = None
+                    ) -> Iterator[torch.Tensor]:
     """Detected beam power over a windowed feed
     (:class:`blit_torch.parallel.antenna.AntennaStream`): one f32 host
     slab per window, in time order, ``(nbeam, nchan, wt // nint, npol)``
@@ -166,25 +172,38 @@ def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
     layout).  Concatenated along time they equal the one-shot
     :func:`beamform` on the same span bitwise: every sum is window-local
     and taken in the same order.  Every window must hold a whole number
-    of integrations.  Stages in ``timeline``: ``device`` (the beamformer,
-    synchronized) and ``readback`` (device → host, bytes)."""
+    of integrations.
+
+    Window ``w`` is dispatched, and its power read back on an
+    :class:`~blit_torch.outplane.OutputRotation` (depth 2) thread while
+    ``w+1`` is dispatched; the window's slot is released once its compute
+    completed.  Stages in ``timeline``: ``dispatch`` (the launches),
+    ``device`` (the readback thread's wait on a window's event) and
+    ``readback`` (device → host, bytes)."""
     tl = timeline if timeline is not None else Timeline()
     dev = resolve_device(device)
     weights = _device_weights(weights, dev)
-    for win in feed:
-        if win.ntime % nint:
-            raise ValueError(
-                f"window {win.index} holds {win.ntime} samples, not a whole "
-                f"number of nint={nint} integrations; choose window_samples "
-                "(and span) divisible by nint")
-        with tl.stage("device"):
-            out = beamform(win.arrays, weights, nint=nint, detect=True,
-                           layout=layout, device=dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        with tl.stage("readback", nbytes=out.numel() * 4):
-            host = out.cpu()
-        yield host
+    rot = OutputRotation(depth=2, timeline=tl, reuse=False,
+                         name="blit-bf-readback", stall_timeout_s=stall_timeout_s)
+    try:
+        for win in feed:
+            if win.ntime % nint:
+                raise ValueError(
+                    f"window {win.index} holds {win.ntime} samples, not a whole "
+                    f"number of nint={nint} integrations; choose window_samples "
+                    "(and span) divisible by nint")
+            with tl.stage("dispatch", byte_free=True):
+                out = beamform(win.arrays, weights, nint=nint, detect=True,
+                               layout=layout, device=dev)
+                ev = record_event(out)
+            slabs = rot.put(out, event=ev, on_consumed=win.release)
+            del out
+            for slab in slabs:
+                yield torch.from_numpy(slab.data)
+        for slab in rot.drain():
+            yield torch.from_numpy(slab.data)
+    finally:
+        rot.close()
 
 
 def beamform_accumulate(feed: Iterable, weights: ComplexOrPlanar, *,
@@ -195,19 +214,22 @@ def beamform_accumulate(feed: Iterable, weights: ComplexOrPlanar, *,
     device: each window's power, integrated over the window, adds into
     an f32 accumulator (the first window's power is the accumulator, not
     added to zeros).  Returns ``(nbeam, nchan, 1, npol)`` (antenna
-    layout) or ``(nchan, nbeam, npol, 1)`` (chan layout) on the device."""
+    layout) or ``(nchan, nbeam, npol, 1)`` (chan layout) on the device,
+    complete.  Window ``w-1``'s fold is waited on (stage ``device``) and
+    its slot released only before window ``w``'s dispatch."""
     tl = timeline if timeline is not None else Timeline()
     dev = resolve_device(device)
     weights = _device_weights(weights, dev)
+    flight = FoldInFlight(tl, depth=1)
     acc = None
     for win in feed:
-        with tl.stage("device"):
+        flight.make_room()
+        with tl.stage("dispatch", byte_free=True):
             p = beamform(win.arrays, weights, nint=win.ntime, detect=True,
                          layout=layout, device=dev)
             acc = p if acc is None else acc.add_(p)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        flight.admit(win, record_event(acc))
+    flight.drain()
     if acc is None:
         raise ValueError("beamform_accumulate: feed yielded no windows")
     return acc
-

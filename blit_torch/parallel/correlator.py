@@ -6,7 +6,7 @@ integration with one ``psum``; on one card the psum is the identity and a
 run is one band segment (``nsegments=1`` in ``blit``'s golden
 reference).  The entry points take ``device=`` in place of ``mesh``; the
 sharded forms come with the ``torch.distributed`` mesh (ROADMAP.md Queue
-1 item 7).
+1 item 6).
 
 - F-engine (:func:`f_engine_planar`): the polyphase FIR on each plane
   with the fftshift folded into the window's sign, then the planar DFT
@@ -38,6 +38,7 @@ from blit_torch.observability import Timeline
 from blit_torch.ops import xengine as xe
 from blit_torch.ops.channelize import fft_planar, pfb_frontend
 from blit_torch.ops.dft import ComplexOrPlanar, Planar, as_planar
+from blit_torch.outplane import FoldInFlight, record_event
 
 # X-engine of the most recent call (read via last_xengine_plan()).
 _LAST_PLAN: dict = {}
@@ -173,19 +174,23 @@ def correlate_stream(feed: Iterable, coeffs, *, nfft: int, ntap: int = 4,
     """Full FX correlation over a windowed feed
     (:class:`blit_torch.parallel.antenna.CorrelatorStream`): each
     window's visibilities fold into an on-device accumulator (the first
-    window's are the accumulator), one window after another.  Equal
-    bitwise to ``correlate(..., acc_frames=window_frames)`` on the same
-    span.  Returns the planar f32 pair in :func:`correlate`'s layouts.
-    Stage ``device`` in ``timeline``: F-engine, X-engine and fold,
-    synchronized."""
+    window's are the accumulator).  Equal bitwise to ``correlate(...,
+    acc_frames=window_frames)`` on the same span.  Returns the planar f32
+    pair in :func:`correlate`'s layouts, complete.  Window ``w-1``'s fold
+    is waited on (stage ``device``; :class:`~blit_torch.outplane.FoldInFlight`)
+    and its slot released only before window ``w``'s dispatch, so the
+    feed reads and copies the next window while the card folds this one.
+    Stage ``dispatch``: the F-engine, X-engine and fold launches."""
     tl = timeline if timeline is not None else Timeline()
     dev = resolve_device(device)
     h = torch.as_tensor(coeffs).to(dev)
     _check(vis_layout, h, nfft, ntap)
+    flight = FoldInFlight(tl, depth=1)
     accr = acci = None
     for win in feed:
         vr, vi = win.arrays
-        with tl.stage("device"):
+        flight.make_room()
+        with tl.stage("dispatch", byte_free=True):
             pr, pi = _fx_xengine(*_fx_spectra(vr.to(dev), vi.to(dev), h),
                                  vis_layout)
             if accr is None:
@@ -193,8 +198,8 @@ def correlate_stream(feed: Iterable, coeffs, *, nfft: int, ntap: int = 4,
             else:
                 accr.add_(pr)
                 acci.add_(pi)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        flight.admit(win, record_event(acci))
+    flight.drain()
     if accr is None:
         raise ValueError("correlate_stream: feed yielded no windows")
     return accr, acci

@@ -1,10 +1,10 @@
 """Streaming GUPPI RAW → filterbank reduction driver.
 
-Counterpart of ``blit/pipeline.py``'s :class:`RawReducer`, synchronous
-path.  The reducer reads voltage blocks into a host staging buffer,
-carries the PFB state across chunk boundaries, feeds fixed-shape chunks
-to :func:`blit_torch.ops.channelize.channelize` on the device, and
-writes SIGPROC ``.fil`` products.  Every rawspec preset runs on the card:
+Counterpart of ``blit/pipeline.py``'s :class:`RawReducer`.  The reducer
+reads voltage blocks into host chunk slots, carries the PFB state from
+one slot to the next, feeds fixed-shape chunks to
+:func:`blit_torch.ops.channelize.channelize` on the device, and writes
+SIGPROC ``.fil`` products.  Every rawspec preset runs on the card:
 ``0000`` through ``pfb_dft1`` + ``tail2_detect``, ``0001`` and ``0002``
 through ``pfb_dequant`` + ``dft_last`` (the channelizer picks the plan);
 a one-pol recording through the FIR in torch ops + the DFT kernels.
@@ -17,27 +17,51 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   keeps the whole frames left, rounded down to ``nint``
   (:func:`usable_frames`); trailing samples that cannot fill an
   integration are dropped, as rawspec does.
-- On a CUDA device the staging buffer is pinned host memory, so the
-  host→device copy is a direct DMA.
+- Ingest is pipelined (:class:`BufferRotation`): a producer thread fills
+  a rotation of chunk slots from the file while the device works on
+  earlier chunks.  Each slot's first ``(ntap-1)*nfft`` samples are
+  copied from the previous slot's tail (the filter state, on the
+  producer thread); every other byte is read from disk once, into its
+  final place.  Slots come from the staging pool
+  (:mod:`blit_torch.hostmem`), pinned on a CUDA device, so the
+  host→device copy is a ``non_blocking`` DMA.
+- Output is asynchronous by default (:mod:`blit_torch.outplane`): each
+  chunk is dispatched, an event recorded after its launches, and the
+  output handed to a readback thread that waits on the event, frees the
+  chunk's slot, and copies the product to the host on a stream of its
+  own; ``.fil`` appends run on a write-behind sink.  ``async_output=False``
+  (or ``BLIT_SYNC_OUTPUT=1`` in the environment) runs each chunk's
+  device call and readback on the consumer thread instead, the A/B path;
+  the products are byte-identical.
+- ``nbits=8/16`` writes quantized products
+  (:mod:`blit_torch.ops.narrow`): narrowed on the device before the
+  readback on the asynchronous path, on the host on the synchronous one,
+  bitwise the same.
 
-``blit``'s pipelined ingest (``BufferRotation`` prefetch), asynchronous
-output plane, tuning profiles, ``.h5`` products, quantized ``nbits``
-output, resumable reductions and integrity checks are later slices
-(ROADMAP.md, Queue 1).
+``blit``'s tuning profiles and online tuner, ``.h5`` products, resumable
+reductions, integrity checks, the live ``feed_blocks()`` source, spans
+and ``profile_trace`` are later items (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import queue
+import threading
+import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from blit_torch import hostmem
 from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
 from blit_torch.io.sigproc import FilWriter
-from blit_torch.observability import Timeline
+from blit_torch.observability import StallWatchdog, Timeline, flight_recorder
 from blit_torch.ops.channelize import (
     STOKES_NIF,
     channelize,
@@ -46,6 +70,20 @@ from blit_torch.ops.channelize import (
     usable_frames,
 )
 from blit_torch.ops.fqav import fqav_range
+from blit_torch.ops.narrow import (
+    NARROW_DTYPES,
+    check_quant,
+    narrow_device,
+    narrow_host,
+)
+from blit_torch.outplane import (
+    AsyncSink,
+    OutputRotation,
+    readback_extra_slots,
+    record_event,
+)
+
+log = logging.getLogger("blit_torch.pipeline")
 
 # rawspec-equivalent product presets: name → (nfft, nint).
 PRODUCT_PRESETS = {
@@ -67,6 +105,154 @@ class ReductionStats:
     @property
     def gbps(self) -> float:
         return self.input_bytes / self.wall_seconds / 1e9 if self.wall_seconds else 0.0
+
+
+class _Chunk:
+    """A filled chunk slot handed to the consumer: ``view`` (numpy) is
+    its first ``samps`` samples, ``slot`` the whole slot's torch tensor.
+    Both stay valid until :meth:`release`, after which the producer may
+    refill the slot."""
+
+    __slots__ = ("view", "slot", "samps", "frames", "_idx", "_free")
+
+    def __init__(self, view: np.ndarray, slot: torch.Tensor, samps: int,
+                 frames: int, idx: int, free) -> None:
+        self.view = view
+        self.slot = slot
+        self.samps = samps
+        self.frames = frames
+        self._idx = idx
+        self._free = free
+
+    def release(self) -> None:
+        if self._free is not None:
+            free, self._free = self._free, None
+            free(self._idx)
+
+
+_ROT_ERR = object()  # producer-exception marker on the filled queue
+
+
+class BufferRotation:
+    """The prefetch rotation behind every pipelined host feed: one
+    producer thread fills slots it acquires from a free ring and emits
+    ``(slot, payload)``; the consumer iterates :meth:`slots` and must
+    :meth:`release` every slot once nothing (host or device) still reads
+    it.  Slots are indices: their storage belongs to the fill callback.
+
+    - ``fill(rot)`` runs in a daemon thread: ``rot.acquire()`` a slot
+      (None: the consumer is gone, return), fill it, ``rot.emit(slot,
+      payload)``.  Returning ends the stream; an exception re-raises in
+      the consumer.
+    - A slot is refilled only after its release; reading an emitted slot
+      concurrently (the filter-state copy) is safe.
+    - A consumer holding every slot while asking for more gets an error,
+      not a deadlock.
+    - ``stall_timeout_s`` arms a watchdog: a live producer that neither
+      acquires nor emits for that long raises in the consumer (waits for
+      a free slot count as progress).
+    """
+
+    def __init__(self, nslots: int, fill, *, name: str = "blit-feed",
+                 stall_timeout_s: Optional[float] = None):
+        self.nslots = max(2, nslots)
+        self.stall_timeout_s = stall_timeout_s
+        self._free: "queue.Queue[int]" = queue.Queue()
+        for j in range(self.nslots):
+            self._free.put(j)
+        self._filled: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._fill = fill
+        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
+        self._started = False
+        # Slots yielded and not released; releases arrive from the
+        # readback thread too.
+        self._held = 0
+        self._held_lock = threading.Lock()
+        self._wd = StallWatchdog(stall_timeout_s, name,
+                                 what="a wedged read would otherwise hang the stream")
+
+    def _run(self) -> None:
+        try:
+            self._fill(self)
+            self._filled.put(None)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
+            self._filled.put((_ROT_ERR, e))
+
+    # -- producer side ----------------------------------------------------
+    def acquire(self) -> Optional[int]:
+        """Next free slot; None once the consumer is gone."""
+        while not self._stop.is_set():
+            try:
+                slot = self._free.get(timeout=0.2)
+            except queue.Empty:
+                self._wd.beat()  # back-pressure, not a stall
+                continue
+            self._wd.beat()
+            return slot
+        return None
+
+    def emit(self, slot: int, payload) -> None:
+        self._wd.beat()
+        self._filled.put((slot, payload))
+
+    # -- consumer side ----------------------------------------------------
+    def release(self, slot: int) -> None:
+        with self._held_lock:
+            self._held -= 1
+        self._free.put(slot)
+
+    def slots(self) -> Iterator[Tuple[int, object]]:
+        """Yield ``(slot, payload)`` in stream order, starting the
+        producer on first use; re-raises producer exceptions."""
+        self._wd.beat()
+        self._thread.start()
+        self._started = True
+        poll = self._wd.poll_s(0.5)
+        try:
+            while True:
+                try:
+                    item = self._filled.get(timeout=poll)
+                except queue.Empty:
+                    if self._held >= self.nslots:
+                        msg = (f"BufferRotation starved: all {self.nslots} slots "
+                               "are held unreleased by the consumer — release() "
+                               "earlier chunks/windows before requesting more, "
+                               "or raise prefetch_depth")
+                        flight_recorder().dump(msg)
+                        raise RuntimeError(msg)
+                    self._wd.check("producer stalled",
+                                   active=self._thread.is_alive())
+                    continue
+                if item is None:
+                    return
+                slot, payload = item
+                if slot is _ROT_ERR:
+                    raise payload
+                with self._held_lock:
+                    self._held += 1
+                yield slot, payload
+        finally:
+            self.close()
+
+    def close(self, join_timeout_s: float = 10.0) -> None:
+        """Stop the producer and join it (idempotent), bounded: a producer
+        wedged inside a fill is abandoned with a warning."""
+        self._stop.set()
+        if self._started:
+            self._thread.join(timeout=join_timeout_s)
+            if self._thread.is_alive():
+                log.warning("%s: producer did not exit within %.1fs of close; "
+                            "abandoning the daemon thread", self._thread.name,
+                            join_timeout_s)
+
+
+def raw_block_feed(raw: GuppiRaw):
+    """The block feed of an indexed recording: ``(header, kept_samples,
+    read_into)`` in stream order, the producer's input."""
+    for i in range(raw.nblocks):
+        yield (raw.header(i), raw.block_ntime_kept(i),
+               lambda dst, t0, n, i=i: raw.read_block_into(i, dst, t0, n))
 
 
 @dataclass
@@ -93,13 +279,35 @@ class RawReducer:
     # The default (~8M samples per coarse channel, at most 64 frames,
     # blit's) gives 0002 2048 frames and 0001 only 128.
     chunk_frames: Optional[int] = None
+    # Chunk slots in the ingest rotation (>= 2): the producer reads chunk
+    # i+1 while the device works on chunk i.
+    prefetch_depth: int = 2
+    # Outputs in readback flight and write-behind queue slots; None =
+    # max(2, prefetch_depth).
+    out_depth: Optional[int] = None
+    # The asynchronous output plane; False (or BLIT_SYNC_OUTPUT=1) runs
+    # the synchronous path, byte-identical.
+    async_output: bool = True
+    # Watchdog of the readback and writer threads (None: wait forever).
+    output_stall_timeout_s: Optional[float] = None
+    # Quantized .fil products: clip(rint(x*quant_scale + quant_offset),
+    # 0, 2^nbits - 1) as uint8/uint16 (32: float32, no quantization).
+    nbits: int = 32
+    quant_scale: float = 1.0
+    quant_offset: float = 0.0
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if os.environ.get("BLIT_SYNC_OUTPUT"):
+            self.async_output = False
+        check_quant(self.nbits)
         if self.stokes not in STOKES_NIF:
             raise ValueError(f"unknown stokes {self.stokes!r}")
+        if self.out_depth is None:
+            self.out_depth = max(2, self.prefetch_depth)
+        self.out_depth = max(2, self.out_depth)
         if self.chunk_frames is None:
             # ~8M samples per coarse channel per device call (blit's
             # budget): few frames for the 1M-point product.
@@ -111,7 +319,9 @@ class RawReducer:
             raise ValueError(f"fqav_by={self.fqav_by} does not divide nfft={self.nfft}")
         self._pfb_coeffs: Optional[torch.Tensor] = None
         self._output_frames = 0
-        self._staging: Optional[torch.Tensor] = None
+        # Chunk slots kept across streams of this reducer; retired to the
+        # staging pool after a stream that ended synchronized.
+        self._buf_cache: List[hostmem.HostSlab] = []
 
     @property
     def coeffs(self) -> torch.Tensor:
@@ -141,81 +351,259 @@ class RawReducer:
                        nfpc=self.nfft // self.fqav_by)
         return hdr
 
-    # -- streaming core ----------------------------------------------------
-    def _staging_buffer(self, shape) -> torch.Tensor:
-        """The host chunk buffer (pinned when the device is CUDA), reused
-        across streams of the same shape."""
-        if self._staging is None or tuple(self._staging.shape) != shape:
-            self._staging = torch.empty(
-                shape, dtype=torch.int8,
-                pin_memory=self.device.type == "cuda")
-        return self._staging
-
-    def _chunks(self, raw: GuppiRaw) -> Iterator[Tuple[torch.Tensor, int]]:
-        """Yield ``(host chunk, frames)`` in stream order.  A yielded
-        chunk aliases the staging buffer: the consumer finishes with it
-        before asking for the next."""
-        nfft, ntap = self.nfft, self.ntap
+    # -- ingest ------------------------------------------------------------
+    def _fill_rotation(self, feed, skip_frames: int,
+                       bufs: List[Optional[hostmem.HostSlab]],
+                       rot: BufferRotation) -> None:
+        """Fill the chunk rotation from ``(header, kept_samples,
+        read_into)`` triples (producer thread).  Slot ``j``'s first
+        ``(ntap-1)*nfft`` samples are copied from the previously filled
+        slot's tail; the rest is read once, into place
+        (``read_into(dst, t0, n)`` copies samples ``[t0, t0+n)`` of the
+        block into ``dst[:, :n]``).  ``skip_frames`` skips the first
+        frames exactly: frame N's window starts at sample ``N*nfft``."""
+        nfft, ntap, nint = self.nfft, self.ntap, self.nint
         chunk_samps = (self.chunk_frames + ntap - 1) * nfft
         advance = self.chunk_frames * nfft
         state = (ntap - 1) * nfft
-        buf = host = None
+        to_skip = skip_frames * nfft
+        pinned = self.device.type == "cuda"
+        cur: Optional[int] = None
+        prev: Optional[int] = None
         filled = 0
-        carried = False  # the buffer starts with the previous chunk's state
-        for i in range(raw.nblocks):
-            hdr = raw.header(i)
-            nt = raw.block_ntime_kept(i)
-            t0 = 0
+        for hdr, nt, read_into in feed:
+            if to_skip >= nt:
+                to_skip -= nt
+                continue
+            t0, nt = to_skip, nt - to_skip
+            to_skip = 0
             nchan = hdr["OBSNCHAN"]
             npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
             while nt > 0:
-                if buf is None:
-                    buf = self._staging_buffer((nchan, chunk_samps, npol, 2))
-                    host = buf.numpy()
+                if cur is None:
+                    # Waiting for a free slot is back-pressure, not ingest.
+                    cur = rot.acquire()
+                    if cur is None:
+                        return  # the consumer abandoned the stream
+                    if bufs[cur] is None:
+                        key = ((nchan, chunk_samps, npol, 2),
+                               np.dtype(np.int8).str, pinned)
+                        for j, b in enumerate(self._buf_cache):
+                            if b.key == key:
+                                bufs[cur] = self._buf_cache.pop(j)
+                                break
+                        else:
+                            bufs[cur] = hostmem.slab_pool().take(
+                                key[0], np.int8, pinned=pinned,
+                                timeline=self.timeline)
+                    if prev is not None:
+                        with self.timeline.stage(
+                                "state", nbytes=nchan * state * npol * 2):
+                            bufs[cur].array[:, :state] = \
+                                bufs[prev].array[:, advance:]
+                        filled = state
+                    else:
+                        filled = 0
                 take = min(nt, chunk_samps - filled)
                 with self.timeline.stage("ingest", nbytes=nchan * take * npol * 2):
-                    raw.read_block_into(i, host[:, filled:], t0, take)
+                    read_into(bufs[cur].array[:, filled:], t0, take)
                 filled += take
                 t0 += take
                 nt -= take
                 if filled == chunk_samps:
-                    yield buf, self.chunk_frames
-                    with self.timeline.stage("state", nbytes=nchan * state * npol * 2):
-                        host[:, :state] = host[:, advance:]
-                    filled = state
-                    carried = True
-        if filled > (state if carried else 0):
-            frames = usable_frames(filled, nfft, ntap, self.nint)
+                    rot.emit(cur, (self.chunk_frames, chunk_samps))
+                    prev, cur = cur, None
+        if cur is not None and filled > (state if prev is not None else 0):
+            # Flush: whole frames left, rounded down to the integration.
+            frames = usable_frames(filled, nfft, ntap, nint)
             if frames > 0:
-                yield buf[:, :(frames + ntap - 1) * nfft], frames
+                rot.emit(cur, (frames, (frames + ntap - 1) * nfft))
 
-    def _run_chunk(self, chunk: torch.Tensor) -> np.ndarray:
-        with self.timeline.stage("device", nbytes=chunk.numel()):
-            if not chunk.is_contiguous():
-                chunk = chunk.contiguous()  # the short tail chunk
-            v = chunk.to(self.device, non_blocking=True)
-            out = channelize(
-                v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
-                nint=self.nint, stokes=self.stokes,
-                fft_method=self.fft_method, dtype=self.dtype,
-                fqav_by=self.fqav_by, device=self.device,
-            )
-            return out.cpu().numpy()
+    def _chunks(self, raw: GuppiRaw, skip_frames: int = 0,
+                extra_slots: int = 0) -> Iterator[_Chunk]:
+        """The pipelined chunker: :class:`_Chunk` handles in stream order.
+        The caller must release every chunk once nothing reads its slot.
+        ``extra_slots`` widens the rotation beyond ``prefetch_depth`` for
+        the chunks the output plane keeps in flight."""
+        nbufs = max(2, self.prefetch_depth) + max(0, extra_slots)
+        bufs: List[Optional[hostmem.HostSlab]] = [None] * nbufs
+        rot = BufferRotation(
+            nbufs,
+            lambda r: self._fill_rotation(raw_block_feed(raw), skip_frames,
+                                          bufs, r),
+            name="blit-ingest")
+        with self.timeline.stage("stream"):
+            try:
+                for idx, (frames, samps) in rot.slots():
+                    view = bufs[idx].array[:, :samps]
+                    self.timeline.stages["stream"].bytes += view.nbytes
+                    yield _Chunk(view, bufs[idx].tensor, samps, frames, idx,
+                                 rot.release)
+            finally:
+                rot.close()
+                # Keep the (faulted, pinned) slots for the next stream.
+                self._buf_cache = [b for b in bufs if b is not None][:nbufs]
 
-    def stream(self, raw_src: RawSource) -> Iterator[np.ndarray]:
-        """Yield f32 slabs ``(nspectra, nif, nchans)`` covering the
-        recording gap-free, one per chunk."""
+    def _retire_staging(self) -> None:
+        """Hand the stream's chunk slots to the staging pool: only after a
+        terminal synchronization (no dispatch can still read them)."""
+        pool = hostmem.slab_pool()
+        for b in self._buf_cache:
+            pool.give(b)
+        self._buf_cache = []
+
+    # -- device step -------------------------------------------------------
+    def _dispatch(self, chunk: _Chunk, narrow: bool) -> torch.Tensor:
+        """Copy the chunk to the device (``non_blocking`` from its pinned
+        slot; the short last chunk uploads its whole slot and is trimmed
+        on the device) and launch the channelizer (and, with ``narrow``,
+        the quantization).  Returns without waiting."""
+        v = chunk.slot.to(self.device, non_blocking=True)
+        if chunk.samps < chunk.slot.shape[1]:
+            v = v[:, :chunk.samps].contiguous()
+        out = channelize(v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
+                         nint=self.nint, stokes=self.stokes,
+                         fft_method=self.fft_method, dtype=self.dtype,
+                         fqav_by=self.fqav_by, device=self.device)
+        if narrow and self.nbits < 32:
+            out = narrow_device(out, self.nbits, self.quant_scale,
+                                self.quant_offset)
+        return out
+
+    def _run_chunk(self, chunk: _Chunk) -> np.ndarray:
+        """The synchronous device step: dispatch and read back."""
+        with self.timeline.stage("device", nbytes=chunk.view.nbytes):
+            return self._dispatch(chunk, narrow=False).cpu().numpy()
+
+    def _narrow_host(self, slab: np.ndarray) -> np.ndarray:
+        if self.nbits == 32:
+            return np.ascontiguousarray(slab)
+        return narrow_host(slab, self.nbits, self.quant_scale, self.quant_offset)
+
+    # -- streaming ---------------------------------------------------------
+    def _stream_async(self, raw: GuppiRaw, skip_frames: int, reuse: bool,
+                      narrow: bool = False) -> Iterator:
+        """The overlapped core of :meth:`stream` and :meth:`_pump`:
+        dispatch each chunk, record an event, hand the output to an
+        :class:`OutputRotation` and yield its slabs in stream order.
+        With readback depth ``d``, ``put(chunk w)`` returns once chunk
+        ``w-(d-1)`` is on the host, so chunk ``w`` computes while ``w+1``
+        is dispatched; an un-synchronized chunk keeps its slot (released
+        by the readback thread after the event), hence the wider
+        rotation."""
+        depth = max(2, self.out_depth)
+        rot = OutputRotation(depth=depth, timeline=self.timeline, reuse=reuse,
+                             name="blit-readback",
+                             stall_timeout_s=self.output_stall_timeout_s)
+        try:
+            extra = readback_extra_slots(depth, self.prefetch_depth)
+            for chunk in self._chunks(raw, skip_frames, extra_slots=extra):
+                with self.timeline.stage("dispatch", byte_free=True):
+                    out = self._dispatch(chunk, narrow)
+                    ev = record_event(out)
+                self._output_frames += chunk.frames
+                slabs = rot.put(out, event=ev, nbytes=chunk.view.nbytes,
+                                on_consumed=chunk.release)
+                del out
+                yield from slabs
+            # The readback tail is streaming wall time too.
+            t0 = time.perf_counter()
+            yield from rot.drain()
+            self.timeline.stages["stream"].seconds += time.perf_counter() - t0
+        finally:
+            rot.close()
+
+    def _stream(self, raw: GuppiRaw, skip_frames: int = 0) -> Iterator[np.ndarray]:
+        if not self.async_output:
+            for chunk in self._chunks(raw, skip_frames):
+                try:
+                    out = self._run_chunk(chunk)
+                finally:
+                    chunk.release()
+                self._output_frames += chunk.frames
+                yield self._narrow_host(out)
+            self._retire_staging()
+            return
+        for slab in self._stream_async(raw, skip_frames, reuse=False, narrow=True):
+            slab.release()
+            yield slab.data
+        self._retire_staging()
+
+    def stream(self, raw_src: RawSource, skip_frames: int = 0) -> Iterator[np.ndarray]:
+        """Yield slabs ``(nspectra, nif, nchans)`` covering the recording
+        gap-free, one per chunk: float32, or the ``nbits`` integer form
+        :meth:`reduce_to_file` writes.  ``skip_frames`` skips the first N
+        output frames exactly.  The slabs are the caller's to keep."""
         raw = open_raw(raw_src)
         try:
-            with self.timeline.stage("stream"):
-                for chunk, frames in self._chunks(raw):
-                    slab = self._run_chunk(chunk)
-                    self._output_frames += frames
-                    yield slab
+            yield from self._stream(raw, skip_frames)
         finally:
             if raw is not raw_src:
                 raw.close()
 
+    def drain(self, raw_src: RawSource) -> float:
+        """Run the streaming reduction with a device-side sink: each
+        chunk's product reduces to a sum on the device, waited on once
+        ``prefetch_depth - 1`` newer chunks are in flight (then its slot
+        is released).  Returns the sum over all products."""
+        raw = open_raw(raw_src)
+        try:
+            total = 0.0
+            pending: deque = deque()
+            for chunk in self._chunks(raw):
+                with self.timeline.stage("dispatch", byte_free=True):
+                    pending.append((chunk, self._dispatch(chunk, False).sum()))
+                self._output_frames += chunk.frames
+                while len(pending) >= max(2, self.prefetch_depth):
+                    done, s = pending.popleft()
+                    with self.timeline.stage("device", nbytes=done.view.nbytes):
+                        total += float(s)
+                    done.release()
+            while pending:
+                done, s = pending.popleft()
+                with self.timeline.stage("device", nbytes=done.view.nbytes):
+                    total += float(s)
+                done.release()
+            self._retire_staging()
+            return total
+        finally:
+            if raw is not raw_src:
+                raw.close()
+
+    def _pump(self, raw: GuppiRaw, writer, skip_frames: int = 0) -> int:
+        """Drive the reduction into a slab writer and finalize it: host
+        read, H2D and compute, readback and the disk write each on a
+        thread of their own (producer, dispatch, readback, sink), with
+        back-pressure end to end.  Returns the spectra written; on error
+        the writer is aborted and the error re-raised."""
+        if not self.async_output:
+            try:
+                for slab in self._stream(raw, skip_frames):
+                    with self.timeline.stage("write", nbytes=slab.nbytes):
+                        writer.append(slab)
+                writer.close()
+            except BaseException:
+                writer.abort()
+                raise
+            return writer.nsamps
+        sink = AsyncSink(writer, depth=max(2, self.out_depth),
+                         timeline=self.timeline,
+                         stall_timeout_s=self.output_stall_timeout_s)
+        try:
+            for slab in self._stream_async(raw, skip_frames, reuse=True,
+                                           narrow=True):
+                sink.append(slab.data, release=slab.release)
+            t0 = time.perf_counter()
+            sink.close()
+            self.timeline.stages["stream"].seconds += time.perf_counter() - t0
+        except BaseException:
+            sink.abort()
+            raise
+        self.timeline.overlap_efficiency()
+        self._retire_staging()
+        return sink.nsamps
+
+    # -- whole-recording entry points ---------------------------------------
     def _open_validated(self, raw_src: RawSource) -> Tuple[GuppiRaw, Dict]:
         raw = open_raw(raw_src)
         if raw.nblocks == 0:
@@ -224,10 +612,10 @@ class RawReducer:
 
     def reduce(self, raw_src: RawSource) -> Tuple[Dict, np.ndarray]:
         """Reduce a whole RAW file in memory → ``(header, data)`` with
-        data ``(nsamps, nif, nchans)`` f32."""
+        data ``(nsamps, nif, nchans)`` in the product's dtype."""
         raw, hdr = self._open_validated(raw_src)
         try:
-            slabs = list(self.stream(raw))
+            slabs = list(self._stream(raw))
         finally:
             if raw is not raw_src:
                 raw.close()
@@ -235,7 +623,8 @@ class RawReducer:
             data = np.concatenate(slabs, axis=0)
         else:
             data = np.zeros((0, STOKES_NIF[self.stokes], hdr["nchans"]),
-                            np.float32)
+                            NARROW_DTYPES[self.nbits])
+        hdr["nbits"] = self.nbits
         hdr["nsamps"] = data.shape[0]
         return hdr, data
 
@@ -247,19 +636,13 @@ class RawReducer:
                 "blit_torch writes .fil products; .h5 output is a later "
                 "slice (ROADMAP.md Queue 1: '.h5 and resume')")
         raw, hdr = self._open_validated(raw_src)
-        w = FilWriter(out_path, hdr, STOKES_NIF[self.stokes], hdr["nchans"])
         try:
-            for slab in self.stream(raw):
-                with self.timeline.stage("write", nbytes=slab.nbytes):
-                    w.append(slab)
-            w.close()
-        except BaseException:
-            w.abort()
-            raise
+            w = FilWriter(out_path, hdr, STOKES_NIF[self.stokes], hdr["nchans"],
+                          dtype=NARROW_DTYPES[self.nbits])
+            hdr["nsamps"] = self._pump(raw, w)
         finally:
             if raw is not raw_src:
                 raw.close()
-        hdr["nsamps"] = w.nsamps
         return hdr
 
 

@@ -1,46 +1,75 @@
 """``DedopplerReducer``: GUPPI RAW → filterbank spectra → Taylor-tree
 drift search → ``.hits`` products, on one device.
 
-Counterpart of ``blit/search/dedoppler.py``, synchronous path (``blit``
-under ``async_output=False``):
+Counterpart of ``blit/search/dedoppler.py``:
 
-- the inner reduction is a plain :class:`blit_torch.pipeline.RawReducer`
+- the inner reduction is a :class:`blit_torch.pipeline.RawReducer`
   (Stokes I, no fqav) streaming spectra slabs to the host;
-- the window feed re-chunks that stream into fixed ``(window_spectra,
-  nchans)`` windows in a host buffer (pinned on a CUDA device).  Window
-  ``w`` covers spectra ``[w·T, (w+1)·T)``; a trailing partial window is
+- a producer thread (:class:`blit_torch.pipeline.BufferRotation`)
+  re-chunks that stream into fixed ``(window_spectra, nchans)`` window
+  slots from the staging pool (pinned on a CUDA device).  Window ``w``
+  covers spectra ``[w·T, (w+1)·T)``; a trailing partial window is
   dropped;
-- each window goes up to the device and through
+- each window goes up to the device (``non_blocking``) and through
   :func:`blit_torch.ops.dedoppler.dedoppler_hits` (the Taylor tree for
   both drift signs through the Hopper kernel, per-row SNR, threshold and
-  per-band top-k); only the packed hit records come back;
+  per-band top-k); an :class:`blit_torch.outplane.OutputRotation` thread
+  reads the packed hits back while the next window is dispatched, and
+  frees the window's slot once its event has completed;
 - hits are written to the ``.hits`` product (``blit_torch/io/hits.py``)
-  window by window.
+  through a write-behind :class:`blit_torch.outplane.AsyncSink`.
 
-Search knobs left ``None`` resolve from
-:func:`blit_torch.config.search_defaults` (``BLIT_SEARCH_*`` overrides).
-``blit``'s ``kernel=`` / ``interpret=`` knobs are gone: the device picks
-the path, and the paths agree bitwise.  The async window feed and
-readback, ``search_resumable`` with its cursor, and the worker
-entry point are later slices (ROADMAP.md Queue 1).
+``async_output=False`` (or ``BLIT_SYNC_OUTPUT=1``) runs each window's
+device step and readback on the consumer thread, and the inner reducer
+synchronously: the hits are identical.  Search knobs left ``None``
+resolve from :func:`blit_torch.config.search_defaults`
+(``BLIT_SEARCH_*`` overrides).  ``blit``'s ``kernel=`` / ``interpret=``
+knobs are gone: the device picks the path, and the paths agree bitwise.
+``search_resumable`` with its cursor and the worker entry point are
+later slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
+from blit_torch import hostmem
 from blit_torch.config import search_defaults
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
 from blit_torch.io.hits import HitsWriter, WindowHits
 from blit_torch.observability import Timeline
 from blit_torch.ops.dedoppler import _check_window, dedoppler_hits
-from blit_torch.pipeline import RawReducer
+from blit_torch.outplane import (
+    AsyncSink,
+    OutputRotation,
+    readback_extra_slots,
+    record_event,
+)
+from blit_torch.pipeline import BufferRotation, RawReducer
 from blit_torch.search.hits import HIT_COLS, Hit, hits_from_packed, hits_to_array
+
+
+class _Window:
+    """A filled window slot: ``slab`` is its :class:`HostSlab`, valid
+    until :meth:`release`."""
+
+    __slots__ = ("slab", "index", "_idx", "_free")
+
+    def __init__(self, slab, index: int, idx: int, free) -> None:
+        self.slab = slab
+        self.index = index
+        self._idx = idx
+        self._free = free
+
+    def release(self) -> None:
+        if self._free is not None:
+            free, self._free = self._free, None
+            free(self._idx)
 
 
 @dataclass
@@ -65,10 +94,17 @@ class DedopplerReducer:
     snr_threshold: Optional[float] = None
     max_drift_bins: Optional[int] = None
     chunk_frames: Optional[int] = None
+    # The planes' knobs, as on RawReducer (the inner reducer takes them).
+    prefetch_depth: int = 2
+    out_depth: Optional[int] = None
+    async_output: bool = True
+    output_stall_timeout_s: Optional[float] = None
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)
 
     def __post_init__(self):
+        if os.environ.get("BLIT_SYNC_OUTPUT"):
+            self.async_output = False
         d = search_defaults()
         if self.window_spectra is None:
             self.window_spectra = d["window_spectra"]
@@ -86,11 +122,14 @@ class DedopplerReducer:
         self._red = RawReducer(
             nfft=self.nfft, ntap=self.ntap, nint=self.nint, stokes="I",
             window=self.window, dtype=self.dtype,
-            chunk_frames=self.chunk_frames, device=self.device,
-            timeline=self.timeline,
+            chunk_frames=self.chunk_frames, prefetch_depth=self.prefetch_depth,
+            out_depth=self.out_depth, async_output=self.async_output,
+            output_stall_timeout_s=self.output_stall_timeout_s,
+            device=self.device, timeline=self.timeline,
         )
         self.device = self._red.device
         self.chunk_frames = self._red.chunk_frames
+        self.out_depth = self._red.out_depth
 
     # -- identity ----------------------------------------------------------
     def fingerprint_extra(self) -> Dict:
@@ -137,49 +176,121 @@ class DedopplerReducer:
         return raw, self.header_for(raw)
 
     # -- window feed -------------------------------------------------------
-    def _windows(self, raw: GuppiRaw,
-                 nchans: int) -> Iterator[Tuple[int, torch.Tensor]]:
-        """Yield ``(window index, host window)`` in stream order.  The
-        window aliases one host buffer: the consumer is done with it
-        before asking for the next."""
+    def _producer(self, raw: GuppiRaw, nchans: int,
+                  bufs: List[Optional[hostmem.HostSlab]],
+                  rot: BufferRotation) -> None:
+        """Fill the window rotation from the inner reducer's spectra
+        stream (producer thread)."""
         T = self.window_spectra
-        buf = torch.empty((T, nchans), dtype=torch.float32,
-                          pin_memory=self.device.type == "cuda")
-        host = buf.numpy()
+        pinned = self.device.type == "cuda"
+        cur: Optional[int] = None
         filled = 0
         widx = 0
-        for slab in self._red.stream(raw):
+        for slab in self._red._stream(raw):
             data = slab[:, 0, :]  # Stokes-I plane: (nspectra, nchans)
             pos, n = 0, data.shape[0]
             while pos < n:
+                if cur is None:
+                    cur = rot.acquire()
+                    if cur is None:
+                        return  # the consumer abandoned the stream
+                    if bufs[cur] is None:
+                        bufs[cur] = hostmem.slab_pool().take(
+                            (T, nchans), np.float32, pinned=pinned,
+                            timeline=self.timeline)
+                    filled = 0
                 take = min(T - filled, n - pos)
                 with self.timeline.stage("search.window_fill",
                                          nbytes=take * nchans * 4):
-                    host[filled:filled + take] = data[pos:pos + take]
+                    bufs[cur].array[filled:filled + take] = data[pos:pos + take]
                 filled += take
                 pos += take
                 if filled == T:
-                    yield widx, buf
+                    rot.emit(cur, widx)
                     widx += 1
-                    filled = 0
+                    cur = None
+
+    def _windows(self, raw: GuppiRaw, nchans: int,
+                 bufs: List[Optional[hostmem.HostSlab]]) -> Iterator[_Window]:
+        """The pipelined window feed over ``len(bufs)`` slots (filled in
+        as the producer needs them): the consumer must release every
+        window once nothing reads its slot."""
+        rot = BufferRotation(
+            len(bufs), lambda r: self._producer(raw, nchans, bufs, r),
+            name="blit-search-feed")
+        try:
+            for idx, widx in rot.slots():
+                yield _Window(bufs[idx], widx, idx, rot.release)
+        finally:
+            rot.close()
+
+    def _slots(self, extra_slots: int = 0) -> List[Optional[hostmem.HostSlab]]:
+        return [None] * (max(2, self.prefetch_depth) + max(0, extra_slots))
+
+    @staticmethod
+    def _retire(bufs) -> None:
+        """Window slots back to the staging pool, once every window's
+        dispatch has completed."""
+        pool = hostmem.slab_pool()
+        for b in bufs:
+            pool.give(b)
+
+    def _dispatch(self, win: _Window, nbands: int):
+        """The window's H2D copy and search step, launched."""
+        power = win.slab.tensor.to(self.device, non_blocking=True)
+        return dedoppler_hits(power, self.snr_threshold, top_k=self.top_k,
+                              nbands=nbands, max_drift_bins=self.max_drift_bins)
 
     # -- the search stream -------------------------------------------------
     def _search_stream(self, raw: GuppiRaw,
                        hdr: Dict) -> Iterator[Tuple[int, List[Hit]]]:
         """Yield ``(window index, hits)`` in stream order."""
-        nbands = self._nbands(hdr["nchans"])
-        for widx, win in self._windows(raw, hdr["nchans"]):
-            t0 = time.perf_counter()
-            power = win.to(self.device, non_blocking=True)
-            packed = dedoppler_hits(
-                power, self.snr_threshold, top_k=self.top_k, nbands=nbands,
-                max_drift_bins=self.max_drift_bins)
-            packed = packed.cpu().numpy()
-            del power
-            self.timeline.observe("search.tree_s", time.perf_counter() - t0)
+        nchans = hdr["nchans"]
+        nbands = self._nbands(nchans)
+
+        def decode(packed: np.ndarray, widx: int) -> List[Hit]:
             hits = hits_from_packed(packed, widx, hdr)
             self.timeline.observe("search.hits_per_window", len(hits))
-            yield widx, hits
+            return hits
+
+        if not self.async_output:
+            bufs = self._slots()
+            for win in self._windows(raw, nchans, bufs):
+                try:
+                    t0 = time.perf_counter()
+                    packed = self._dispatch(win, nbands).cpu().numpy()
+                    self.timeline.observe("search.tree_s", time.perf_counter() - t0)
+                finally:
+                    win.release()
+                yield win.index, decode(packed, win.index)
+            self._retire(bufs)
+            return
+        def emit(slab) -> Tuple[int, List[Hit]]:
+            widx, t0 = slab.payload
+            self.timeline.observe("search.tree_s", time.perf_counter() - t0)
+            return widx, decode(slab.data, widx)
+
+        depth = max(2, self.out_depth)
+        rot = OutputRotation(depth=depth, timeline=self.timeline, reuse=False,
+                             name="blit-search-readback",
+                             stall_timeout_s=self.output_stall_timeout_s)
+        try:
+            bufs = self._slots(readback_extra_slots(depth, self.prefetch_depth))
+            for win in self._windows(raw, nchans, bufs):
+                t0 = time.perf_counter()
+                with self.timeline.stage("dispatch", byte_free=True):
+                    packed = self._dispatch(win, nbands)
+                    ev = record_event(packed)
+                slabs = rot.put(packed, event=ev, nbytes=win.slab.nbytes,
+                                payload=(win.index, t0), on_consumed=win.release)
+                del packed
+                for slab in slabs:
+                    yield emit(slab)
+            for slab in rot.drain():
+                yield emit(slab)
+            self._retire(bufs)
+        finally:
+            rot.close()
 
     # -- whole-recording entry points --------------------------------------
     def search(self, raw_src: RawSource) -> Tuple[Dict, List[Hit]]:
@@ -211,24 +322,47 @@ class DedopplerReducer:
         hdr.update(nchans=HIT_COLS, nifs=1, nsamps=len(hits))
         return hdr, arr
 
-    def search_to_file(self, raw_src: RawSource, out_path: str) -> Dict:
-        """Search and write a ``.hits`` product (published by renaming
-        its ``.partial`` sibling).  Returns the header."""
-        raw, hdr = self._open_validated(raw_src)
-        w = HitsWriter(out_path, hdr)
+    def _pump(self, raw: GuppiRaw, hdr: Dict, writer) -> int:
+        """Drive the search stream into a ``.hits`` writer (write-behind
+        through an :class:`AsyncSink` on the asynchronous plane) and
+        finalize it.  Returns the hits written; on error the writer is
+        aborted and the error re-raised."""
+        if not self.async_output:
+            try:
+                for widx, hits in self._search_stream(raw, hdr):
+                    wh = WindowHits(widx, hits)
+                    with self.timeline.stage("search.write", nbytes=wh.nbytes):
+                        writer.append(wh)
+                with self.timeline.stage("search.close"):  # fsync, rename
+                    writer.close()
+            except BaseException:
+                writer.abort()
+                raise
+            return writer.nsamps
+        sink = AsyncSink(writer, depth=max(2, self.out_depth),
+                         timeline=self.timeline,
+                         stall_timeout_s=self.output_stall_timeout_s,
+                         stage="search.write")
         try:
             for widx, hits in self._search_stream(raw, hdr):
-                wh = WindowHits(widx, hits)
-                with self.timeline.stage("search.write", nbytes=wh.nbytes):
-                    w.append(wh)
-            with self.timeline.stage("search.close"):  # fsync, rename
-                w.close()
+                sink.append(WindowHits(widx, hits))
+            with self.timeline.stage("search.close"):  # flush, fsync, rename
+                sink.close()
         except BaseException:
-            w.abort()
+            sink.abort()
             raise
+        return sink.nsamps
+
+    def search_to_file(self, raw_src: RawSource, out_path: str) -> Dict:
+        """Search and write a ``.hits`` product (published by renaming
+        its ``.partial`` sibling; byte-identical between the synchronous
+        and asynchronous planes).  Returns the header."""
+        raw, hdr = self._open_validated(raw_src)
+        try:
+            w = HitsWriter(out_path, hdr)
+            hdr["search_nhits"] = self._pump(raw, hdr, w)
         finally:
             if raw is not raw_src:
                 raw.close()
-        hdr["search_nhits"] = w.nsamps
         hdr["search_windows"] = w.nwindows
         return hdr

@@ -156,6 +156,24 @@ Phases, in order; any failure exits non-zero:
       correlate_stream over windows of 15 frames (5 windows, 5 launches
       of each) bitwise equal to correlate(acc_frames=15); stage seconds
       and RAW GB/s.
+  (n) the asynchronous ingest and output plane, on (d)'s recording before
+      it is deleted and on (k)'s and (l)'s array recordings: each product
+      through reduce_to_file on the asynchronous plane (the default, which
+      (d), (h) and (i) also take) and with async_output=False, in turns,
+      three times: the .fil files byte-identical and the launches equal; 0002
+      at nbits=8 (quant_scale mapping the f32 product's median to 100,
+      quant_offset 3) async against sync, byte-identical, and bitwise the
+      host narrowing of the f32 product; narrow_device on the card against
+      narrow_host at nbits 8 and 16; the search (h) async against sync,
+      three times, the .hits identical; beamform_stream and
+      correlate_stream with prefetch_depth 1 (the synchronous feed), 2 and
+      3, in turns, three times, each bitwise equal to the one-shot form,
+      the launches equal.  For each run: RAW GB/s, the stage table
+      (ingest, state, dispatch, device, readback, write, stream),
+      overlap_efficiency and the host staging allocations (pinned;
+      seconds, count, GB); then one "plane table" line per path and mode:
+      the RAW GB/s median and range, the median stage seconds and
+      overlap efficiency, the allocations summed.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -291,7 +309,7 @@ def log(msg: str) -> None:
 def stage_table(tl) -> dict:
     """A Timeline's stages as {name: {"s": seconds, "GB": bytes / 1e9}}."""
     return {k: {"s": round(v.seconds, 4), "GB": round(v.bytes / 1e9, 4)}
-            for k, v in tl.stages.items()}
+            for k, v in list(tl.stages.items())}
 
 
 def median_ms(torch, fn, runs: int = 7) -> float:
@@ -1439,11 +1457,14 @@ def window_breakdown(torch, dev, red, host_window, nbands):
 def search_summary(red, hdr, wall, extra):
     st = red.timeline.stages
     stages = stage_table(red.timeline)
-    tree_s = sorted(red.timeline.observations["search.tree_s"])
+    # search.tree_s is the synchronous path's per-window time; on the
+    # asynchronous plane the windows overlap, and the stage table holds
+    # the readback thread's waits ("device").
+    tree_s = sorted(red.timeline.observations.get("search.tree_s", []))
     gbps = st["ingest"].bytes / st["stream"].seconds / 1e9
     return dict(windows=hdr["search_windows"], hits=hdr["search_nhits"],
                 wall_s=wall, windows_per_s=hdr["search_windows"] / wall,
-                window_device_s_median=tree_s[len(tree_s) // 2],
+                window_device_s_median=tree_s[len(tree_s) // 2] if tree_s else None,
                 window_device_s_sum=sum(tree_s), raw_gb=st["ingest"].bytes / 1e9,
                 raw_gbps=gbps, realtime_factor=gbps / REALTIME_BANK_GBPS,
                 stages=stages, **extra)
@@ -1974,6 +1995,297 @@ def phase_correlator(torch, dev, tmp):
     return counts, records
 
 
+# -- (n) the asynchronous plane -----------------------------------------------
+
+PLANE_REPEATS = 3          # async and sync runs of each product, in turns
+PLANE_DEPTHS = (1, 2, 3)   # feed depths of the array streams (1: synchronous)
+QUANT_NBITS = 8
+QUANT_MEDIAN_TO = 100.0    # quant_scale maps the f32 product's median here
+QUANT_OFFSET = 3.0
+
+
+def plane_summary(tl, wall, **extra) -> dict:
+    """RAW GB/s over the loop's wall, the stage table, the overlap
+    efficiency and the host staging allocations of one plane run."""
+    st = tl.stages
+    stream_s = st["stream"].seconds
+    alloc = st["staging.alloc"]
+    return dict(extra, wall_s=wall, raw_gb=st["ingest"].bytes / 1e9,
+                raw_gbps=st["ingest"].bytes / stream_s / 1e9 if stream_s else 0.0,
+                overlap_efficiency=tl.overlap_efficiency(),
+                staging_alloc_s=alloc.seconds, staging_allocs=alloc.calls,
+                staging_alloc_gb=alloc.bytes / 1e9, stages=stage_table(tl))
+
+
+def same_file(a: str, b: str) -> bool:
+    import filecmp
+
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def plane_reduce(torch, raw_path, tmp, product, mode, tag, **kw):
+    """One reduce_to_file of ``product`` in ``mode`` ("async" | "sync"),
+    its launches counted alone.  Returns (path, launches, summary)."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.pipeline import reducer_for_product
+
+    path = os.path.join(tmp, f"plane.{product}.{tag}.{mode}.fil")
+    red = reducer_for_product(product, async_output=mode == "async",
+                              **PRODUCTS[product], **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    red.reduce_to_file(raw_path, path)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_plan(product, tch.last_kernel_plan(), launches)
+    summary = plane_summary(red.timeline, wall, path=product, mode=mode,
+                            nbits=red.nbits)
+    log(f"plane {product} {tag} {mode}: {json.dumps(summary)}")
+    return path, launches, summary
+
+
+def phase_plane_products(torch, dev, raw_path, tmp):
+    """(n) on the recording: each product through reduce_to_file on the
+    asynchronous plane and on the synchronous path, in turns,
+    PLANE_REPEATS times: the .fil files byte-identical, the launches
+    equal; 0002 at nbits=8 the same way, its bytes also equal to the host
+    narrowing of the f32 product, and narrow_device on the card bitwise
+    equal to narrow_host at nbits 8 and 16; then the search, async
+    against sync, in turns, PLANE_REPEATS times, the .hits identical.
+    Returns the summaries."""
+    import numpy as np
+
+    from blit_torch.io.sigproc import read_fil
+    from blit_torch.ops.narrow import narrow_device, narrow_host
+
+    rows = []
+    for product in PRODUCTS:
+        for rep in range(PLANE_REPEATS):
+            got = {}
+            for mode in (("async", "sync") if rep % 2 == 0 else ("sync", "async")):
+                path, launches, summary = plane_reduce(torch, raw_path, tmp, product,
+                                                       mode, f"run{rep + 1}")
+                got[mode] = (path, launches)
+                rows.append(summary)
+            identical = same_file(got["async"][0], got["sync"][0])
+            log(f"plane {product} run {rep + 1}: async .fil byte-identical to sync: "
+                f"{identical}; launches async {json.dumps(got['async'][1])} sync "
+                f"{json.dumps(got['sync'][1])}")
+            if not identical:
+                raise AssertionError(f"plane {product}: the async .fil differs from the sync one")
+            if got["async"][1] != got["sync"][1]:
+                raise AssertionError(f"plane {product}: async and sync ran other kernels")
+            if product == "0002" and rep == 0:
+                f32_path = got["sync"][0]  # kept for the quantized runs
+                os.unlink(got["async"][0])
+            else:
+                for path, _ in got.values():
+                    os.unlink(path)
+
+    # 0002 quantized: the scale maps the f32 product's median to
+    # QUANT_MEDIAN_TO.
+    _, f32 = read_fil(f32_path)
+    f32 = np.array(f32)
+    scale = float(QUANT_MEDIAN_TO / np.median(f32))
+    q = dict(nbits=QUANT_NBITS, quant_scale=scale, quant_offset=QUANT_OFFSET)
+    got = {}
+    for mode in ("async", "sync"):
+        path, launches, summary = plane_reduce(torch, raw_path, tmp, "0002", mode,
+                                               "nbits8", **q)
+        got[mode] = (path, launches)
+        rows.append(summary)
+    _, data = read_fil(got["async"][0])
+    want = narrow_host(f32, QUANT_NBITS, scale, QUANT_OFFSET)
+    identical = same_file(got["async"][0], got["sync"][0])
+    host_equal = bool(np.array_equal(np.asarray(data), want))
+    clipped = float((want == 255).mean())
+    log(f"plane 0002 nbits={QUANT_NBITS} quant_scale={scale!r} "
+        f"quant_offset={QUANT_OFFSET!r}: async .fil byte-identical to sync: "
+        f"{identical}; data bitwise narrow_host(f32 product): {host_equal}; "
+        f"share at 255: {clipped:.4g}; dtype {data.dtype}")
+    if not (identical and host_equal and data.dtype == np.uint8):
+        raise AssertionError("plane 0002 nbits=8: the quantized products differ")
+    if got["async"][1] != got["sync"][1]:
+        raise AssertionError("plane 0002 nbits=8: async and sync ran other kernels")
+    for path, _ in got.values():
+        os.unlink(path)
+    x = torch.from_numpy(f32).to(dev)
+    for nbits in (8, 16):
+        for s, o in ((scale, QUANT_OFFSET), (scale * 0.5, 0.5)):
+            dev_q = narrow_device(x, nbits, s, o).cpu().numpy()
+            ok = bool(np.array_equal(dev_q, narrow_host(f32, nbits, s, o)))
+            log(f"narrow_device on the card, nbits={nbits}, scale {s!r}, offset {o!r}: "
+                f"bitwise narrow_host: {ok} ({dev_q.dtype})")
+            if not ok:
+                raise AssertionError(f"narrow_device nbits={nbits} differs from narrow_host")
+    del x
+    os.unlink(f32_path)
+
+    # The search, async against sync, in turns.
+    for rep in range(PLANE_REPEATS):
+        rows += plane_search(torch, raw_path, tmp, rep)
+    return rows
+
+
+def plane_search(torch, raw_path, tmp, rep):
+    """One async and one sync search_to_file (order by ``rep``): the .hits
+    identical, the launches equal.  Returns the two summaries."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dedoppler as tpd
+    from blit_torch.search import DedopplerReducer
+
+    rows = []
+    got = {}
+    for mode in (("async", "sync") if rep % 2 == 0 else ("sync", "async")):
+        red = DedopplerReducer(nfft=SEARCH_NFFT, nint=1, async_output=mode == "async")
+        out = os.path.join(tmp, f"plane.{mode}.hits")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hdr = red.search_to_file(raw_path, out)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        windows = hdr["search_windows"]
+        check_plan("search", tch.last_kernel_plan(), launches,
+                   tpd.kernel_route(red.window_spectra)[1] * windows)
+        summary = plane_summary(red.timeline, wall, path="search", mode=mode,
+                                windows=windows, hits=hdr["search_nhits"])
+        log(f"plane search run{rep + 1} {mode}: {json.dumps(summary)}")
+        rows.append(summary)
+        got[mode] = (out, launches)
+    identical = same_file(got["async"][0], got["sync"][0])
+    log(f"plane search run {rep + 1}: async .hits identical to sync: {identical}")
+    if not identical:
+        raise AssertionError("plane search: the async .hits differ from the sync ones")
+    if got["async"][1] != got["sync"][1]:
+        raise AssertionError("plane search: async and sync ran other kernels")
+    for path, _ in got.values():
+        os.unlink(path)
+    return rows
+
+
+PLANE_STAGES = ("ingest", "state", "dispatch", "device", "readback", "write",
+                "search.window_fill", "search.write", "stream", "staging.alloc")
+
+
+def plane_table(rows) -> list:
+    """(n)'s runs grouped by path and mode (or feed depth): RAW GB/s
+    median and range, the median seconds of each stage, the median
+    overlap efficiency, and the host staging allocations summed."""
+    import statistics
+
+    groups = {}
+    for r in rows:
+        mode = r.get("mode") or f"depth {r['prefetch_depth']}"
+        if r.get("nbits", 32) != 32:
+            mode += f" nbits={r['nbits']}"
+        groups.setdefault((r["path"], mode), []).append(r)
+    table = []
+    for (path, mode), rs in groups.items():
+        rates = [r["raw_gbps"] for r in rs]
+        table.append(dict(
+            path=path, mode=mode, runs=len(rs),
+            raw_gbps_median=statistics.median(rates),
+            raw_gbps_range=[min(rates), max(rates)],
+            stage_s_median={k: statistics.median(r["stages"].get(k, {}).get("s", 0.0)
+                                                 for r in rs)
+                            for k in PLANE_STAGES},
+            overlap_efficiency_median=statistics.median(
+                r["overlap_efficiency"] for r in rs),
+            staging_alloc_s_sum=sum(r["staging_alloc_s"] for r in rs),
+            staging_allocs_sum=sum(r["staging_allocs"] for r in rs),
+            staging_alloc_gb_sum=sum(r["staging_alloc_gb"] for r in rs)))
+    return table
+
+
+def plane_depth_turns() -> list:
+    """PLANE_DEPTHS PLANE_REPEATS times, every other pass reversed."""
+    return [d for rep in range(PLANE_REPEATS)
+            for d in (PLANE_DEPTHS if rep % 2 == 0 else PLANE_DEPTHS[::-1])]
+
+
+def phase_plane_array(torch, dev, tmp):
+    """(n) on the array recordings of (k) and (l): beamform_stream and
+    correlate_stream at feed depths PLANE_DEPTHS (1: the synchronous
+    feed), in turns, PLANE_REPEATS times, each bitwise equal to the
+    one-shot form, the launches equal.  Returns the summaries."""
+    import numpy as np
+
+    from blit_torch.ops import beamform as tbf
+    from blit_torch.ops import channelize as tch
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import beamform as B
+    from blit_torch.parallel import correlator as C
+
+    rows = []
+    bf_paths = [os.path.join(tmp, f"bf{a}.raw") for a in range(ARRAY_NANT)]
+    rng = np.random.default_rng(SEED)
+    w = tbf.pack_weights(*B.delay_weights_planar(
+        rng.uniform(0, 1e-9, (BF_NBEAM, ARRAY_NANT)),
+        np.linspace(1e9, 1.1e9, BF_NCHAN), device=dev))
+    _, vall = A.load_antennas(bf_paths, layout="chan", device=dev)
+    whole = B.beamform(vall, w, nint=BF_NINT, layout="chan", device=dev).cpu()
+    del vall
+    fused = {"layout": "chan", "fused": True, "impl": "cuda"}
+    for depth in plane_depth_turns():
+        feed = A.AntennaStream(bf_paths, window_samples=BF_SAMPLES, layout="chan",
+                               prefetch_depth=depth, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with feed.timeline.stage("stream"):  # the call's wall
+            slabs = list(B.beamform_stream(feed, w, nint=BF_NINT, layout="chan",
+                                           timeline=feed.timeline, device=dev))
+        wall = time.perf_counter() - t0
+        check_array(f"plane beamform stream depth {depth}", B.last_beamform_plan(),
+                    fused, read_launches(), {"fused_beamform_detect": BF_WINDOWS})
+        equal = bool(torch.equal(torch.cat(slabs, dim=3), whole))
+        summary = plane_summary(feed.timeline, wall, path="beamform stream",
+                                prefetch_depth=depth, bitwise_equal_one_shot=equal)
+        log(f"plane beamform stream depth {depth}: {json.dumps(summary)}")
+        rows.append(summary)
+        if not equal:
+            raise AssertionError(f"plane beamform stream depth {depth} differs "
+                                 "from the one-shot beamform")
+    del whole, slabs, w
+
+    fx_paths = [os.path.join(tmp, f"fx{a}.raw") for a in range(ARRAY_NANT)]
+    h = torch.from_numpy(tch.pfb_coeffs(NTAP, FX_NFFT)).to(dev)
+    _, v = A.load_correlator(fx_paths, nfft=FX_NFFT, ntap=NTAP, device=dev)
+    acc = C.correlate(v, h, nfft=FX_NFFT, ntap=NTAP, vis_layout="packed",
+                      acc_frames=FX_WINDOW_FRAMES, device=dev)
+    del v
+    packed = {"layout": "packed", "engine": "cuda", "impl": "cuda"}
+    for depth in plane_depth_turns():
+        feed = A.CorrelatorStream(fx_paths, nfft=FX_NFFT, ntap=NTAP,
+                                  window_frames=FX_WINDOW_FRAMES,
+                                  prefetch_depth=depth, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with feed.timeline.stage("stream"):  # the call's wall
+            svis = C.correlate_stream(feed, h, nfft=FX_NFFT, ntap=NTAP,
+                                      vis_layout="packed", timeline=feed.timeline,
+                                      device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_array(f"plane correlate stream depth {depth}", C.last_xengine_plan(),
+                    packed, read_launches(),
+                    {"xengine_packed": feed.nwindows, "dft_last": feed.nwindows})
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(svis, acc))
+        summary = plane_summary(feed.timeline, wall, path="correlate stream",
+                                prefetch_depth=depth, bitwise_equal_acc_frames=equal)
+        log(f"plane correlate stream depth {depth}: {json.dumps(summary)}")
+        rows.append(summary)
+        if not equal:
+            raise AssertionError(f"plane correlate stream depth {depth} differs "
+                                 "from correlate(acc_frames)")
+    del acc, svis
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2025,6 +2337,8 @@ def main() -> int:
                                                  product)
         launches["search"], _ = phase_search(torch, dev, raw_path, tmp)
         launches["hi-res search"], _ = phase_hires_search(torch, dev, raw_path)
+        # (n) the asynchronous plane against the synchronous path
+        plane_rows = phase_plane_products(torch, dev, raw_path, tmp)
         os.unlink(raw_path)
         launches["drift"] = phase_drift(torch, dev, tmp)
     finally:
@@ -2047,8 +2361,17 @@ def main() -> int:
             counts, recs = phase(torch, dev, tmp)
             launches.update(counts)
             records.extend(recs)
+        plane_rows += phase_plane_array(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    from blit_torch import hostmem
+
+    for row in plane_table(plane_rows):
+        log(f"plane table: {json.dumps(row)}")
+    log(f"plane: {len(plane_rows)} runs passed; staging pool "
+        f"{json.dumps(hostmem.slab_pool().stats())}")
+    log(f"plane card: {smi}")
 
     # One record per kernel: the f32 variant at its first path's shape.
     total = {k: sum(c[k] for c in launches.values()) for k in COUNTED}

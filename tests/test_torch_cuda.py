@@ -744,3 +744,145 @@ def test_channelize_opt_in_routes_run_the_kernels(dev, case):
         # The default plan computes the same product through other kernels.
         default = tch.channelize(v, h, nfft=nfft, nint=nint, device=dev)
         _close(got, default, 1e-4, 1e-2)
+
+
+# -- the asynchronous plane on the card -------------------------------------
+
+
+@pytest.mark.cuda
+def test_host_slabs_are_pinned_views_of_one_allocation(dev):
+    from blit_torch import hostmem
+
+    slab = hostmem.HostSlab((64, 33), np.uint16, pinned=True)
+    assert slab.tensor.is_pinned() and slab.bytes.is_pinned()
+    assert slab.tensor.dtype == torch.uint16 and slab.array.dtype == np.uint16
+    slab.array[...] = np.arange(64 * 33, dtype=np.uint16).reshape(64, 33)
+    assert slab.bytes.data_ptr() == slab.array.ctypes.data
+    back = slab.bytes.to(dev, non_blocking=True).cpu()
+    assert torch.equal(back, slab.bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reuse", [False, True])
+def test_output_rotation_reads_back_through_events(dev, reuse):
+    # Each output is dropped by the caller right after put and its memory
+    # is asked for again at once: if the readback did not hold the output
+    # until its copy synchronized, or copied before the event, a slab
+    # would read the -1 fill or a half-written value.
+    from blit_torch.outplane import OutputRotation, record_event
+
+    shape = (1 << 20,)
+    rot = OutputRotation(depth=2, reuse=reuse)
+    got = []
+
+    def take(slabs):
+        for s in slabs:
+            got.append((float(s.data.min()), float(s.data.max()),
+                        s.data.ctypes.data))
+            s.release()
+
+    try:
+        x = torch.ones(shape, device=dev)
+        for i in range(12):
+            out = x * float(i)
+            for _ in range(20):  # enough work that the event matters
+                out = out * 1.0
+            ev = record_event(out)
+            slabs = rot.put(out, event=ev, nbytes=out.numel() * 4)
+            del out
+            junk = torch.full(shape, -1.0, device=dev)
+            take(slabs)
+            del junk
+        take(rot.drain())
+    finally:
+        rot.close()
+    assert [(lo, hi) for lo, hi, _ in got] == [(float(i), float(i)) for i in range(12)]
+    if reuse:
+        assert len({p for _, _, p in got}) <= 3  # the pinned ring
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [8, 16])
+def test_narrow_device_bitwise_on_the_card(dev, nbits):
+    from blit_torch.ops.narrow import narrow_device, narrow_host
+
+    rng = np.random.default_rng(nbits)
+    x = rng.normal(100.0, 80.0, (257, 1031)).astype(np.float32)
+    x[0, :10] = [0.5, 1.5, 2.5, -0.5, 254.5, 255.5, 65534.5, 65535.5, 1e9, -1e9]
+    for scale, offset in ((1.0, 0.0), (0.5, 2.0), (0.1, -7.0), (300.0, 0.5)):
+        got = narrow_device(torch.from_numpy(x).to(dev), nbits, scale, offset)
+        want = narrow_host(x, nbits, scale, offset)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [32, 8, 16])
+def test_reducer_plane_async_equals_sync_on_the_card(dev, tmp_path, nbits):
+    from blit_torch.pipeline import RawReducer
+    from blit_torch.testing import synth_raw
+
+    raw = str(tmp_path / "x.raw")
+    synth_raw(raw, nblocks=3, obsnchan=4, ntime_per_block=1 << 15, tone_chan=1)
+    kw = dict(nfft=1024, nint=4, chunk_frames=16, nbits=nbits,
+              quant_scale=1e-3, quant_offset=0.5, device=dev)
+    files = []
+    for mode in (True, False, True):
+        p = str(tmp_path / f"{len(files)}.fil")
+        tpfb.pfb_dequant.launches = 0
+        RawReducer(async_output=mode, **kw).reduce_to_file(raw, p)
+        assert tpfb.pfb_dequant.launches > 0
+        with open(p, "rb") as f:
+            files.append(f.read())
+    assert files[0] == files[1] == files[2]
+
+
+@pytest.mark.cuda
+def test_search_plane_async_equals_sync_on_the_card(dev, tmp_path):
+    from blit_torch.search import DedopplerReducer
+    from blit_torch.testing import synth_raw
+
+    raw = str(tmp_path / "x.raw")
+    synth_raw(raw, nblocks=2, obsnchan=2, ntime_per_block=1024 * 80, tone_chan=1)
+    out = []
+    for mode in (True, False):
+        p = str(tmp_path / f"{mode}.hits")
+        tpd.taylor_tree.launches = 0
+        hdr = DedopplerReducer(nfft=1024, window_spectra=16, async_output=mode,
+                               device=dev).search_to_file(raw, p)
+        assert hdr["search_windows"] > 2 and tpd.taylor_tree.launches > 0
+        with open(p) as f:
+            out.append(f.read())
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_antenna_feeds_through_pinned_slots(dev, tmp_path):
+    from blit_torch.ops.channelize import pfb_coeffs
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import beamform as B
+    from blit_torch.parallel import correlator as C
+    from blit_torch.testing import synth_raw
+
+    paths = []
+    for a in range(8):
+        p = str(tmp_path / f"a{a}.raw")
+        synth_raw(p, nblocks=2, obsnchan=4, ntime_per_block=2048, seed=a,
+                  tone_chan=a % 4)
+        paths.append(p)
+    rng = np.random.default_rng(1)
+    w = B.delay_weights_planar(rng.uniform(0, 1e-9, (5, 8)),
+                               np.linspace(1e9, 1.1e9, 4), device=dev)
+    _, v = A.load_antennas(paths, device=dev)
+    one = B.beamform(v, w, nint=8, device=dev).cpu()
+    h = torch.from_numpy(pfb_coeffs(4, 64)).to(dev)
+    _, vc = A.load_correlator(paths, nfft=64, device=dev)
+    acc = C.correlate(vc, h, nfft=64, acc_frames=7, device=dev)
+    for depth in (1, 2, 3):
+        feed = A.AntennaStream(paths, window_samples=512, prefetch_depth=depth,
+                               device=dev)
+        slabs = list(B.beamform_stream(feed, w, nint=8, device=dev))
+        assert torch.equal(torch.cat(slabs, dim=2), one)
+        feed = A.CorrelatorStream(paths, nfft=64, window_frames=7,
+                                  prefetch_depth=depth, device=dev)
+        got = C.correlate_stream(feed, h, nfft=64, device=dev)
+        assert torch.equal(got[0], acc[0]) and torch.equal(got[1], acc[1])

@@ -126,8 +126,15 @@ def test_reducer_from_reference_coeffs_bitwise():
     red = reducer_from_reference(fields, coeffs, device="cpu")
     np.testing.assert_array_equal(red.coeffs.numpy(), coeffs)
     assert (red.nfft, red.nint, red.stokes, red.chunk_frames) == (NFFT, 2, "IQUV", 4)
-    with pytest.raises(NotImplementedError, match="nbits"):
-        reducer_from_reference(dict(fields, nbits=8), coeffs, device="cpu")
+    # The quantization and the plane's knobs are taken over too.
+    q = reducer_from_reference(
+        dict(fields, nbits=8, quant_scale=0.5, quant_offset=3.0,
+             prefetch_depth=3, out_depth=4, async_output=False),
+        coeffs, device="cpu")
+    assert (q.nbits, q.quant_scale, q.quant_offset) == (8, 0.5, 3.0)
+    assert (q.prefetch_depth, q.out_depth, q.async_output) == (3, 4, False)
+    with pytest.raises(ValueError, match="nbits"):
+        reducer_from_reference(dict(fields, nbits=12), coeffs, device="cpu")
 
 
 def test_synth_raw_bitwise_equal_to_blit(tmp_path):

@@ -33,7 +33,8 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.io.hits", "blit_torch.ops.beamform",
             "blit_torch.ops.xengine", "blit_torch.parallel",
             "blit_torch.parallel.antenna", "blit_torch.parallel.beamform",
-            "blit_torch.parallel.correlator"} <= set(mods)
+            "blit_torch.parallel.correlator", "blit_torch.hostmem",
+            "blit_torch.outplane", "blit_torch.ops.narrow"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
