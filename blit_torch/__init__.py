@@ -35,6 +35,15 @@ asynchronous ingest and output plane (:mod:`blit_torch.pipeline`'s
 host reads, the device's work, readback and the file write overlap;
 ``async_output=False`` runs the synchronous path, byte-identical.
 
+Around the path, as in ``blit``: ``.h5`` products
+(:mod:`blit_torch.io.fbh5`, bitshuffle through the port's own codec),
+crash-resumable reductions and searches (``reduce_resumable``,
+``search_resumable``), product manifests and RAW digest checks
+(:mod:`blit_torch.integrity`), the fault registry
+(:mod:`blit_torch.faults`), multi-file ``.NNNN.raw`` scans and the
+threaded native reader (:mod:`blit_torch.io.guppi`, built with g++ at
+first use).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

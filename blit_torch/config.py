@@ -1,16 +1,20 @@
 """Site defaults of the search plane and their environment overrides.
 
 Counterpart of the search part of ``blit/config.py``: the four
-``SiteConfig.search_*`` knobs with the same defaults, and
-:func:`search_defaults` with the same ``BLIT_SEARCH_*`` overrides.  The
-rest of ``blit``'s ``SiteConfig`` (I/O, serving, streaming) comes with
-the planes that read it.
+``SiteConfig.search_*`` knobs with the same defaults,
+:func:`search_defaults` with the same ``BLIT_SEARCH_*`` overrides, and
+:func:`nfpc_from_foff`, which the ``.h5`` reader needs.  The rest of
+``blit``'s ``SiteConfig`` (I/O, serving, streaming) comes with the
+planes that read it.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional
+
+# One GBT coarse channel: 187.5 MHz over 64 channels.
+COARSE_MHZ = 187.5 / 64
 
 # Taylor-tree integration window: spectra per drift transform, a power of
 # two (the drift resolution is one bin per window).
@@ -43,3 +47,9 @@ def search_defaults() -> Dict:
             "BLIT_SEARCH_SNR", SEARCH_SNR_THRESHOLD)),
         "max_drift_bins": max_drift,
     }
+
+
+def nfpc_from_foff(foff_mhz: float) -> int:
+    """Fine channels per coarse channel implied by a filterbank's channel
+    width: ``round(COARSE_MHZ / |foff|)``."""
+    return int(round(COARSE_MHZ / abs(foff_mhz)))

@@ -1,4 +1,4 @@
-"""GUPPI RAW voltage-file codec (single file).
+"""GUPPI RAW voltage-file codec: one file, or a multi-file scan.
 
 Counterpart of ``blit/io/guppi.py``.  A RAW file is a sequence of blocks,
 each a FITS-like header (80-byte ``KEY = value`` cards ending at ``END``,
@@ -9,22 +9,45 @@ padded to 512 bytes when ``DIRECTIO=1``) followed by ``BLOCSIZE`` bytes of
 
 ``NPOL=4`` means two polarizations of complex data.  The trailing
 ``OVERLAP`` samples of every block repeat at the start of the next, so
-the gap-free stream drops them from every block but the last.
+the gap-free stream drops them from every block but the last, across
+file boundaries too: :class:`GuppiScan` presents a ``.NNNN.raw``
+sequence as one block stream.
 
-This slice ports the single-file reader and the writer; the native
-threaded reader, fault injection, digest verification and multi-file
-scan sequences of ``blit`` are later work.
+Reads go through the threaded native reader (``native/guppi.cc``, built
+by :mod:`blit_torch.io.native` on first use) when it builds, else one
+``preadv`` per channel row.  Every read runs under
+:func:`blit_torch.faults.retry_io` with the ``guppi.open`` /
+``guppi.read`` injection points inside the retry loop, and is verified
+against a ``<member>.digests.json`` sidecar when one exists
+(:mod:`blit_torch.integrity`): a block that fails is delivered
+zero-filled and listed in ``bad_blocks``.
 """
 
 from __future__ import annotations
 
+import glob
+import logging
 import os
-from typing import Dict, List, Sequence, Tuple, Union
+import re
+import time
+import zlib
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from blit_torch import faults
+
+log = logging.getLogger("blit_torch.guppi")
+
 CARD_LEN = 80
 DIRECTIO_ALIGN = 512
+
+# A scan is recorded as a *sequence* of files sharing a stem:
+#   guppi_<imjd>_<smjd>_[n_]<src>_<scan>.0000.raw, .0001.raw, ...
+# (the NNNN of GBT's file names).  The block stream continues across
+# file boundaries (same OVERLAP convention), so a whole scan is reduced
+# as one gap-free stream, as rawspec does.
+SEQ_RE = re.compile(r"^(?P<stem>.+)\.(?P<seq>\d{4})\.raw$")
 
 
 def _parse_card_value(raw: str):
@@ -58,8 +81,11 @@ def _format_card(key: str, value) -> bytes:
 
 
 def read_raw_header(f) -> Tuple[Dict, int]:
-    """Read one block header at the current position.  Returns
-    ``(header, data_offset)``; raises ``EOFError`` at end of file."""
+    """Read one block header from the current file position.
+
+    Returns ``(header, data_offset)`` where ``data_offset`` accounts for
+    DIRECTIO padding.  Raises ``EOFError`` at end of file.
+    """
     hdr: Dict = {}
     start = f.tell()
     while True:
@@ -77,7 +103,8 @@ def read_raw_header(f) -> Tuple[Dict, int]:
         hdr[key] = _parse_card_value(text.split("=", 1)[1])
     end = f.tell()
     if hdr.get("DIRECTIO", 0):
-        f.seek((-(end - start)) % DIRECTIO_ALIGN, os.SEEK_CUR)
+        pad = (-(end - start)) % DIRECTIO_ALIGN
+        f.seek(pad, os.SEEK_CUR)
     return hdr, f.tell()
 
 
@@ -85,31 +112,125 @@ def block_ntime(hdr: Dict) -> int:
     """Time samples per block implied by the header."""
     npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
     nbits = hdr.get("NBITS", 8)
-    return hdr["BLOCSIZE"] // (hdr["OBSNCHAN"] * npol * 2 * nbits // 8)
+    bytes_per_samp = hdr["OBSNCHAN"] * npol * 2 * nbits // 8
+    return hdr["BLOCSIZE"] // bytes_per_samp
 
 
-class GuppiRaw:
-    """One GUPPI RAW file: indexed (header, voltage block) access.  Block
-    boundaries are scanned once (headers only); blocks are read on
-    demand with positional reads straight into the caller's buffer."""
+class _BlockStream:
+    """Shared gap-free-stream semantics over an indexed block sequence.
 
-    def __init__(self, path: str):
+    Subclasses provide ``nblocks``, ``header(i)`` and ``read_block(i)``; this
+    base owns the one overlap-trim rule (every block but the stream's last
+    drops its trailing ``OVERLAP`` samples — they repeat at the start of the
+    next block, whether or not a file boundary intervenes).
+    """
+
+    def block_ntime_kept(self, i: int) -> int:
+        """Time samples block ``i`` contributes to the gap-free stream."""
+        hdr = self.header(i)
+        nt = block_ntime(hdr)
+        if i < self.nblocks - 1:
+            nt -= hdr.get("OVERLAP", 0)
+        return nt
+
+    def iter_blocks(
+        self, drop_overlap: bool = False
+    ) -> Iterator[Tuple[Dict, np.ndarray]]:
+        """Yield ``(header, block)`` pairs; ``drop_overlap=True`` trims the
+        trailing ``OVERLAP`` samples of every block except the last, giving a
+        gap-free concatenation along time."""
+        for i in range(self.nblocks):
+            hdr = self.header(i)
+            block = self.read_block(i)
+            if drop_overlap and i < self.nblocks - 1:
+                ov = hdr.get("OVERLAP", 0)
+                if ov:
+                    block = block[:, :-ov]
+            yield hdr, block
+
+    def time_span_s(self) -> float:
+        """Total (overlap-corrected) duration covered by the stream."""
+        if not self.nblocks:
+            return 0.0
+        tbin = self.header(0).get("TBIN", 0.0)
+        return sum(self.block_ntime_kept(i) for i in range(self.nblocks)) * tbin
+
+
+class GuppiRaw(_BlockStream):
+    """One GUPPI RAW file: indexed access to (header, voltage-block) pairs.
+
+    Scans block boundaries once at construction (headers only), then
+    reads blocks on demand.  With the native reader (``native/guppi.cc``)
+    a block read fans ``pread`` across threads; without it, one
+    ``preadv`` per channel row on the calling thread.
+
+    ``native``: ``None`` builds and takes the native reader when it can;
+    ``True`` requires it (raises when it cannot be built); ``False``
+    takes the Python reader.  ``self.native`` says which was taken.
+    """
+
+    def __init__(self, path: str, native: Optional[bool] = None):
         self.path = path
         self.headers: List[Dict] = []
         self._data_offsets: List[int] = []
-        self._fd = None
-        size = os.path.getsize(path)
-        with open(path, "rb") as f:
-            while True:
-                try:
-                    hdr, off = read_raw_header(f)
-                except EOFError:
-                    break
-                if off + hdr["BLOCSIZE"] > size:
-                    break  # truncated trailing block
-                self.headers.append(hdr)
-                self._data_offsets.append(off)
-                f.seek(hdr["BLOCSIZE"], os.SEEK_CUR)
+        self._pread_fd: Optional[int] = None  # lazy readinto descriptor
+        if native is None or native:
+            from blit_torch.io.native import guppi_lib
+
+            have = guppi_lib() is not None
+            if native and not have:
+                from blit_torch.io.native import build_error
+
+                raise RuntimeError("native GUPPI reader unavailable: "
+                                   f"{build_error('guppi')}")
+            self.native = have
+        else:
+            self.native = False
+
+        def _scan():
+            # Retried as a unit: a transient failure mid-scan must not
+            # leave a half-indexed file behind (faults.retry_io classifies
+            # — FileNotFoundError etc. stay immediate).
+            faults.fire("guppi.open", key=path)
+            headers, offsets = [], []
+            with open(path, "rb") as f:
+                size = os.path.getsize(path)
+                while True:
+                    try:
+                        hdr, off = read_raw_header(f)
+                    except EOFError:
+                        break
+                    if off + hdr["BLOCSIZE"] > size:
+                        break  # truncated trailing block
+                    headers.append(hdr)
+                    offsets.append(off)
+                    f.seek(hdr["BLOCSIZE"], os.SEEK_CUR)
+            return headers, offsets
+
+        self.headers, self._data_offsets = faults.retry_io(
+            _scan, describe=f"guppi open {path}"
+        )
+        # Ingest verification: when a per-member digest sidecar exists
+        # (<path>.digests.json, blit_torch/integrity.py) every
+        # delivered block is verified — the on-disk payload against the
+        # sidecar at first touch (bit rot), the delivered frame against
+        # the on-disk bytes per delivery (an in-flight flip, the seeded
+        # ``corrupt`` fault mode's shape) — and a mismatched block is
+        # ZERO-FILLED (the zero-weight mask rule applied to blocks: it
+        # contributes nothing downstream) instead of
+        # propagating garbage.  bad_blocks is the per-reader mask set the
+        # reducer surfaces into the product header (_masked_blocks).
+        self.bad_blocks: set = set()
+        self._block_digests: Optional[List[int]] = None
+        self._digest_ok_memo: Dict[int, bool] = {}
+        self._integrity_dumped = False
+        self._verify_map: Optional[np.ndarray] = None  # lazy flat mmap
+        from blit_torch import integrity
+
+        if integrity.ingest_verify_enabled():
+            # Raises IntegrityError on a sidecar that exists but does
+            # not parse — never reduce against an untrustworthy sidecar.
+            self._block_digests = integrity.load_raw_digests(path)
 
     @property
     def nblocks(self) -> int:
@@ -118,16 +239,8 @@ class GuppiRaw:
     def header(self, i: int = 0) -> Dict:
         return self.headers[i]
 
-    def block_ntime_kept(self, i: int) -> int:
-        """Samples block ``i`` contributes to the gap-free stream (every
-        block but the last drops its trailing ``OVERLAP``)."""
-        hdr = self.headers[i]
-        nt = block_ntime(hdr)
-        if i < self.nblocks - 1:
-            nt -= hdr.get("OVERLAP", 0)
-        return nt
-
-    def _geometry(self, i: int) -> Tuple[int, int, int]:
+    def _block_geometry(self, i: int) -> Tuple[int, int, int]:
+        """(nchan, ntime, npol) of block ``i`` after NBITS validation."""
         hdr = self.headers[i]
         nbits = hdr.get("NBITS", 8)
         if nbits != 8:
@@ -135,64 +248,522 @@ class GuppiRaw:
         npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
         return hdr["OBSNCHAN"], block_ntime(hdr), npol
 
-    def read_block(self, i: int) -> np.ndarray:
-        """Block ``i`` as int8 ``(obsnchan, ntime, npol, 2)`` (a copy)."""
-        nchan, ntime, npol = self._geometry(i)
-        out = np.empty((nchan, ntime, npol, 2), np.int8)
-        self.read_block_into(i, out)
-        return out
+    # -- ingest verification ---------------------------------------------
+    def _mark_bad(self, i: int, why: str) -> None:
+        """Record block ``i`` as failed verification: counter + flight
+        dump (forced once per reader — the incident trail must exist)
+        + the mask set the reducer mirrors into the product header."""
+        if i in self.bad_blocks:
+            return
+        self.bad_blocks.add(i)
+        self._digest_ok_memo[i] = False
+        faults.incr("integrity.bad_block")
+        log.error(
+            "%s block %d %s; masking it to zero weight and continuing "
+            "degraded", self.path, i, why,
+        )
+        try:
+            from blit_torch.observability import flight_recorder
 
-    def read_block_into(self, i: int, dst: np.ndarray, t0: int = 0,
-                        ntime_keep: int = -1) -> int:
+            rec = flight_recorder()
+            rec.event("integrity", "bad_block", path=self.path, block=i,
+                      why=why)
+            rec.dump(
+                f"integrity: {self.path} block {i} {why}; delivered "
+                "zero-filled (masked) instead of propagating garbage",
+                force=not self._integrity_dumped,
+            )
+            self._integrity_dumped = True
+        except Exception:  # noqa: BLE001 — telemetry must not fail reads
+            pass
+
+    def _digest_ok(self, i: int) -> bool:
+        """Memoized on-disk check of block ``i``: CRC of the payload
+        bytes on disk against the sidecar (bit rot / a flipped byte on
+        the archive).  Runs once per block, on the reading thread, from
+        pages the read itself just pulled hot."""
+        ok = self._digest_ok_memo.get(i)
+        if ok is not None:
+            return ok
+        from blit_torch import integrity
+
+        digests = self._block_digests
+        if digests is None or i >= len(digests):
+            # Sidecar shorter than the recording (it grew since the
+            # digests were taken): the extra blocks are unverifiable,
+            # not bad — deliver them unchecked, as without a sidecar.
+            self._digest_ok_memo[i] = True
+            return True
+        t0 = time.perf_counter()
+        off = self._data_offsets[i]
+        mm = self._vmap()
+        crc = zlib.crc32(
+            mm[off:off + int(self.headers[i]["BLOCSIZE"])]) & 0xFFFFFFFF
+        integrity.observe_verify(time.perf_counter() - t0)
+        ok = crc == digests[i]
+        if not ok:
+            self._mark_bad(i, "failed its on-disk digest "
+                               f"({integrity.hex_crc(crc)} != "
+                               f"{integrity.hex_crc(digests[i])})")
+        self._digest_ok_memo[i] = ok
+        return ok
+
+    def _vmap(self) -> np.ndarray:
+        """The verification view: ONE flat byte memmap over the whole
+        file, built lazily and reused across deliveries (a per-delivery
+        mmap would dominate verification cost on small blocks)."""
+        if self._verify_map is None:
+            self._verify_map = np.memmap(self.path, dtype=np.uint8,
+                                         mode="r")
+        return self._verify_map
+
+    def _delivery_ok(self, i: int, dst: np.ndarray, t0: int,
+                     nt: int) -> bool:
+        """Per-delivery check: the DELIVERED region against the same
+        region on disk (catches an in-flight flip — the seeded
+        ``corrupt`` fault mode — after the disk itself verified).
+        memcmp, not a digest: the disk already verified against the
+        sidecar, so equality IS correctness here, and a vectorized
+        compare costs a fraction of a second CRC pass."""
+        nchan, ntime, npol = self._block_geometry(i)
+        samp = npol * 2
+        row = ntime * samp
+        base = self._data_offsets[i] + t0 * samp
+        mm = self._vmap()
+        t_start = time.perf_counter()
+        try:
+            for c in range(nchan):
+                off = base + c * row
+                got = np.ascontiguousarray(
+                    dst[c, :nt]).view(np.uint8).reshape(-1)
+                if not np.array_equal(got, mm[off:off + nt * samp]):
+                    self._mark_bad(
+                        i, "delivered a frame that does not match the "
+                           "bytes on disk (in-flight corruption)")
+                    return False
+            return True
+        finally:
+            from blit_torch import integrity
+
+            integrity.observe_verify(time.perf_counter() - t_start)
+
+    def _verify_delivery(self, i: int, dst: np.ndarray, t0: int,
+                         nt: int) -> None:
+        """The one masking rule both read paths share: a block that is
+        already bad, fails its on-disk digest, or delivered bytes that
+        do not match disk is ZERO-FILLED in place.
+
+        Masking granularity when a block spans several deliveries:
+        ON-DISK rot is detected at the block's FIRST delivery (the
+        sidecar check runs before any of its bytes emit), so the whole
+        block is zeroed exactly — the zero-filled-oracle identity.  An
+        IN-FLIGHT flip is detected at the corrupted delivery; that
+        delivery and every later one of the block are zeroed, while
+        earlier deliveries already passed the delivered-vs-disk check
+        against sidecar-verified disk bytes — they carried CORRECT
+        data, never garbage.  ``bad_blocks`` / ``_masked_blocks``
+        therefore mean "block contains zero-masked samples"."""
+        bad = i in self.bad_blocks or not self._digest_ok(i)
+        if not bad and not self._delivery_ok(i, dst, t0, nt):
+            bad = True
+        if bad:
+            dst[:, :nt] = 0
+
+    def read_block(self, i: int) -> np.ndarray:
+        """Raw int8 voltages of block ``i``, shaped
+        ``(obsnchan, ntime, npol, 2)`` (last axis = re, im).
+
+        Native path: one threaded read into a fresh buffer.  Fallback: a lazy
+        memmap view (pages in on consumption, single-threaded)."""
+        nchan, ntime, npol = self._block_geometry(i)
+        shape = (nchan, ntime, npol, 2)
+
+        def _read():
+            act = faults.fire("guppi.read", key=self.path)
+            if self.native:
+                from blit_torch.io.native import guppi_pread
+
+                nbytes = nchan * ntime * npol * 2
+                buf = guppi_pread(self.path, self._data_offsets[i], nbytes)
+                arr = buf.view(np.int8).reshape(shape)
+            else:
+                arr = np.memmap(
+                    self.path,
+                    dtype=np.int8,
+                    mode="r",
+                    offset=self._data_offsets[i],
+                    shape=shape,
+                )
+            if act is not None:  # destructive drills apply here too
+                if act.mode == "truncate":
+                    arr = arr[:, : max(
+                        0, ntime - (act.amount or max(1, ntime // 2)))]
+                elif act.mode == "corrupt":
+                    arr = np.array(arr)  # memmaps are read-only views
+                    arr[0] ^= 0x55
+            if self._block_digests is not None and arr.shape[1] == ntime:
+                # Digest-armed whole-block delivery: verify against the
+                # sidecar/disk and deliver zeros on mismatch (masked).
+                bad = i in self.bad_blocks or not self._digest_ok(i)
+                if (not bad and i < len(self._block_digests)
+                        and (self.native or act is not None)):
+                    # Only a COPIED frame (native pread buffer, or a
+                    # drilled act) can diverge from the disk bytes
+                    # _digest_ok just verified — the untouched memmap
+                    # view IS those bytes, a second pass proves
+                    # nothing.  memcmp, not a digest (the
+                    # _delivery_ok rule): the disk already verified,
+                    # so equality IS correctness.
+                    from blit_torch import integrity
+
+                    off = self._data_offsets[i]
+                    t_start = time.perf_counter()
+                    same = np.array_equal(
+                        np.ascontiguousarray(arr).view(
+                            np.uint8).reshape(-1),
+                        self._vmap()[off:off + arr.nbytes])
+                    integrity.observe_verify(
+                        time.perf_counter() - t_start)
+                    if not same:
+                        self._mark_bad(
+                            i, "delivered a frame that does not match "
+                               "the bytes on disk (in-flight "
+                               "corruption)")
+                        bad = True
+                if bad:
+                    arr = np.zeros(shape, np.int8)
+            return arr
+
+        return faults.retry_io(_read, describe=f"guppi read {self.path}")
+
+    def read_block_into(
+        self, i: int, dst: np.ndarray, t0: int = 0, ntime_keep: int = -1
+    ) -> int:
         """Read samples ``[t0, t0+ntime_keep)`` of every channel of block
-        ``i`` into ``dst[:, :ntime_keep]`` (``-1``: to the block's end).
-        ``dst``: int8 ``(nchan, >= ntime_keep, npol, 2)`` whose channel
-        rows are C-contiguous.  Returns the samples written."""
-        nchan, ntime, npol = self._geometry(i)
+        ``i`` directly into ``dst[:, :ntime_keep]`` — the zero-intermediate-
+        copy feed for the streaming ring buffer (blit/pipeline.py).
+
+        ``dst``: int8 ``(nchan, >=ntime_keep, npol, 2)`` with C-contiguous
+        rows (a time-slice view of a C-contiguous ring buffer qualifies).
+        ``ntime_keep=-1`` means through the end of the block.  Returns the
+        samples written — callers MUST treat a short return as a hard
+        failure (a truncated recording); it is never silently padded.
+        Uses the native strided pread when taken, else one ``preadv`` per
+        channel row (a memmap copy where rows are not contiguous).
+
+        Transient ``OSError``\\ s retry under ``blit_torch.faults.io_policy()``;
+        the ``guppi.read`` injection point fires inside the retry loop, so
+        injected transients exercise exactly the production recovery path
+        (``truncate`` rules shorten the read, ``corrupt`` rules bit-flip
+        the delivered frame).
+        """
+        nchan, ntime, npol = self._block_geometry(i)
         if ntime_keep < 0:
             ntime_keep = ntime - t0
         if t0 < 0 or t0 + ntime_keep > ntime:
-            raise ValueError(f"read_block_into: [{t0}, {t0 + ntime_keep}) "
-                             f"outside block of {ntime} samples")
-        if (dst.dtype != np.int8 or dst.shape[0] != nchan
-                or dst.shape[2:] != (npol, 2) or dst.shape[1] < ntime_keep):
+            raise ValueError(
+                f"read_block_into: [{t0}, {t0 + ntime_keep}) outside block "
+                f"of {ntime} samples"
+            )
+        if dst.dtype != np.int8 or dst.shape[0] != nchan or dst.shape[2:] != (npol, 2):
             raise ValueError("read_block_into: dst shape/dtype mismatch")
-        if not dst[0].flags.c_contiguous:
-            raise ValueError("read_block_into: dst rows must be C-contiguous")
         if ntime_keep == 0:
             return 0
-        samp = npol * 2
-        row_bytes = ntime_keep * samp
-        base = self._data_offsets[i] + t0 * samp
-        if self._fd is None:
-            self._fd = os.open(self.path, os.O_RDONLY)
+        samp_bytes = npol * 2
+
+        def _read() -> int:
+            act = faults.fire("guppi.read", key=self.path)
+            nt = ntime_keep
+            if act is not None and act.mode == "truncate":
+                nt = max(0, nt - (act.amount or max(1, nt // 2)))
+            if nt:
+                if self.native and dst[0].flags.c_contiguous:
+                    from blit_torch.io.native import guppi_pread_strided
+
+                    guppi_pread_strided(
+                        self.path,
+                        self._data_offsets[i] + t0 * samp_bytes,
+                        nchan,
+                        nt * samp_bytes,
+                        ntime * samp_bytes,
+                        dst,
+                        dst.strides[0],
+                    )
+                elif dst[0].flags.c_contiguous and hasattr(os, "preadv"):
+                    # Pure-python readinto fast path: positional
+                    # pread of each channel row STRAIGHT into the staging
+                    # slab — no mmap setup/teardown per block, no
+                    # page-fault-driven copy, one syscall per channel.
+                    # The persistent fd is positionless (pread), so the
+                    # producer thread needs no seek locking.  preadv is
+                    # POSIX-but-not-macOS; platforms without it take the
+                    # memmap leg below.
+                    self._pread_rows(
+                        dst, self._data_offsets[i] + t0 * samp_bytes,
+                        nchan, nt * samp_bytes, ntime * samp_bytes,
+                    )
+                else:
+                    mm = np.memmap(
+                        self.path,
+                        dtype=np.int8,
+                        mode="r",
+                        offset=self._data_offsets[i],
+                        shape=(nchan, ntime, npol, 2),
+                    )
+                    dst[:, :nt] = mm[:, t0 : t0 + nt]
+                if act is not None and act.mode == "corrupt":
+                    dst[0, :nt] ^= 0x55
+                if self._block_digests is not None:
+                    # Digest-armed delivery: a block that
+                    # fails verification is delivered ZERO-FILLED — the
+                    # zero-weight mask, not garbage.
+                    self._verify_delivery(i, dst, t0, nt)
+            return nt
+
+        return faults.retry_io(_read, describe=f"guppi read {self.path}")
+
+    def _pread_rows(self, dst: np.ndarray, base_off: int, nchan: int,
+                    row_bytes: int, row_stride: int) -> None:
+        """pread ``row_bytes`` of each of ``nchan`` on-disk channel rows
+        (``row_stride`` apart, starting at ``base_off``) into
+        ``dst[c, :]``'s contiguous storage (the readinto leg of
+        :meth:`read_block_into`)."""
+        fd = self._pread_fd
+        if fd is None:
+            fd = self._pread_fd = os.open(self.path, os.O_RDONLY)
         for c in range(nchan):
             view = memoryview(dst[c]).cast("B")[:row_bytes]
-            off = base + c * ntime * samp
+            off = base_off + c * row_stride
             done = 0
-            while done < row_bytes:  # a pread may return short
-                got = os.preadv(self._fd, [view[done:]], off + done)
+            while done < row_bytes:
+                # A single preadv is capped (~2 GiB on Linux) and may
+                # legally return short — loop until the row is complete;
+                # only a zero return (EOF) means the file really ends
+                # mid-row.
+                got = os.preadv(fd, [view[done:]], off + done)
                 if got <= 0:
-                    raise EOFError(f"{self.path}: short read ({done} of "
-                                   f"{row_bytes} bytes at offset {off})")
+                    # EOF mid-row is DETERMINISTIC (a truncated file
+                    # re-reads identically) — raise a non-OSError so
+                    # faults.transient_io doesn't burn the retry/backoff
+                    # budget re-reading it.
+                    raise EOFError(
+                        f"{self.path}: short pread ({done} of "
+                        f"{row_bytes} bytes at offset {off}) — "
+                        "truncated recording?"
+                    )
                 done += got
-        return ntime_keep
 
     def close(self) -> None:
-        fd, self._fd = self._fd, None
+        """Release the persistent pread descriptor and the verification
+        memmap (idempotent; the reader stays usable — both reopen on
+        demand)."""
+        fd, self._pread_fd = self._pread_fd, None
         if fd is not None:
             os.close(fd)
+        self._verify_map = None
+
+    def __del__(self):  # best-effort: interpreter teardown tolerant
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+    def read_block_complex(self, i: int) -> np.ndarray:
+        """Block ``i`` as complex64, shaped ``(obsnchan, ntime, npol)``."""
+        b = self.read_block(i).astype(np.float32)
+        return (b[..., 0] + 1j * b[..., 1]).astype(np.complex64)
 
 
-RawSource = Union[str, GuppiRaw]
+def scan_files(stem_or_path: str) -> List[str]:
+    """Expand one member (or the bare stem) of a ``.NNNN.raw`` sequence into
+    the full sorted sequence present on disk.
+
+    ``"x.0001.raw"`` and ``"x"`` both yield ``["x.0000.raw", "x.0001.raw",
+    ...]``.  NNNN is zero-padded, so lexical sort is numeric sort.  Returns
+    ``[]`` when nothing matches.
+    """
+    m = SEQ_RE.match(stem_or_path)
+    stem = m.group("stem") if m else stem_or_path
+    return sorted(glob.glob(glob.escape(stem) + ".[0-9][0-9][0-9][0-9].raw"))
 
 
-def open_raw(src: RawSource) -> GuppiRaw:
-    """A :class:`GuppiRaw` passes through; a path opens that file."""
-    return src if isinstance(src, GuppiRaw) else GuppiRaw(src)
+class GuppiScan(_BlockStream):
+    """A multi-file GUPPI RAW scan sequence as one gap-free block stream.
+
+    Presents the same indexed-block API as :class:`GuppiRaw` (``nblocks``,
+    ``header``, ``read_block_into`` ...), with the file boundaries erased:
+    the trailing ``OVERLAP`` samples of the last block of every file but the
+    final one repeat at the start of the next file, exactly as they do
+    between blocks within a file, so ``block_ntime_kept`` trims them — the
+    streaming reducer's PFB state then carries across files for free.
+
+    rawspec always consumes the whole sequence.
+
+    ``strict=True`` turns sequence-consistency findings (missing NNNN in the
+    stem sequence, PKTIDX discontinuity or non-monotonicity at a file
+    boundary — all meaning dropped samples) into errors.  The exact
+    continuity check needs the per-block packet stride, learned from
+    within-file deltas; when no unambiguous stride exists (single-block
+    files, mixed block sizes) the boundary check degrades to
+    strictly-increasing PKTIDX.
+    """
+
+    def __init__(
+        self,
+        paths: Sequence[str],
+        native: Optional[bool] = None,
+        strict: bool = False,
+    ):
+        if not paths:
+            raise ValueError("GuppiScan: empty path sequence")
+        self.paths = list(paths)
+        self.files = [GuppiRaw(p, native=native) for p in self.paths]
+        empties = [f.path for f in self.files if f.nblocks == 0]
+        if empties:
+            raise ValueError(f"empty or fully truncated RAW file(s): {empties}")
+        self.path = self.paths[0]  # logging/error identity
+        self.native = self.files[0].native
+        # Flattened (file, local block) index.
+        self._blocks: List[Tuple[int, int]] = [
+            (fi, bi)
+            for fi, f in enumerate(self.files)
+            for bi in range(f.nblocks)
+        ]
+        self._check_sequence(strict)
+        # Geometry must agree across files (one recording, one config).
+        g0 = self.files[0]._block_geometry(0)
+        for f in self.files[1:]:
+            g = f._block_geometry(0)
+            if (g[0], g[2]) != (g0[0], g0[2]):
+                raise ValueError(
+                    f"{f.path}: (nchan, npol)={g[0], g[2]} disagrees with "
+                    f"{self.path}'s {g0[0], g0[2]}"
+                )
+
+    def _check_sequence(self, strict: bool) -> None:
+        problems = []
+        # A member listed twice would silently splice the same voltages
+        # into the stream twice (a "longer" recording of wrong data) —
+        # catch it on the raw path list, grammar or not.  Paths are
+        # realpath-normalized so alias spellings (./x vs x, symlinks) of
+        # one local file cannot dodge the check; unlike the inventory
+        # layer, this list names files on THIS host, so resolving is safe.
+        real = [os.path.realpath(p) for p in self.paths]
+        if len(set(real)) != len(real):
+            dups = sorted({p for p, r in zip(self.paths, real)
+                           if real.count(r) > 1})
+            problems.append(f"duplicate member paths: {dups}")
+        # Stem / NNNN continuity (when the names follow the grammar).
+        parsed = [SEQ_RE.match(p) for p in self.paths]
+        if all(parsed) and len({m.group("stem") for m in parsed}) == 1:
+            seqs = [int(m.group("seq")) for m in parsed]
+            if seqs != sorted(seqs):
+                problems.append(f"sequence numbers out of order: {seqs}")
+            missing = sorted(set(range(seqs[0], seqs[-1] + 1)) - set(seqs))
+            if missing:
+                problems.append(f"missing sequence numbers: {missing}")
+        # PKTIDX continuity across file boundaries: within-file block deltas
+        # establish the per-block packet stride; a different stride at a
+        # boundary means dropped blocks (a gap the PFB must not integrate
+        # across).  Real PKTIDX counts packets, not samples, so the stride is
+        # learned from the data rather than derived from headers.  With no
+        # unambiguous stride (single-block files, mixed block sizes) the
+        # check degrades to strictly-increasing — weaker, but never silently
+        # skipped.
+        strides = set()
+        for f in self.files:
+            idxs = [h.get("PKTIDX") for h in f.headers]
+            for a, b in zip(idxs, idxs[1:]):
+                if a is not None and b is not None:
+                    strides.add(b - a)
+        stride = strides.pop() if len(strides) == 1 else None
+        for k in range(len(self.files) - 1):
+            last = self.files[k].headers[-1].get("PKTIDX")
+            first = self.files[k + 1].headers[0].get("PKTIDX")
+            if last is None or first is None:
+                continue
+            if stride is not None and first - last != stride:
+                problems.append(
+                    f"PKTIDX gap at {self.paths[k + 1]}: expected "
+                    f"{last + stride}, got {first}"
+                )
+            elif stride is None and first <= last:
+                problems.append(
+                    f"PKTIDX not increasing at {self.paths[k + 1]}: "
+                    f"{last} -> {first}"
+                )
+        for p in problems:
+            if strict:
+                raise ValueError(f"GuppiScan: {p}")
+            log.warning("GuppiScan: %s", p)
+
+    @property
+    def nblocks(self) -> int:
+        return len(self._blocks)
+
+    def header(self, i: int = 0) -> Dict:
+        fi, bi = self._blocks[i]
+        return self.files[fi].headers[bi]
+
+    def _block_geometry(self, i: int) -> Tuple[int, int, int]:
+        fi, bi = self._blocks[i]
+        return self.files[fi]._block_geometry(bi)
+
+    def read_block(self, i: int) -> np.ndarray:
+        fi, bi = self._blocks[i]
+        return self.files[fi].read_block(bi)
+
+    def read_block_into(
+        self, i: int, dst: np.ndarray, t0: int = 0, ntime_keep: int = -1
+    ) -> int:
+        fi, bi = self._blocks[i]
+        return self.files[fi].read_block_into(bi, dst, t0=t0, ntime_keep=ntime_keep)
+
+    def read_block_complex(self, i: int) -> np.ndarray:
+        fi, bi = self._blocks[i]
+        return self.files[fi].read_block_complex(bi)
+
+    def close(self) -> None:
+        """Close every member's read descriptor (idempotent)."""
+        for f in self.files:
+            f.close()
+
+    @property
+    def bad_blocks(self) -> set:
+        """Digest-failed (masked) blocks as GLOBAL stream indices —
+        the union of every member's per-file mask set."""
+        return {
+            g for g, (fi, bi) in enumerate(self._blocks)
+            if bi in self.files[fi].bad_blocks
+        }
 
 
-def write_raw(path: str, header: Dict, blocks: Sequence[np.ndarray],
+RawSource = Union[str, Sequence[str], GuppiRaw, GuppiScan]
+
+
+def open_raw(src: RawSource, native: Optional[bool] = None):
+    """Open a RAW source as a block stream: a :class:`GuppiRaw` /
+    :class:`GuppiScan` passes through; a path list becomes a scan; a single
+    path opens that file; a *stem* (no such file on disk, but
+    ``<stem>.NNNN.raw`` members exist) expands to the whole sequence.
+    """
+    if isinstance(src, (GuppiRaw, GuppiScan)):
+        return src
+    if isinstance(src, (list, tuple)):
+        if len(src) == 1:
+            return GuppiRaw(src[0], native=native)
+        return GuppiScan(src, native=native)
+    if os.path.exists(src):
+        return GuppiRaw(src, native=native)
+    seq = scan_files(src)
+    if not seq:
+        raise FileNotFoundError(f"no RAW file or .NNNN.raw sequence at {src!r}")
+    if len(seq) == 1:
+        return GuppiRaw(seq[0], native=native)
+    return GuppiScan(seq, native=native)
+
+
+def write_raw(path: str, header: Dict, blocks: Iterable[np.ndarray],
               directio: bool = False) -> None:
     """Write a GUPPI RAW file; ``blocks`` are int8 ``(obsnchan, ntime,
     npol, 2)`` arrays, or any iterable of them (written as it yields, so

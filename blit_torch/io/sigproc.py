@@ -3,7 +3,9 @@
 Counterpart of ``blit/io/sigproc.py``: a binary header of length-prefixed
 keyword items between ``HEADER_START`` and ``HEADER_END``, then raw
 samples in C order ``(nsamps, nifs, nchans)``.  The header encoder writes
-the same bytes as ``blit``'s for the same header dict.
+the same bytes as ``blit``'s for the same header dict.  :class:`FilWriter`
+publishes a ``<product>.manifest.json`` sidecar beside its product
+(:mod:`blit_torch.integrity`), as ``blit``'s does.
 """
 
 from __future__ import annotations
@@ -105,37 +107,68 @@ def read_fil(path: str) -> Tuple[Dict, np.ndarray]:
                           offset=offset, shape=shape)
 
 
+def validate_slab(slab: np.ndarray, nifs: int, nchans: int,
+                  dtype: np.dtype) -> np.ndarray:
+    """The slab guard of every ``.fil`` append path: SIGPROC derives
+    nsamps from the file size, so a mis-shaped or mis-typed slab would
+    write a valid-looking corrupt product.  Shape and dtype must match
+    exactly (the reducer's slabs always do)."""
+    if slab.ndim != 3 or slab.shape[1:] != (nifs, nchans):
+        raise ValueError(f"append: slab shape {slab.shape} does not "
+                         f"extend (*, {nifs}, {nchans})")
+    if slab.dtype != dtype:
+        raise ValueError(f"append: slab dtype {slab.dtype} is not {dtype}")
+    return np.ascontiguousarray(slab)
+
+
+def write_fil(path: str, header: Dict, data: np.ndarray) -> None:
+    """Write a SIGPROC filterbank file; ``data`` is ``(nsamps, nifs,
+    nchans)`` and its dtype sets ``nbits``."""
+    if data.ndim != 3:
+        raise ValueError("write_fil: data must be (nsamps, nifs, nchans)")
+    nbits = {np.uint8: 8, np.uint16: 16, np.float32: 32}[data.dtype.type]
+    with open(path, "wb") as f:
+        f.write(encode_header(header, nbits, data.shape[1], data.shape[2]))
+        np.ascontiguousarray(data).tofile(f)
+
+
 class FilWriter:
     """Streaming ``.fil`` writer: slabs append to a ``.partial`` sibling
     that is renamed onto ``path`` by :meth:`close`, so a crash never
     leaves a valid-looking truncated product (SIGPROC derives nsamps
     from file size).  ``dtype`` (float32, uint8 or uint16) sets the
-    header's ``nbits`` and the samples' on-disk form."""
+    header's ``nbits`` and the samples' on-disk form.  The manifest's
+    digests fold each slab as it is appended (on the write-behind sink's
+    thread under the asynchronous plane) and the sidecar is published
+    after the rename."""
 
     def __init__(self, path: str, header: Dict, nifs: int, nchans: int,
                  dtype=np.float32):
+        from blit_torch import integrity
+
         self.dtype = np.dtype(dtype)
-        nbits = next((b for b, t in _DTYPES.items() if np.dtype(t) == self.dtype),
-                     None)
-        if nbits is None:
+        if self.dtype not in [np.dtype(t) for t in _DTYPES.values()]:
             raise ValueError(f"FilWriter: unsupported dtype {self.dtype}")
         self.final_path = path
         self.path = path + ".partial"
         self.nifs = nifs
         self.nchans = nchans
         self.nsamps = 0
-        self._f = open(self.path, "wb")
-        self._f.write(encode_header(header, nbits, nifs, nchans))
+        write_fil(self.path, header, np.zeros((0, nifs, nchans), self.dtype))
+        self._mf = integrity.ManifestWriter(
+            path, "fil", row_bytes=nifs * nchans * self.dtype.itemsize,
+            writer=type(self).__name__)
+        self._mf.data_offset = os.path.getsize(self.path)
+        self._mf.fold_path(self.path)
+        self._f = open(self.path, "ab")
 
     def append(self, slab: np.ndarray) -> None:
-        """Append ``(k, nifs, nchans)`` spectra of the writer's dtype."""
-        if slab.ndim != 3 or slab.shape[1:] != (self.nifs, self.nchans):
-            raise ValueError(f"append: slab shape {slab.shape} does not "
-                             f"extend (*, {self.nifs}, {self.nchans})")
-        if slab.dtype != self.dtype:
-            raise ValueError(f"append: slab dtype {slab.dtype} is not {self.dtype}")
-        np.ascontiguousarray(slab).tofile(self._f)
+        """Append ``(k, nifs, nchans)`` spectra (see :func:`validate_slab`)."""
+        slab = validate_slab(slab, self.nifs, self.nchans, self.dtype)
+        slab.tofile(self._f)
         self.nsamps += slab.shape[0]
+        self._mf.fold(slab)
+        self._mf.claim(self.nsamps)
 
     def flush(self) -> None:
         """Push appended bytes to the OS (the write-behind sink's flush
@@ -146,9 +179,15 @@ class FilWriter:
     def close(self) -> None:
         if self._f is None:
             return
-        self._f.close()
-        self._f = None
-        os.replace(self.path, self.final_path)
+        try:
+            self._f.close()
+            self._f = None
+            os.replace(self.path, self.final_path)
+        except BaseException:
+            self.abort()
+            raise
+        # After the publish; a manifest failure never un-publishes it.
+        self._mf.publish()
 
     def abort(self) -> None:
         """Drop the partial product."""

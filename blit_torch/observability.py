@@ -21,6 +21,13 @@ copy to its packed hits on the host: the drift transform, SNR and top-k
 between; on the asynchronous plane the wait behind earlier windows too)
 and ``search.hits_per_window``.
 
+Counters (:meth:`Timeline.count`, e.g. ``block.masked`` for a RAW
+block that failed its digest) are byte-free stages.  The flight
+recorder's ring also takes fault and mask events
+(:func:`blit_torch.faults.incr`), and :func:`process_timeline` holds
+what code outside a reducer records (retry backoffs, verification
+times).
+
 Stages are timed from several threads (producer, dispatch, readback,
 sink), so readers copy the stage dict before iterating it, never the
 live one.  Spans, ``profile_trace`` and monitor publishing are not
@@ -93,6 +100,14 @@ class Timeline:
         """Sample the level ``name`` (kept apart from the stage table)."""
         self.gauges[name].sample(value)
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Count an event as a byte-free stage (``calls`` holds the
+        count): masks and degradations show in the stage table."""
+        s = self.stages[name]
+        s.calls += n
+        s.byte_free = True
+        _FLIGHT.event("count", name, n=n)
+
     @contextlib.contextmanager
     def stage(self, name: str, nbytes: int = 0,
               byte_free: bool = False) -> Iterator[None]:
@@ -146,6 +161,12 @@ class FlightRecorder:
         self._ring.append({"t": time.time(), "kind": "stage", "name": name,
                            "s": seconds, "bytes": nbytes})
 
+    def event(self, kind: str, name: str, **fields) -> None:
+        """Record a fault, mask or integrity event."""
+        e = {"t": time.time(), "kind": kind, "name": name}
+        e.update(fields)
+        self._ring.append(e)
+
     def events(self) -> List[Dict]:
         return list(self._ring)
 
@@ -192,6 +213,15 @@ _FLIGHT = FlightRecorder()
 def flight_recorder() -> FlightRecorder:
     """The process-wide flight recorder."""
     return _FLIGHT
+
+
+_PROCESS_TL = Timeline()
+
+
+def process_timeline() -> Timeline:
+    """The process-wide :class:`Timeline` that code outside a reducer
+    records on (retry backoffs, integrity verification times)."""
+    return _PROCESS_TL
 
 
 class StallWatchdog:

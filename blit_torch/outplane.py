@@ -30,9 +30,10 @@ run at once instead of one after another.
   own memory, no copy.
 - :class:`AsyncSink` runs a slab writer's ``append`` on a thread behind
   a bounded queue, with :meth:`AsyncSink.flush` barriers and writer
-  errors re-raised on the caller's side.  ``blit``'s ``sink.write`` and
-  ``sink.flush`` fault-injection points come with the port of ``faults``
-  (ROADMAP.md Queue 1 item 4).
+  errors re-raised on the caller's side.  Each append fires the
+  ``sink.write`` and each barrier the ``sink.flush`` injection point of
+  :mod:`blit_torch.faults` on the sink's thread, keyed by the writer's
+  path, as ``blit``'s does.
 - :class:`FoldInFlight`: the lag-``depth`` release of windows consumed
   by on-device folds (``beamform_accumulate``, ``correlate_stream``).
 
@@ -53,7 +54,7 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from blit_torch import hostmem
+from blit_torch import faults, hostmem
 from blit_torch.observability import StallWatchdog, Timeline
 
 log = logging.getLogger("blit_torch.outplane")
@@ -351,12 +352,15 @@ class AsyncSink:
     after it are skipped but still released, and the thread drains to
     its stop sentinel.  :meth:`close` flushes, joins and finalizes the
     writer on the calling thread (not after a failure); :meth:`abort`
-    joins and aborts it, never raising."""
+    joins and aborts it, never raising.  ``key`` (default: the writer's
+    ``path``) keys the ``sink.write`` / ``sink.flush`` fault points."""
 
     def __init__(self, writer, *, depth: int = 2,
                  timeline: Optional[Timeline] = None, name: str = "blit-sink",
-                 stall_timeout_s: Optional[float] = None, stage: str = "write"):
+                 stall_timeout_s: Optional[float] = None, stage: str = "write",
+                 key=None):
         self._writer = writer
+        self._key = key if key is not None else getattr(writer, "path", None)
         self._stage = stage
         self._tl = timeline if timeline is not None else Timeline()
         self.stall_timeout_s = stall_timeout_s
@@ -386,6 +390,7 @@ class AsyncSink:
                 if self._exc is None:
                     fl = getattr(self._writer, "flush", None)
                     try:
+                        faults.fire("sink.flush", key=self._key)
                         if fl is not None:
                             with self._tl.stage("flush", byte_free=True):
                                 fl()
@@ -396,6 +401,7 @@ class AsyncSink:
             slab, release = item
             if self._exc is None:
                 try:
+                    faults.fire("sink.write", key=self._key)
                     with self._tl.stage(self._stage, nbytes=slab.nbytes):
                         self._writer.append(slab)
                 except BaseException as e:  # noqa: BLE001 — consumer re-raises

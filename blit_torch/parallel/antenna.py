@@ -37,6 +37,7 @@ item 6) and raises until then.
 
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -44,13 +45,15 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from blit_torch import hostmem
+from blit_torch import faults, hostmem
 from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, open_raw
 from blit_torch.observability import Timeline
 from blit_torch.ops.dft import Planar
 from blit_torch.outplane import record_event
 from blit_torch.pipeline import BufferRotation
+
+log = logging.getLogger("blit_torch.parallel.antenna")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -109,6 +112,26 @@ def _span_from(min_samps: int, start_sample: int,
     if max_samples is not None:
         avail = min(avail, max_samples)
     return avail
+
+
+def record_mask(masked: set, ident, reason: str, *, header: Dict,
+                timeline: Timeline, kind: str = "antenna") -> bool:
+    """The one zero-weight mask bookkeeping rule (``blit``'s): add
+    ``ident`` to ``masked``, mirror the sorted set into the product
+    header (``_masked_<kind>s``), count ``<kind>.masked`` on the timeline
+    and ``mask.<kind>`` in :mod:`blit_torch.faults`, and log it, so a
+    degraded product says so.  The reducer uses it with
+    ``kind="block"`` for RAW blocks that failed their digest.  True when
+    ``ident`` was newly masked."""
+    if ident in masked:
+        return False
+    masked.add(ident)
+    header[f"_masked_{kind}s"] = sorted(masked)
+    timeline.count(f"{kind}.masked")
+    faults.incr(f"mask.{kind}")
+    log.warning("%s %s %s; masking it (zero weight) and continuing degraded",
+                kind, ident, reason)
+    return True
 
 
 def _unported(on_antenna_error: str) -> None:

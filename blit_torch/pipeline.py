@@ -38,13 +38,26 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   readback on the asynchronous path, on the host on the synchronous one,
   bitwise the same.
 
-``blit``'s tuning profiles and online tuner, ``.h5`` products, resumable
-reductions, integrity checks, the live ``feed_blocks()`` source, spans
-and ``profile_trace`` are later items (ROADMAP.md, Queue 1).
+- Products: :meth:`RawReducer.reduce_to_file` writes ``.h5`` / ``.hdf5``
+  through :class:`blit_torch.io.fbh5.FBH5Writer` (``compression`` None,
+  ``"gzip"`` or ``"bitshuffle"``; ``chunks``) and ``.fil`` for any other
+  path; :meth:`RawReducer.reduce_resumable` writes either crash-resumably
+  (a :class:`ReductionCursor` sidecar, restart through the
+  ``skip_frames`` replay).  Every product gets a manifest sidecar
+  (:mod:`blit_torch.integrity`); RAW blocks that failed their digest are
+  zero-filled by the reader and listed in the header
+  (``_masked_blocks``).  A source is a file, a ``.NNNN.raw`` scan (a
+  path list or a stem) or an open :class:`GuppiRaw` / :class:`GuppiScan`:
+  a scan streams across its members as one recording.
+
+``blit``'s tuning profiles and online tuner, the live ``feed_blocks()``
+source, spans and ``profile_trace`` are later items (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import queue
@@ -52,15 +65,20 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from blit_torch import hostmem
+from blit_torch import hostmem, integrity
 from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
-from blit_torch.io.sigproc import FilWriter
+from blit_torch.io.sigproc import (
+    FilWriter,
+    read_fil_header,
+    validate_slab,
+    write_fil,
+)
 from blit_torch.observability import StallWatchdog, Timeline, flight_recorder
 from blit_torch.ops.channelize import (
     STOKES_NIF,
@@ -248,8 +266,10 @@ class BufferRotation:
 
 
 def raw_block_feed(raw: GuppiRaw):
-    """The block feed of an indexed recording: ``(header, kept_samples,
-    read_into)`` in stream order, the producer's input."""
+    """The block feed of an indexed recording, one file or a scan:
+    ``(header, kept_samples, read_into)`` in stream order, the producer's
+    input.  A scan's blocks are numbered across its members, so the feed
+    crosses member boundaries as it crosses blocks."""
     for i in range(raw.nblocks):
         yield (raw.header(i), raw.block_ntime_kept(i),
                lambda dst, t0, n, i=i: raw.read_block_into(i, dst, t0, n))
@@ -610,9 +630,24 @@ class RawReducer:
             raise ValueError(f"empty or fully truncated RAW file: {raw.path}")
         return raw, self.header_for(raw)
 
+    def _surface_integrity(self, raw, hdr: Dict) -> None:
+        """Record the blocks the reader zero-filled after a failed digest
+        in the product header (``_masked_blocks``), through the one mask
+        rule (:func:`blit_torch.parallel.antenna.record_mask`)."""
+        bad = sorted(getattr(raw, "bad_blocks", None) or ())
+        if not bad:
+            return
+        from blit_torch.parallel.antenna import record_mask
+
+        masked: set = set()
+        for b in bad:
+            record_mask(masked, b, "failed digest verification", header=hdr,
+                        timeline=self.timeline, kind="block")
+
     def reduce(self, raw_src: RawSource) -> Tuple[Dict, np.ndarray]:
-        """Reduce a whole RAW file in memory → ``(header, data)`` with
-        data ``(nsamps, nif, nchans)`` in the product's dtype."""
+        """Reduce a whole RAW recording (a file or a scan) in memory →
+        ``(header, data)`` with data ``(nsamps, nif, nchans)`` in the
+        product's dtype."""
         raw, hdr = self._open_validated(raw_src)
         try:
             slabs = list(self._stream(raw))
@@ -626,24 +661,314 @@ class RawReducer:
                             NARROW_DTYPES[self.nbits])
         hdr["nbits"] = self.nbits
         hdr["nsamps"] = data.shape[0]
+        self._surface_integrity(raw, hdr)
         return hdr, data
 
-    def reduce_to_file(self, raw_src: RawSource, out_path: str) -> Dict:
-        """Reduce and stream a ``.fil`` product to ``out_path`` (through a
-        ``.partial`` sibling renamed on success).  Returns the header."""
-        if not out_path.endswith(".fil"):
-            raise NotImplementedError(
-                "blit_torch writes .fil products; .h5 output is a later "
-                "slice (ROADMAP.md Queue 1: '.h5 and resume')")
+    def _check_format(self, out_path: str, compression: Optional[str],
+                      chunks) -> bool:
+        """``blit``'s refusals of the output knobs; True for ``.h5``."""
+        if out_path.endswith((".h5", ".hdf5")):
+            if self.nbits != 32:
+                raise ValueError("nbits=8/16 quantized output is a SIGPROC "
+                                 ".fil feature; FBH5 products are float32")
+            return True
+        if compression is not None:
+            raise ValueError(".fil products are uncompressed; compression "
+                             "applies to .h5 output")
+        if chunks is not None:
+            raise ValueError("chunks applies to .h5 output")
+        return False
+
+    def reduce_to_file(self, raw_src: RawSource, out_path: str,
+                       compression: Optional[str] = None,
+                       chunks: Optional[Tuple[int, int, int]] = None) -> Dict:
+        """Reduce and stream a product to ``out_path`` through a
+        ``.partial`` sibling renamed on success: FBH5 for a path ending in
+        ``.h5`` / ``.hdf5`` (``compression`` None | ``"gzip"`` |
+        ``"bitshuffle"``, ``chunks`` the HDF5 chunk shape), SIGPROC
+        ``.fil`` for any other path.  Returns the header."""
+        is_h5 = self._check_format(out_path, compression, chunks)
         raw, hdr = self._open_validated(raw_src)
         try:
-            w = FilWriter(out_path, hdr, STOKES_NIF[self.stokes], hdr["nchans"],
-                          dtype=NARROW_DTYPES[self.nbits])
+            nif = STOKES_NIF[self.stokes]
+            if is_h5:
+                from blit_torch.io.fbh5 import FBH5Writer
+
+                w = FBH5Writer(out_path, hdr, nifs=nif, nchans=hdr["nchans"],
+                               compression=compression, chunks=chunks)
+            else:
+                w = FilWriter(out_path, hdr, nif, hdr["nchans"],
+                              dtype=NARROW_DTYPES[self.nbits])
             hdr["nsamps"] = self._pump(raw, w)
         finally:
             if raw is not raw_src:
                 raw.close()
+        self._surface_integrity(raw, hdr)
         return hdr
+
+    def reduce_resumable(self, raw_src: RawSource, out_path: str,
+                         compression: Optional[str] = None,
+                         chunks: Optional[Tuple[int, int, int]] = None) -> Dict:
+        """Reduce to a ``.fil`` or ``.h5`` product that survives a crash.
+
+        A :class:`ReductionCursor` sidecar (``<out>.cursor``) records the
+        frames durably written; a re-run with the same configuration and
+        the same RAW bytes truncates any unclaimed tail and continues
+        from the last claim through the ``skip_frames`` replay, so the
+        finished product equals an uninterrupted run's.  The claim is
+        verified against the product's manifest first; a cursor that does
+        not match, or a target that does not hold what it claims, starts
+        afresh.  The cursor is removed on completion.  On the
+        asynchronous plane the cursor may lag slabs that were queued but
+        not written; the replay reduces them again, identically."""
+        is_h5 = self._check_format(out_path, compression, chunks)
+        raw, hdr = self._open_validated(raw_src)
+        try:
+            return self._reduce_resumable(raw, hdr, out_path, is_h5,
+                                          compression, chunks)
+        finally:
+            if raw is not raw_src:
+                raw.close()
+
+    def _reduce_resumable(self, raw, hdr: Dict, out_path: str, is_h5: bool,
+                          compression: Optional[str], chunks) -> Dict:
+        # The cursor's identity of a scan is its member list.
+        paths = getattr(raw, "paths", None) or raw.path
+        nif = STOKES_NIF[self.stokes]
+        comp_id = compression or "none"
+        chunks_id = list(chunks) if chunks is not None else None
+        cur = ReductionCursor.load(out_path)
+        resuming = (cur is not None and cur.matches(self, paths)
+                    and cur.compression == comp_id and cur.chunks == chunks_id
+                    and os.path.exists(out_path))
+        if resuming:
+            rows = cur.frames_done // self.nint
+            if is_h5:
+                from blit_torch.io.fbh5 import resume_target_ok
+
+                ok = resume_target_ok(out_path, nif, hdr["nchans"], rows)
+            else:
+                ok = resume_fil_ok(out_path, nif, hdr["nchans"], rows,
+                                   dtype=NARROW_DTYPES[self.nbits])
+            if not ok:
+                log.warning("resume target %s does not hold the cursor's "
+                            "claimed %d frames (crash-corrupted?); starting "
+                            "fresh", out_path, cur.frames_done)
+                resuming = False
+        if resuming:
+            log.info("resuming %s at frame %d", out_path, cur.frames_done)
+        else:
+            size, mtime_ns = ReductionCursor.stat_raw(paths)
+            cur = ReductionCursor(
+                paths, self.nfft, self.ntap, self.nint, self.stokes, 0,
+                window=self.window, raw_size=size, raw_mtime_ns=mtime_ns,
+                fqav_by=self.fqav_by, dtype=self.dtype, compression=comp_id,
+                chunks=chunks_id, nbits=self.nbits,
+                quant_scale=self.quant_scale, quant_offset=self.quant_offset)
+        start_rows = cur.frames_done // self.nint if resuming else 0
+        if is_h5:
+            from blit_torch.io.fbh5 import ResumableFBH5Writer
+
+            w = ResumableFBH5Writer(out_path, hdr, nif, hdr["nchans"],
+                                    start_rows, self.nint, cur,
+                                    compression=compression, chunks=chunks)
+        else:
+            w = ResumableFilWriter(out_path, hdr, nif, hdr["nchans"],
+                                   start_rows, self.nint, cur,
+                                   dtype=NARROW_DTYPES[self.nbits])
+        # _pump aborts the writer on an error: file and cursor stay as
+        # the resume point.
+        hdr["nsamps"] = self._pump(raw, w, skip_frames=start_rows * self.nint)
+        self._surface_integrity(raw, hdr)
+        return hdr
+
+
+def resume_fil_ok(path: str, nif: int, nchans: int, rows: int,
+                  dtype=np.float32) -> bool:
+    """May a ``.fil`` resume target honour a cursor claiming ``rows``
+    spectra?  It must parse as SIGPROC and hold at least the claimed
+    bytes (truncating a shorter file would extend it with zeros), and
+    where a manifest exists, the claimed region's digest must match its
+    ledger."""
+    try:
+        _, off = read_fil_header(path)
+        size = os.path.getsize(path)
+    except (OSError, ValueError):
+        return False
+    row_bytes = nif * nchans * np.dtype(dtype).itemsize
+    if size < off + rows * row_bytes:
+        return False
+    return integrity.verify_claim(path, rows, fmt="fil",
+                                  row_bytes=row_bytes) is not False
+
+
+class ResumableFilWriter:
+    """Append-directly ``.fil`` writer whose incompleteness marker is a
+    :class:`ReductionCursor` sidecar, not a ``.partial`` rename: each
+    slab is fsync'd, then the manifest's ledger saved, then the cursor's
+    claim, so a crash leaves a resumable prefix and never a cursor ahead
+    of the bytes.  ``start_rows`` > 0 resumes: the product is truncated
+    to that many spectra and the cursor set to match; 0 (or a missing
+    file) starts fresh."""
+
+    def __init__(self, path: str, header: Dict, nif: int, nchans: int,
+                 start_rows: int, nint: int, cursor: "ReductionCursor",
+                 dtype=np.float32):
+        self.path = path
+        self._nint = nint
+        self._nif = nif
+        self._nchans = nchans
+        self.dtype = np.dtype(dtype)
+        self.cursor = cursor
+        row_bytes = nif * nchans * self.dtype.itemsize
+        self._mf = integrity.ManifestWriter(path, "fil", row_bytes=row_bytes,
+                                            writer=type(self).__name__)
+        if start_rows > 0 and os.path.exists(path):
+            _, off = read_fil_header(path)
+            with open(path, "r+b") as f:
+                f.truncate(off + start_rows * row_bytes)
+            cursor.frames_done = start_rows * nint
+            cursor.save(path)
+            # The running digest over the truncated (verified) claim.
+            self._mf.data_offset = off
+            self._mf.fold_path(path)
+            self._mf.claim(start_rows)
+            self._mf.save()
+        else:
+            start_rows = 0
+            write_fil(path, header, np.zeros((0, nif, nchans), self.dtype))
+            cursor.frames_done = 0
+            cursor.save(path)
+            self._mf.data_offset = os.path.getsize(path)
+            self._mf.fold_path(path)
+            self._mf.save()
+        self._f = open(path, "ab")
+        self.nsamps = start_rows
+
+    def append(self, slab: np.ndarray) -> None:
+        slab = validate_slab(slab, self._nif, self._nchans, self.dtype)
+        slab.tofile(self._f)
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self.nsamps += slab.shape[0]
+        self._mf.fold(slab)
+        self._mf.claim(self.nsamps)
+        self._mf.save()
+        self.cursor.frames_done = self.nsamps * self._nint
+        self.cursor.save(self.path)
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        """Finish: the manifest turns complete and stays; the cursor
+        sidecar goes, and its absence marks the product complete."""
+        self._f.close()
+        self._mf.publish()
+        sidecar = self.cursor.path_for(self.path)
+        if os.path.exists(sidecar):
+            os.unlink(sidecar)
+
+    def abort(self) -> None:
+        # The file and the cursor are the resume point: keep both.
+        self._f.close()
+
+
+@dataclass
+class ReductionCursor:
+    """Restart state of a resumable reduction, a JSON sidecar beside the
+    product with ``blit``'s field names and defaults, so either package
+    resumes a cursor the other wrote.
+
+    ``frames_done`` counts PFB frames reduced and durably written, a
+    multiple of ``nint``.  :meth:`matches` guards the identity: every
+    output-affecting knob, and the RAW input's bytes (size and mtime of
+    each member, in any order).  ``compression`` and ``chunks`` are
+    compared by the caller; ``despike_nfpc`` and ``window_rows`` belong to
+    ``blit``'s mesh writer (-1: not used)."""
+
+    raw_path: Union[str, List[str]]
+    nfft: int
+    ntap: int
+    nint: int
+    stokes: str
+    frames_done: int = 0
+    window: str = "hamming"
+    raw_size: Union[int, List[int]] = -1
+    raw_mtime_ns: Union[int, List[int]] = -1
+    fqav_by: int = 1
+    dtype: str = "float32"
+    despike_nfpc: int = -1
+    compression: str = "none"
+    window_rows: int = -1
+    chunks: Optional[List[int]] = None
+    nbits: int = 32
+    quant_scale: float = 1.0
+    quant_offset: float = 0.0
+
+    @staticmethod
+    def stat_raw(raw_path: Union[str, Sequence[str]]) -> Tuple:
+        """(size, mtime_ns) of a path, or parallel lists for a list."""
+        if isinstance(raw_path, str):
+            st = os.stat(raw_path)
+            return st.st_size, st.st_mtime_ns
+        stats = [os.stat(p) for p in raw_path]
+        return [s.st_size for s in stats], [s.st_mtime_ns for s in stats]
+
+    @staticmethod
+    def path_for(out_path: str) -> str:
+        return out_path + ".cursor"
+
+    def save(self, out_path: str) -> None:
+        """Publish atomically: write a temporary, fsync, rename."""
+        tmp = self.path_for(out_path) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.__dict__, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.path_for(out_path))
+
+    @classmethod
+    def load(cls, out_path: str):
+        try:
+            with open(cls.path_for(out_path)) as f:
+                return cls(**json.load(f))
+        except (OSError, ValueError, TypeError):
+            return None
+
+    @staticmethod
+    def normalized_members(raw_path, raw_size, raw_mtime_ns
+                           ) -> List[Tuple[str, int, int]]:
+        """The RAW identity as ``(path, size, mtime_ns)`` triples sorted
+        by path: a scan is the same recording in any listing order."""
+
+        def norm(x):
+            return list(x) if isinstance(x, (list, tuple)) else [x]
+
+        return sorted(zip(norm(raw_path), norm(raw_size), norm(raw_mtime_ns)))
+
+    def matches(self, red: "RawReducer",
+                raw_path: Union[str, Sequence[str]]) -> bool:
+        try:
+            size, mtime_ns = self.stat_raw(raw_path)
+        except OSError:
+            return False
+        return (
+            self.normalized_members(self.raw_path, self.raw_size,
+                                    self.raw_mtime_ns)
+            == self.normalized_members(raw_path, size, mtime_ns)
+            and self.nfft == red.nfft
+            and self.ntap == red.ntap
+            and self.nint == red.nint
+            and self.stokes == red.stokes
+            and self.window == red.window
+            and self.fqav_by == red.fqav_by
+            and self.dtype == red.dtype
+            and self.despike_nfpc == getattr(red, "despike_nfpc", -1)
+            and self.nbits == getattr(red, "nbits", 32)
+            and self.quant_scale == getattr(red, "quant_scale", 1.0)
+            and self.quant_offset == getattr(red, "quant_offset", 0.0)
+        )
 
 
 def reducer_for_product(product: str, **kw) -> RawReducer:

@@ -6,13 +6,15 @@ Taylor tree through the Hopper kernel → device-side threshold and
 per-band top-k → ``.hits`` lines).
 
 - :class:`~blit_torch.search.dedoppler.DedopplerReducer`: the entry point
-  (``search`` / ``search_to_file`` / ``reduce``).
+  (``search`` / ``search_to_file`` / ``search_resumable`` / ``reduce``),
+  and :class:`~blit_torch.search.dedoppler.SearchCursor`, the resume
+  sidecar.
 - :class:`~blit_torch.search.hits.Hit` and its record and array codecs.
 - The kernel's wrapper lives in :mod:`blit_torch.ops.dedoppler`, the
   ``.hits`` writer in :mod:`blit_torch.io.hits`.
 """
 
-from blit_torch.search.dedoppler import DedopplerReducer
+from blit_torch.search.dedoppler import DedopplerReducer, SearchCursor
 from blit_torch.search.hits import (
     Hit,
     hit_from_record,
@@ -24,6 +26,7 @@ from blit_torch.search.hits import (
 __all__ = [
     "DedopplerReducer",
     "Hit",
+    "SearchCursor",
     "hit_from_record",
     "hits_from_array",
     "hits_from_packed",

@@ -25,23 +25,32 @@ synchronously: the hits are identical.  Search knobs left ``None``
 resolve from :func:`blit_torch.config.search_defaults`
 (``BLIT_SEARCH_*`` overrides).  ``blit``'s ``kernel=`` / ``interpret=``
 knobs are gone: the device picks the path, and the paths agree bitwise.
-``search_resumable`` with its cursor and the worker entry point are
-later slices (ROADMAP.md Queue 1).
+:meth:`DedopplerReducer.search_resumable` writes the ``.hits`` product
+crash-resumably: a :class:`SearchCursor` sidecar claims each window after
+its lines are durable, and a re-run restarts at the claimed window
+through the inner reducer's ``skip_frames`` replay.  The worker entry
+point is a later slice (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from blit_torch import hostmem
+from blit_torch import hostmem, integrity
 from blit_torch.config import search_defaults
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
-from blit_torch.io.hits import HitsWriter, WindowHits
+from blit_torch.io.hits import (
+    HitsWriter,
+    ResumableHitsWriter,
+    WindowHits,
+    ledger_claim_at,
+)
 from blit_torch.observability import Timeline
 from blit_torch.ops.dedoppler import _check_window, dedoppler_hits
 from blit_torch.outplane import (
@@ -50,8 +59,10 @@ from blit_torch.outplane import (
     readback_extra_slots,
     record_event,
 )
-from blit_torch.pipeline import BufferRotation, RawReducer
+from blit_torch.pipeline import BufferRotation, RawReducer, ReductionCursor
 from blit_torch.search.hits import HIT_COLS, Hit, hits_from_packed, hits_to_array
+
+log = logging.getLogger("blit_torch.search.dedoppler")
 
 
 class _Window:
@@ -176,17 +187,18 @@ class DedopplerReducer:
         return raw, self.header_for(raw)
 
     # -- window feed -------------------------------------------------------
-    def _producer(self, raw: GuppiRaw, nchans: int,
+    def _producer(self, raw: GuppiRaw, skip_windows: int, nchans: int,
                   bufs: List[Optional[hostmem.HostSlab]],
                   rot: BufferRotation) -> None:
         """Fill the window rotation from the inner reducer's spectra
-        stream (producer thread)."""
+        stream (producer thread), starting at window ``skip_windows``."""
         T = self.window_spectra
         pinned = self.device.type == "cuda"
         cur: Optional[int] = None
         filled = 0
-        widx = 0
-        for slab in self._red._stream(raw):
+        widx = skip_windows
+        skip_frames = skip_windows * T * self.nint
+        for slab in self._red._stream(raw, skip_frames):
             data = slab[:, 0, :]  # Stokes-I plane: (nspectra, nchans)
             pos, n = 0, data.shape[0]
             while pos < n:
@@ -210,13 +222,14 @@ class DedopplerReducer:
                     widx += 1
                     cur = None
 
-    def _windows(self, raw: GuppiRaw, nchans: int,
+    def _windows(self, raw: GuppiRaw, skip_windows: int, nchans: int,
                  bufs: List[Optional[hostmem.HostSlab]]) -> Iterator[_Window]:
         """The pipelined window feed over ``len(bufs)`` slots (filled in
         as the producer needs them): the consumer must release every
         window once nothing reads its slot."""
         rot = BufferRotation(
-            len(bufs), lambda r: self._producer(raw, nchans, bufs, r),
+            len(bufs),
+            lambda r: self._producer(raw, skip_windows, nchans, bufs, r),
             name="blit-search-feed")
         try:
             for idx, widx in rot.slots():
@@ -242,9 +255,10 @@ class DedopplerReducer:
                               nbands=nbands, max_drift_bins=self.max_drift_bins)
 
     # -- the search stream -------------------------------------------------
-    def _search_stream(self, raw: GuppiRaw,
-                       hdr: Dict) -> Iterator[Tuple[int, List[Hit]]]:
-        """Yield ``(window index, hits)`` in stream order."""
+    def _search_stream(self, raw: GuppiRaw, hdr: Dict, skip_windows: int = 0
+                       ) -> Iterator[Tuple[int, List[Hit]]]:
+        """Yield ``(window index, hits)`` in stream order from window
+        ``skip_windows`` on."""
         nchans = hdr["nchans"]
         nbands = self._nbands(nchans)
 
@@ -255,7 +269,7 @@ class DedopplerReducer:
 
         if not self.async_output:
             bufs = self._slots()
-            for win in self._windows(raw, nchans, bufs):
+            for win in self._windows(raw, skip_windows, nchans, bufs):
                 try:
                     t0 = time.perf_counter()
                     packed = self._dispatch(win, nbands).cpu().numpy()
@@ -276,7 +290,7 @@ class DedopplerReducer:
                              stall_timeout_s=self.output_stall_timeout_s)
         try:
             bufs = self._slots(readback_extra_slots(depth, self.prefetch_depth))
-            for win in self._windows(raw, nchans, bufs):
+            for win in self._windows(raw, skip_windows, nchans, bufs):
                 t0 = time.perf_counter()
                 with self.timeline.stage("dispatch", byte_free=True):
                     packed = self._dispatch(win, nbands)
@@ -322,14 +336,15 @@ class DedopplerReducer:
         hdr.update(nchans=HIT_COLS, nifs=1, nsamps=len(hits))
         return hdr, arr
 
-    def _pump(self, raw: GuppiRaw, hdr: Dict, writer) -> int:
+    def _pump(self, raw: GuppiRaw, hdr: Dict, writer,
+              skip_windows: int = 0) -> int:
         """Drive the search stream into a ``.hits`` writer (write-behind
         through an :class:`AsyncSink` on the asynchronous plane) and
-        finalize it.  Returns the hits written; on error the writer is
-        aborted and the error re-raised."""
+        finalize it.  Returns the writer's hit count; on error the writer
+        is aborted and the error re-raised."""
         if not self.async_output:
             try:
-                for widx, hits in self._search_stream(raw, hdr):
+                for widx, hits in self._search_stream(raw, hdr, skip_windows):
                     wh = WindowHits(widx, hits)
                     with self.timeline.stage("search.write", nbytes=wh.nbytes):
                         writer.append(wh)
@@ -344,7 +359,7 @@ class DedopplerReducer:
                          stall_timeout_s=self.output_stall_timeout_s,
                          stage="search.write")
         try:
-            for widx, hits in self._search_stream(raw, hdr):
+            for widx, hits in self._search_stream(raw, hdr, skip_windows):
                 sink.append(WindowHits(widx, hits))
             with self.timeline.stage("search.close"):  # flush, fsync, rename
                 sink.close()
@@ -366,3 +381,114 @@ class DedopplerReducer:
                 raw.close()
         hdr["search_windows"] = w.nwindows
         return hdr
+
+    def search_resumable(self, raw_src: RawSource, out_path: str) -> Dict:
+        """Search to a ``.hits`` product that survives a crash: a
+        :class:`SearchCursor` sidecar claims each window after its lines
+        are durable; a re-run with the same configuration and RAW bytes
+        truncates to the claimed window (verified against the manifest's
+        ledger) and replays from there, so the finished product equals an
+        uninterrupted run's, byte for byte."""
+        raw, hdr = self._open_validated(raw_src)
+        try:
+            return self._search_resumable(raw, hdr, out_path)
+        finally:
+            if raw is not raw_src:
+                raw.close()
+
+    def _search_resumable(self, raw: GuppiRaw, hdr: Dict, out_path: str) -> Dict:
+        paths = getattr(raw, "paths", None) or raw.path
+        cur = SearchCursor.load(out_path)
+        resuming = (cur is not None and cur.matches(self, paths)
+                    and os.path.exists(out_path))
+        if resuming and os.path.getsize(out_path) < cur.byte_offset:
+            # Truncating a shorter file would extend it with zeros.
+            log.warning("resume target %s is shorter than the cursor's "
+                        "claimed %d bytes; starting fresh", out_path,
+                        cur.byte_offset)
+            resuming = False
+        if resuming and integrity.verify_claim(out_path, cur.windows_done,
+                                               fmt="hits") is False:
+            log.warning("resume target %s fails its claimed-region digest; "
+                        "starting fresh", out_path)
+            resuming = False
+        if resuming:
+            log.info("resuming %s at window %d", out_path, cur.windows_done)
+        else:
+            size, mtime_ns = ReductionCursor.stat_raw(paths)
+            cur = SearchCursor(
+                paths, self.nfft, self.ntap, self.nint, window=self.window,
+                dtype=self.dtype, window_spectra=self.window_spectra,
+                top_k=self.top_k, snr_threshold=float(self.snr_threshold),
+                max_drift_bins=(-1 if self.max_drift_bins is None
+                                else int(self.max_drift_bins)),
+                raw_size=size, raw_mtime_ns=mtime_ns)
+        skip = cur.windows_done if resuming else 0
+        w = ResumableHitsWriter(out_path, hdr, skip, cur)
+        self._pump(raw, hdr, w, skip_windows=skip)
+        hdr["search_windows"] = w.nwindows
+        hdr["search_nhits"] = w.nsamps
+        return hdr
+
+
+@dataclass
+class SearchCursor:
+    """Restart state of a resumable search, a JSON sidecar beside the
+    ``.hits`` product with ``blit``'s field names and defaults.
+
+    ``windows_done`` counts windows extracted and durable;
+    ``byte_offset`` is the file length they claim; ``window_claims`` the
+    ``[window, byte_offset, hits]`` ledger (windows are ragged: a window
+    with no hit writes no line), bounded by
+    :data:`blit_torch.io.hits.CLAIM_LEDGER_MAX`.  Identity covers the RAW
+    bytes and every output-affecting knob."""
+
+    raw_path: Union[str, List[str]]
+    nfft: int
+    ntap: int
+    nint: int
+    window: str = "hamming"
+    dtype: str = "float32"
+    window_spectra: int = 64
+    top_k: int = 8
+    snr_threshold: float = 10.0
+    max_drift_bins: int = -1
+    windows_done: int = 0
+    hits_done: int = 0
+    byte_offset: int = 0
+    raw_size: Union[int, List[int]] = -1
+    raw_mtime_ns: Union[int, List[int]] = -1
+    window_claims: Optional[List[List[int]]] = None
+
+    def claim_at(self, windows: int) -> Optional[Tuple[int, int]]:
+        """``(byte_offset, hits_done)`` after ``windows`` windows, where
+        this cursor recorded it (:func:`blit_torch.io.hits.ledger_claim_at`)."""
+        return ledger_claim_at(windows, self.windows_done, self.byte_offset,
+                               self.hits_done, self.window_claims)
+
+    # The reduction cursor's sidecar protocol.
+    path_for = staticmethod(ReductionCursor.path_for)
+    save = ReductionCursor.save
+    load = classmethod(ReductionCursor.load.__func__)
+
+    def matches(self, red: DedopplerReducer,
+                raw_path: Union[str, Sequence[str]]) -> bool:
+        try:
+            size, mtime_ns = ReductionCursor.stat_raw(raw_path)
+        except OSError:
+            return False
+        return (
+            ReductionCursor.normalized_members(
+                self.raw_path, self.raw_size, self.raw_mtime_ns)
+            == ReductionCursor.normalized_members(raw_path, size, mtime_ns)
+            and self.nfft == red.nfft
+            and self.ntap == red.ntap
+            and self.nint == red.nint
+            and self.window == red.window
+            and self.dtype == red.dtype
+            and self.window_spectra == red.window_spectra
+            and self.top_k == red.top_k
+            and self.snr_threshold == float(red.snr_threshold)
+            and self.max_drift_bins == (
+                -1 if red.max_drift_bins is None else int(red.max_drift_bins))
+        )

@@ -2,9 +2,11 @@
 
 Counterpart of the RAW part of ``blit/testing.py``: the same header, the
 same seeded voltages and the same files for the same arguments, so a
-file written here reduces identically in both packages.  Adds
-:func:`synth_raw_blocks`, which writes a large recording block by block
-at bounded memory (``synth_raw`` builds the whole float64 stream first).
+file written here reduces identically in both packages, one file
+(:func:`synth_raw`) or a ``.NNNN.raw`` scan (:func:`synth_raw_sequence`).
+Adds :func:`synth_raw_blocks`, which writes a large recording block by
+block at bounded memory (``synth_raw`` builds the whole float64 stream
+first).
 """
 
 from __future__ import annotations
@@ -109,6 +111,41 @@ def synth_raw(
               for i in range(nblocks)]
     write_raw(path, hdr, blocks, directio=directio)
     return hdr, blocks
+
+
+def synth_raw_sequence(
+    stem: str,
+    nfiles: int = 2,
+    blocks_per_file: int = 2,
+    obsnchan: int = 64,
+    ntime_per_block: int = 1024,
+    npol: int = 2,
+    overlap: int = 0,
+    seed: int = 0,
+    tone_chan: Optional[int] = None,
+    tone_drift: float = 0.0,
+    **hdrkw,
+) -> Tuple[List[str], np.ndarray]:
+    """Write a ``<stem>.NNNN.raw`` scan carrying one contiguous voltage
+    stream (the block stream, OVERLAP and PKTIDX included, continues
+    across the members).  Returns ``(paths, stream)``, ``stream`` the
+    gap-free voltages the scan encodes."""
+    nblocks = nfiles * blocks_per_file
+    hdr = make_raw_header(obsnchan=obsnchan, npol=npol, overlap=overlap, **hdrkw)
+    step = ntime_per_block - overlap
+    total = step * (nblocks - 1) + ntime_per_block
+    stream = make_voltages(obsnchan, total, npol, seed=seed,
+                           tone_chan=tone_chan, tone_drift=tone_drift)
+    blocks = [stream[:, i * step:i * step + ntime_per_block]
+              for i in range(nblocks)]
+    paths = []
+    for f in range(nfiles):
+        p = f"{stem}.{f:04d}.raw"
+        fhdr = dict(hdr)
+        fhdr["PKTIDX"] = f * blocks_per_file * step
+        write_raw(p, fhdr, blocks[f * blocks_per_file:(f + 1) * blocks_per_file])
+        paths.append(p)
+    return paths, stream
 
 
 def _segment(rng: np.random.Generator, nchan: int, t0: int, nt: int,

@@ -174,6 +174,26 @@ Phases, in order; any failure exits non-zero:
       seconds, count, GB); then one "plane table" line per path and mode:
       the RAW GB/s median and range, the median stage seconds and
       overlap efficiency, the allocations summed.
+  (o) after (n), on (d)'s recording, each product deleted after its
+      check: (o1) 0000 through reduce_resumable, interrupted by a
+      FaultRule("sink.write", after=1) once the first chunk's slab is
+      written, the .cursor sidecar checked, then resumed: the .fil
+      byte-identical to (d)'s uninterrupted product, the cursor gone, the
+      manifest passing verify_product; the frames the resume re-reduced
+      and each leg's seconds; (o2) the recording's blocks copied into a
+      three-member .NNNN.raw scan, every member on the native reader
+      (blit_torch/native/guppi.cc, built with g++), 0002 over the scan
+      byte-identical to (d)'s single-file product, and again under a
+      transient guppi.read fault (fail once; the product unchanged,
+      retry.io at least 1); (o3) 0002 with native=True and native=False,
+      in turns, three runs each, RAW GB/s and ingest seconds per run and
+      a table; (o4) when h5py imports (else one line naming what is
+      missing): 0000 to .h5 uncompressed, and with bitshuffle when the
+      codec builds (chunks of one 0000 chunk, plus an interrupted and
+      resumed ResumableFBH5Writer run), each decoding bitwise to (o1)'s
+      .fil payload; (o5) the search (h) through search_resumable,
+      interrupted after 20 windows and resumed, the .hits byte-identical
+      to (h)'s search_to_file.  Launches are counted for each leg.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -2286,6 +2306,286 @@ def phase_plane_array(torch, dev, tmp):
     return rows
 
 
+# -- (o) resume, scans, the native reader, .h5 products ----------------------
+
+SCAN_MEMBERS = 3           # members of (o2)'s scan
+NATIVE_REPEATS = 3         # (o3): native and Python 0002 runs, in turns
+RESUME_BITSHUFFLE_ROWS = CHUNK_FRAMES  # (o4): one 0000 chunk per h5 chunk
+SEARCH_RESUME_AFTER = 20   # (o5): windows written before the fault
+
+
+def _timed_reduce(torch, red, method, src, out, path, **kw):
+    """``red.<method>(src, out)`` with the launches counted alone and the
+    path's plan checked.  Returns (header, seconds, launches)."""
+    from blit_torch.ops import channelize as tch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    hdr = getattr(red, method)(src, out, **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_plan(path, tch.last_kernel_plan(), launches)
+    return hdr, wall, launches
+
+
+def _interrupted(torch, point, after, match, fn):
+    """Run ``fn`` under a FaultRule failing ``point`` after ``after`` hits
+    of paths containing ``match``; it must raise the injected fault.
+    Returns (seconds, launches)."""
+    from blit_torch import faults
+
+    faults.install(faults.FaultRule(point, mode="fail", after=after,
+                                    times=-1, match=match))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except faults.InjectedFault as e:
+        log(f"resume: interrupted as planned: {e}")
+    else:
+        raise AssertionError(f"the {point} fault after {after} did not interrupt the run")
+    finally:
+        faults.clear()
+    return time.perf_counter() - t0, read_launches()
+
+
+def split_recording(raw_path, tmp, members):
+    """Copy the recording's blocks, byte for byte, into ``members``
+    ``<stem>.NNNN.raw`` files.  Returns their paths."""
+    from blit_torch.io.guppi import GuppiRaw
+
+    raw = GuppiRaw(raw_path, native=False)
+    ends = [off + h["BLOCSIZE"] for off, h in zip(raw._data_offsets, raw.headers)]
+    starts = [0] + ends[:-1]
+    per = -(-raw.nblocks // members)
+    paths = []
+    with open(raw_path, "rb") as src:
+        for m in range(members):
+            blocks = range(m * per, min(raw.nblocks, (m + 1) * per))
+            path = os.path.join(tmp, f"scan.{m:04d}.raw")
+            with open(path, "wb") as dst:
+                src.seek(starts[blocks[0]])
+                n = ends[blocks[-1]] - starts[blocks[0]]
+                while n:
+                    buf = src.read(min(n, 64 << 20))
+                    if not buf:
+                        raise OSError(f"{raw_path} ended {n} bytes short")
+                    dst.write(buf)
+                    n -= len(buf)
+            paths.append(path)
+    return paths
+
+
+def phase_resume(torch, dev, raw_path, tmp):
+    """(o) on (d)'s recording: (o1) 0000 through reduce_resumable,
+    interrupted at the sink after the first slab and resumed, byte-identical
+    to (d)'s uninterrupted product, manifest verified; (o2) the recording
+    split into a three-member scan, 0002 over it byte-identical to (d)'s,
+    every member on the native reader, and again under a transient
+    guppi.read fault; (o3) 0002 with native=True and native=False, in
+    turns, three times each, RAW GB/s and ingest seconds; (o4) 0000 to .h5
+    (none; bitshuffle, also interrupted and resumed) decoding to (o1)'s
+    payload, when h5py imports; (o5) the search (h) interrupted after
+    SEARCH_RESUME_AFTER windows and resumed, equal to (h)'s .hits.
+    Returns the launches of each leg."""
+    import numpy as np
+
+    from blit_torch import faults, integrity
+    from blit_torch.io import bshuf
+    from blit_torch.io.guppi import GuppiRaw, GuppiScan
+    from blit_torch.io.sigproc import read_fil
+    from blit_torch.pipeline import ReductionCursor, reducer_for_product
+    from blit_torch.search import DedopplerReducer, SearchCursor
+
+    launches = {}
+    ref0000 = os.path.join(tmp, "smoke.0000.fil")
+    ref0002 = os.path.join(tmp, "smoke.0002.fil")
+
+    # (o1) .fil resume at full width.
+    out = os.path.join(tmp, "resume.0000.fil")
+    red = reducer_for_product("0000", **PRODUCTS["0000"])
+    first_s, launches["resume 0000 leg 1"] = _interrupted(
+        torch, "sink.write", 1, "resume.0000",
+        lambda: red.reduce_resumable(raw_path, out))
+    cur = ReductionCursor.load(out)
+    if cur is None or not os.path.exists(ReductionCursor.path_for(out)):
+        raise AssertionError("resume 0000: no cursor sidecar after the interruption")
+    done = cur.frames_done
+    total = tch_usable(NFFT, 1)
+    red = reducer_for_product("0000", **PRODUCTS["0000"])
+    hdr, second_s, launches["resume 0000 leg 2"] = _timed_reduce(
+        torch, red, "reduce_resumable", raw_path, out, "0000")
+    identical = same_file(out, ref0000)
+    cursor_gone = not os.path.exists(ReductionCursor.path_for(out))
+    _, problems = integrity.verify_product(out)
+    log(f"resume 0000: cursor claimed {done} of {total} frames; the resume "
+        f"re-reduced {total - done} frames; leg 1 {first_s:.3f} s, leg 2 "
+        f"{second_s:.3f} s; byte-identical to the uninterrupted product: "
+        f"{identical}; cursor removed: {cursor_gone}; verify_product problems: "
+        f"{problems}; launches leg 2 {json.dumps(launches['resume 0000 leg 2'])}")
+    if not (identical and cursor_gone and problems == [] and 0 < done < total
+            and hdr["nsamps"] == total):
+        raise AssertionError("resume 0000: the resumed product is not the uninterrupted one")
+    os.unlink(out)
+    os.unlink(integrity.manifest_path(out))
+
+    # (o2) a three-member scan.
+    t0 = time.perf_counter()
+    paths = split_recording(raw_path, tmp, SCAN_MEMBERS)
+    split_s = time.perf_counter() - t0
+    scan = GuppiScan(paths)
+    natives = [f.native for f in scan.files]
+    log(f"scan: {len(paths)} members of {[GuppiRaw(p, native=False).nblocks for p in paths]} "
+        f"blocks written in {split_s:.2f} s; native reader per member {natives}")
+    if not all(natives):
+        raise AssertionError(f"scan: a member did not take the native reader: {natives}")
+    for tag, rule in (("clean", None),
+                      ("guppi.read fault", faults.FaultRule("guppi.read", mode="fail",
+                                                            times=1, after=3))):
+        out = os.path.join(tmp, f"scan.0002.{tag.split()[0]}.fil")
+        faults.reset_counters()
+        if rule is not None:
+            faults.install(rule)
+        try:
+            red = reducer_for_product("0002", **PRODUCTS["0002"])
+            _, wall, launches[f"scan 0002 {tag}"] = _timed_reduce(
+                torch, red, "reduce_to_file", paths, out, "0002")
+        finally:
+            faults.clear()
+        retries = faults.counters().get("retry.io", 0)
+        identical = same_file(out, ref0002)
+        gbps = red.stats.gbps
+        log(f"scan 0002 ({tag}): {wall:.3f} s, RAW GB/s {gbps:.4g}; byte-identical "
+            f"to the single-file product: {identical}; retry.io {retries}")
+        if not identical or (rule is not None and retries < 1):
+            raise AssertionError(f"scan 0002 ({tag}): product differs or no retry counted")
+        os.unlink(out)
+        os.unlink(integrity.manifest_path(out))
+    for p in paths:
+        os.unlink(p)
+
+    # (o3) the native reader against the Python one, 0002, in turns.
+    runs = []
+    for rep in range(NATIVE_REPEATS):
+        for native in ((True, False) if rep % 2 == 0 else (False, True)):
+            out = os.path.join(tmp, f"native.{native}.fil")
+            raw = GuppiRaw(raw_path, native=native)
+            red = reducer_for_product("0002", **PRODUCTS["0002"])
+            _, wall, lc = _timed_reduce(torch, red, "reduce_to_file", raw, out, "0002")
+            launches[f"0002 native={native} run {rep + 1}"] = lc
+            ing = red.timeline.stages["ingest"]
+            row = dict(native=native, run=rep + 1, wall_s=wall, raw_gbps=red.stats.gbps,
+                       ingest_s=ing.seconds, ingest_gbps=ing.gbps,
+                       identical=same_file(out, ref0002))
+            log(f"native reader: {json.dumps(row)}")
+            runs.append(row)
+            raw.close()
+            os.unlink(out)
+            os.unlink(integrity.manifest_path(out))
+            if not row["identical"]:
+                raise AssertionError(f"0002 native={native}: product differs")
+    for native in (True, False):
+        g = sorted(r["raw_gbps"] for r in runs if r["native"] is native)
+        i = sorted(r["ingest_s"] for r in runs if r["native"] is native)
+        log(f"native reader table: native={native} RAW GB/s median {g[len(g) // 2]:.4g} "
+            f"range {g[0]:.4g}-{g[-1]:.4g}; ingest s median {i[len(i) // 2]:.4g} "
+            f"range {i[0]:.4g}-{i[-1]:.4g}")
+    os.unlink(ref0002)
+    os.unlink(integrity.manifest_path(ref0002))
+
+    # (o4) .h5 products, where h5py imports.
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        codec = ("builds (g++, liblz4.so.1)" if bshuf.available()
+                 else f"is unavailable: {bshuf.unavailable_reason()}")
+        log(f"h5: skipped, h5py is missing on this machine ({e}); the "
+            f"bitshuffle codec {codec}")
+    else:
+        from blit_torch.io.fbh5 import read_fbh5_data
+
+        _, want = read_fil(ref0000)
+        legs = [("none", None, None)]
+        if bshuf.available():
+            legs.append(("bitshuffle", "bitshuffle",
+                         (RESUME_BITSHUFFLE_ROWS, 1, NCHAN * NFFT)))
+        else:
+            log(f"h5: bitshuffle leg skipped, codec unavailable: "
+                f"{bshuf.unavailable_reason()}")
+        for tag, comp, chunks in legs:
+            out = os.path.join(tmp, f"smoke.0000.{tag}.h5")
+            red = reducer_for_product("0000", **PRODUCTS["0000"])
+            _, wall, launches[f"h5 0000 {tag}"] = _timed_reduce(
+                torch, red, "reduce_to_file", raw_path, out, "0000",
+                compression=comp, chunks=chunks)
+            t0 = time.perf_counter()
+            equal = bool(np.array_equal(read_fbh5_data(out), want))
+            read_s = time.perf_counter() - t0
+            size = os.path.getsize(out)
+            log(f"h5 0000 {tag}: write {wall:.3f} s, {size / 1e9:.4g} GB, decode "
+                f"{read_s:.3f} s; payload bitwise the .fil payload: {equal}")
+            if not equal:
+                raise AssertionError(f"h5 0000 {tag}: payload differs from the .fil")
+            os.unlink(out)
+            os.unlink(integrity.manifest_path(out))
+            if comp != "bitshuffle":
+                continue
+            out = os.path.join(tmp, "resume.0000.bitshuffle.h5")
+            red = reducer_for_product("0000", **PRODUCTS["0000"])
+            first_s, launches["h5 resume leg 1"] = _interrupted(
+                torch, "sink.write", 1, "resume.0000.bitshuffle",
+                lambda: red.reduce_resumable(raw_path, out, compression=comp,
+                                             chunks=chunks))
+            done = ReductionCursor.load(out).frames_done
+            red = reducer_for_product("0000", **PRODUCTS["0000"])
+            _, second_s, launches["h5 resume leg 2"] = _timed_reduce(
+                torch, red, "reduce_resumable", raw_path, out, "0000",
+                compression=comp, chunks=chunks)
+            equal = bool(np.array_equal(read_fbh5_data(out), want))
+            _, problems = integrity.verify_product(out)
+            log(f"h5 resume 0000 bitshuffle: claimed {done} frames; leg 1 {first_s:.3f} s, "
+                f"leg 2 {second_s:.3f} s; payload bitwise the .fil payload: {equal}; "
+                f"verify_product problems: {problems}")
+            if not (equal and problems == [] and done > 0):
+                raise AssertionError("h5 resume 0000 bitshuffle: resumed payload differs")
+            os.unlink(out)
+            os.unlink(integrity.manifest_path(out))
+        del want
+    os.unlink(ref0000)
+    os.unlink(integrity.manifest_path(ref0000))
+
+    # (o5) the search, interrupted and resumed.
+    ref_hits = os.path.join(tmp, "smoke.hits")
+    out = os.path.join(tmp, "resume.hits")
+    red = DedopplerReducer(nfft=SEARCH_NFFT, nint=1)
+    first_s, launches["resume search leg 1"] = _interrupted(
+        torch, "sink.write", SEARCH_RESUME_AFTER, "resume.hits",
+        lambda: red.search_resumable(raw_path, out))
+    done = SearchCursor.load(out).windows_done
+    red = DedopplerReducer(nfft=SEARCH_NFFT, nint=1)
+    hdr, second_s, launches["resume search leg 2"] = _timed_reduce(
+        torch, red, "search_resumable", raw_path, out, "search")
+    identical = same_file(out, ref_hits)
+    _, problems = integrity.verify_product(out)
+    log(f"resume search: cursor claimed {done} of {hdr['search_windows']} windows; "
+        f"leg 1 {first_s:.3f} s, leg 2 {second_s:.3f} s; .hits byte-identical to "
+        f"the uninterrupted search_to_file: {identical}; verify_product problems: "
+        f"{problems}")
+    if not (identical and problems == [] and 0 < done < hdr["search_windows"]):
+        raise AssertionError("resume search: the resumed .hits differ")
+    os.unlink(out)
+    os.unlink(integrity.manifest_path(out))
+    return launches
+
+
+def tch_usable(nfft, nint):
+    from blit_torch.ops import channelize as tch
+
+    return tch.usable_frames(RAW_SAMPLES, nfft, NTAP, nint) // nint
+
+
 def main() -> int:
     try:
         import torch
@@ -2339,6 +2639,8 @@ def main() -> int:
         launches["hi-res search"], _ = phase_hires_search(torch, dev, raw_path)
         # (n) the asynchronous plane against the synchronous path
         plane_rows = phase_plane_products(torch, dev, raw_path, tmp)
+        # (o) resume, the scan, the native reader, .h5 products
+        launches.update(phase_resume(torch, dev, raw_path, tmp))
         os.unlink(raw_path)
         launches["drift"] = phase_drift(torch, dev, tmp)
     finally:

@@ -177,8 +177,13 @@ def test_presets_and_guards(tmp_path):
     red = reducer_for_product("0000", device="cpu")
     assert (red.nfft, red.nint, red.chunk_frames) == (NFFT, 1, 8)
     assert reducer_for_product("0002", device="cpu").nint == 1 << 11
-    with pytest.raises(NotImplementedError, match="h5"):
-        red.reduce_to_file("unused.raw", str(tmp_path / "x.h5"))
+    # .h5 products are written now; blit's refusals of the output knobs
+    # come before the recording is opened.
+    with pytest.raises(ValueError, match="FBH5 products are float32"):
+        reducer_for_product("0000", nbits=8, device="cpu").reduce_to_file(
+            "unused.raw", str(tmp_path / "x.h5"))
+    with pytest.raises(ValueError, match="compression"):
+        red.reduce_to_file("unused.raw", str(tmp_path / "x.fil"), compression="gzip")
     with pytest.raises(ValueError, match="fqav_by"):
         RawReducer(nfft=64, fqav_by=3, device="cpu")
 

@@ -25,6 +25,10 @@ def _all_modules():
     return names
 
 
+def _listing(path):
+    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+
+
 def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
     mods = _all_modules()
     assert {"blit_torch.ops.pfb", "blit_torch.ops.detect", "blit_torch.pipeline",
@@ -34,16 +38,33 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.ops.xengine", "blit_torch.parallel",
             "blit_torch.parallel.antenna", "blit_torch.parallel.beamform",
             "blit_torch.parallel.correlator", "blit_torch.hostmem",
-            "blit_torch.outplane", "blit_torch.ops.narrow"} <= set(mods)
+            "blit_torch.outplane", "blit_torch.ops.narrow", "blit_torch.faults",
+            "blit_torch.integrity", "blit_torch.io.native", "blit_torch.io.bshuf",
+            "blit_torch.io.sigproc", "blit_torch.config",
+            "blit_torch.testing"} <= set(mods)
+    # blit_torch.io.fbh5 imports h5py by design; every other module and
+    # the pipeline must not pull it in.
+    plain = [m for m in mods if m != "blit_torch.io.fbh5"]
     code = (
         "import importlib, json, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for m in {plain!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'jaxlib', 'triton')) or m == 'blit' or m.startswith('blit.')"
-        " or m.startswith('torch.utils.cpp_extension'))\n"
+        "('jax.', 'jaxlib', 'triton', 'h5py')) or m == 'blit' or "
+        "m.startswith('blit.') or m.startswith('torch.utils.cpp_extension'))\n"
         "print(json.dumps(bad))\n"
     )
+    builds = [os.path.join(PKG, "native", "build"),
+              os.path.join(PKG, "kernels", "build")]
+    before = [_listing(d) for d in builds]
     env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    # Importing builds nothing: no g++ or nvcc output appeared.
+    assert [_listing(d) for d in builds] == before
+    # With fbh5 too, still no jax and no blit.
+    code = code.replace(repr(plain), repr(mods)).replace(", 'h5py'", "")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
