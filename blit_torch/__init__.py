@@ -44,6 +44,17 @@ crash-resumable reductions and searches (``reduce_resumable``,
 threaded native reader (:mod:`blit_torch.io.guppi`, built with g++ at
 first use).
 
+The reference's own API (:mod:`blit_torch.gbt` over
+:mod:`blit_torch.workers`, as ``blit.gbt`` / ``blit.workers``):
+inventories of a site's data tree (:mod:`blit_torch.inventory`,
+:mod:`blit_torch.naming`), headers, ``get_data`` with ``fqav``,
+``get_kurtosis`` (torch ops on the card with ``device=True``),
+``load_scan`` (the eight banks of a band stitched, the DC spikes
+repaired) and the ``reduce_raw`` fan-out, over a worker pool
+(:mod:`blit_torch.parallel.pool`: local, thread, process or remote
+``python -m blit_torch.agent`` workers).  These submodules load on
+first access, as ``blit``'s do.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -67,3 +78,16 @@ __all__ = [
     "reducer_for_product",
     "resolve_device",
 ]
+
+# Submodules that load on first access (blit's lazy surface).
+_LAZY = ("gbt", "workers", "inventory", "naming", "config", "testing",
+         "faults", "observability", "agent", "integrity", "hostmem",
+         "outplane", "io", "ops", "parallel", "pipeline", "search")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return importlib.import_module(f"blit_torch.{name}")
+    raise AttributeError(f"module 'blit_torch' has no attribute {name!r}")

@@ -25,3 +25,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_name(device: Optional[Union[str, torch.device]] = None) -> str:
+    """The name of the device an entry point would run on (the card's
+    ``torch.cuda.get_device_name``, or ``"cpu"``): what a remote agent
+    reports about its own card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return "cpu"

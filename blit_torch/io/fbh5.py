@@ -9,8 +9,9 @@ filterbank header, file attributes ``CLASS=FILTERBANK`` and
 own codec (:mod:`blit_torch.io.bshuf`) through h5py's direct-chunk I/O,
 so no HDF5 plugin is needed.
 
-``h5py`` is imported here only; the reducer imports this module for
-``.h5`` / ``.hdf5`` paths only.  Every writer publishes a
+``h5py`` is imported here only, and only inside the functions that open
+an HDF5 file: :func:`is_hdf5` reads the signature itself, so the
+workers' format dispatch needs no ``h5py`` (a GPU host may lack it).  Every writer publishes a
 ``<product>.manifest.json`` sidecar whose digests cover the logical
 dataset rows (:mod:`blit_torch.integrity`).
 """
@@ -20,7 +21,6 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional, Tuple
 
-import h5py
 import numpy as np
 
 from blit_torch import faults
@@ -31,6 +31,35 @@ from blit_torch.io.bshuf import BITSHUFFLE_FILTER_ID
 # products have 2^20-point spectra, where BL's conventional 16-spectra chunk
 # row would be 16 GiB — defaults must clamp, not crash at writer open.
 H5_CHUNK_LIMIT = 2**32 - 1
+
+# The HDF5 format signature, at offset 0 or at 512, 1024, 2048, ... when
+# a user block precedes the superblock.
+HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+
+def _h5py():
+    import h5py
+
+    return h5py
+
+
+def is_hdf5(path: str) -> bool:
+    """True when ``path`` is an HDF5 file: the signature at offset 0 or at
+    a power of two from 512 up to the file's size, where libhdf5's
+    superblock search (``h5py.is_hdf5``) looks for it.  False for a path
+    that is not a regular file.  Needs no ``h5py``."""
+    if not os.path.isfile(path):
+        return False
+    size = os.path.getsize(path)
+    n = len(HDF5_SIGNATURE)
+    with open(path, "rb") as f:
+        off = 0
+        while off + n <= size:
+            f.seek(off)
+            if f.read(n) == HDF5_SIGNATURE:
+                return True
+            off = 512 if off == 0 else off * 2
+    return False
 
 
 def default_chunks(
@@ -80,7 +109,7 @@ def _bitshuffle_cd_values(ds) -> Optional[Tuple]:
 def _needs_manual_bitshuffle(ds) -> bool:
     return (
         _bitshuffle_cd_values(ds) is not None
-        and not h5py.h5z.filter_avail(BITSHUFFLE_FILTER_ID)
+        and not _h5py().h5z.filter_avail(BITSHUFFLE_FILTER_ID)
     )
 
 
@@ -169,7 +198,7 @@ def read_fbh5_header(path: str) -> Dict:
 
     A missing ``nfpc`` is computed from the ``foff`` attribute.
     """
-    with h5py.File(path, "r") as h5:
+    with _h5py().File(path, "r") as h5:
         data = h5["data"]
         hdr = {
             k: _pyvalue(v)
@@ -194,7 +223,7 @@ def read_fbh5_data(
     all-``slice(None)`` does a single full read.  Decompression (gzip
     or bitshuffle, if the plugin is available) happens inside libhdf5 here.
     """
-    with h5py.File(path, "r") as h5:
+    with _h5py().File(path, "r") as h5:
         ds = h5["data"]
         if idxs is not None and len(idxs) != 3:
             raise ValueError("idxs must have exactly three indices")
@@ -410,7 +439,7 @@ class FBH5Writer(_ChunkStream):
         self.chunks = _stream_chunks(
             chunks, nifs, nchans, self.dtype.itemsize, self._bitshuffle
         )
-        self._h5 = h5py.File(self.path, "w")
+        self._h5 = _h5py().File(self.path, "w")
         try:
             self._h5.attrs["CLASS"] = np.bytes_(b"FILTERBANK")
             self._h5.attrs["VERSION"] = np.bytes_(b"1.0")
@@ -566,7 +595,7 @@ class ResumableFBH5Writer(_ChunkStream):
                 "multiple of chunk rows)"
             )
         if start_rows > 0 and os.path.exists(path):
-            self._h5 = h5py.File(path, "r+")
+            self._h5 = _h5py().File(path, "r+")
             try:
                 self._ds = self._h5["data"]
                 if self._ds.shape[1:] != (nifs, nchans):
@@ -607,7 +636,7 @@ class ResumableFBH5Writer(_ChunkStream):
                 raise
         else:
             start_rows = 0
-            self._h5 = h5py.File(path, "w")
+            self._h5 = _h5py().File(path, "w")
             try:
                 self._h5.attrs["CLASS"] = np.bytes_(b"FILTERBANK")
                 self._h5.attrs["VERSION"] = np.bytes_(b"1.0")
@@ -759,7 +788,7 @@ def resume_target_ok(path: str, nifs: int, nchans: int, rows: int) -> bool:
     keeps the structural behavior.
     """
     try:
-        with h5py.File(path, "r") as h5:
+        with _h5py().File(path, "r") as h5:
             ds = h5["data"]
             if ds.shape[1:] != (nifs, nchans) or ds.shape[0] < rows:
                 return False
@@ -810,7 +839,7 @@ def write_fbh5(
     elif compression is not None:
         raise ValueError(f"unknown compression {compression!r}")
 
-    with h5py.File(path, "w") as h5:
+    with _h5py().File(path, "w") as h5:
         h5.attrs["CLASS"] = np.bytes_(b"FILTERBANK")
         h5.attrs["VERSION"] = np.bytes_(b"1.0")
         if bitshuffle:

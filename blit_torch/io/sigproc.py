@@ -13,7 +13,7 @@ from __future__ import annotations
 import io
 import os
 import struct
-from typing import BinaryIO, Dict, Tuple
+from typing import BinaryIO, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -68,7 +68,9 @@ def encode_header(header: Dict, nbits: int, nifs: int, nchans: int) -> bytes:
 
 
 def read_fil_header(path: str) -> Tuple[Dict, int]:
-    """``(header, data_offset)``; ``nsamps`` is derived from file size."""
+    """``(header, data_offset)``; ``nsamps`` is derived from file size,
+    floored to whole spectra as ``blit``'s header reader does
+    (:func:`check_payload` refuses a torn payload)."""
     hdr: Dict = {}
     with open(path, "rb") as f:
         if _read_string(f) != "HEADER_START":
@@ -86,25 +88,68 @@ def read_fil_header(path: str) -> Tuple[Dict, int]:
             else:
                 raise ValueError(f"{path}: unknown sigproc header keyword {key!r}")
         offset = f.tell()
-    sample_bytes = hdr.get("nchans", 1) * hdr.get("nifs", 1) * hdr.get("nbits", 32) // 8
+    sample_bytes = _sample_bytes(hdr)
+    payload = os.path.getsize(path) - offset
+    hdr["nsamps"] = payload // sample_bytes if sample_bytes > 0 else 0
+    return hdr, offset
+
+
+def _sample_bytes(header: Dict) -> int:
+    return header.get("nchans", 1) * header.get("nifs", 1) * header.get("nbits", 32) // 8
+
+
+def check_payload(path: str, header: Dict, offset: int) -> None:
+    """Raise unless the bytes after ``offset`` are a whole number of the
+    spectra ``header`` describes, as ``blit``'s ``read_fil_data`` does:
+    otherwise the header disagrees with the bytes on disk."""
+    sample_bytes = _sample_bytes(header)
     payload = os.path.getsize(path) - offset
     if sample_bytes <= 0 or payload % sample_bytes:
-        raise ValueError(f"{path}: payload of {payload} bytes is not a whole "
-                         f"number of {sample_bytes}-byte spectra")
-    hdr["nsamps"] = payload // sample_bytes
-    return hdr, offset
+        raise ValueError(
+            f"{path}: payload of {payload} bytes is not a whole number "
+            f"of (nifs={header.get('nifs', 1)}, nchans={header.get('nchans', 1)}, "
+            f"nbits={header.get('nbits', 32)}) spectra of {sample_bytes} bytes "
+            "— truncated or corrupt product (header disagrees with the bytes on disk)"
+        )
 
 
 def read_fil(path: str) -> Tuple[Dict, np.ndarray]:
     """``(header, data)`` with data a read-only memmap shaped
     ``(nsamps, nifs, nchans)``."""
     hdr, offset = read_fil_header(path)
+    check_payload(path, hdr, offset)
     nbits = hdr.get("nbits", 32)
     if nbits not in _DTYPES:
         raise ValueError(f"{path}: unsupported nbits={nbits}")
     shape = (hdr["nsamps"], hdr.get("nifs", 1), hdr["nchans"])
     return hdr, np.memmap(path, dtype=_DTYPES[nbits], mode="r",
                           offset=offset, shape=shape)
+
+
+def read_fil_data(path: str, header: Optional[Dict] = None,
+                  mmap: bool = True) -> Tuple[Dict, np.ndarray]:
+    """``(header, data)`` with data shaped ``(nsamps, nifs, nchans)``: a
+    read-only memmap (``mmap=True``; unmapped when collected) or an array
+    read into memory.  ``header`` replaces the file's own for the shape
+    and dtype.  A payload that is not a whole number of spectra raises,
+    as in ``blit``: the header disagrees with the bytes on disk."""
+    if header is None:
+        header, offset = read_fil_header(path)
+    else:
+        _, offset = read_fil_header(path)
+    nbits = header.get("nbits", 32)
+    if nbits not in _DTYPES:
+        raise ValueError(f"{path}: unsupported nbits={nbits}")
+    check_payload(path, header, offset)
+    shape = (header["nsamps"], header.get("nifs", 1), header["nchans"])
+    if mmap:
+        data = np.memmap(path, dtype=_DTYPES[nbits], mode="r", offset=offset,
+                         shape=shape)
+    else:
+        with open(path, "rb") as f:
+            f.seek(offset)
+            data = np.fromfile(f, dtype=_DTYPES[nbits]).reshape(shape)
+    return header, data
 
 
 def validate_slab(slab: np.ndarray, nifs: int, nchans: int,

@@ -8,12 +8,16 @@ the flags, so an edited source builds anew and an unchanged one is
 reused.  Nothing is built at import time:
 :func:`load` builds on first use, :func:`build_all` builds every source
 in parallel (one ``nvcc`` process each).  A failed build raises.
+Builds hold an exclusive lock on ``build/.lock``, so processes that
+share the directory (the agents of a remote worker pool on one host)
+build each library once, one at a time, and the others load it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -35,6 +39,15 @@ KERNEL_SOURCES = ("pfb_dft1", "tail2_detect", "pfb_dequant", "dft", "dft_tail2",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches`` under a lock: the reducers of a
+    thread pool launch the same kernels at once, and an unlocked ``+=``
+    can lose a count."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
 
 
 def nvcc_path() -> str:
@@ -75,26 +88,39 @@ def _start_build(name: str):
     return proc, tmp, final
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock across processes on the build directory."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     """Build every named source at once (one ``nvcc`` each, started
     together).  Returns ``{name: compiler output}`` (register and shared
     memory use from ``-Xptxas -v``); raises on the first failed build."""
-    started = {n: _start_build(n) for n in names}
-    logs: Dict[str, str] = {}
-    errors: List[str] = []
-    for name, job in started.items():
-        if job is None:
-            logs[name] = "(cached)"
-            continue
-        proc, tmp, final = job
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{out}")
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        else:
-            os.replace(tmp, final)
+    with _build_lock():
+        started = {n: _start_build(n) for n in names}
+        logs: Dict[str, str] = {}
+        errors: List[str] = []
+        for name, job in started.items():
+            if job is None:
+                logs[name] = "(cached)"
+                continue
+            proc, tmp, final = job
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{out}")
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            else:
+                os.replace(tmp, final)
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs

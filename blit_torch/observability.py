@@ -30,16 +30,27 @@ times).
 
 Stages are timed from several threads (producer, dispatch, readback,
 sink), so readers copy the stage dict before iterating it, never the
-live one.  Spans, ``profile_trace`` and monitor publishing are not
-ported (ROADMAP.md Queue 1 item 8).
+live one.
+
+Spans (:class:`Tracer`, :func:`span`) trace the worker fan-out: the
+pool records each dispatch as a span, ships its ``{"trace", "span"}``
+context to a remote agent, and the agent's span parents onto it.
+:func:`configure_logging` stamps host and worker into every
+``blit_torch`` log record (:class:`HostContextFilter`), as JSON lines on
+request (:class:`JsonLineFormatter`).  The Chrome trace export, the
+fleet harvest (``telemetry_snapshot`` / ``merge_fleet``),
+``profile_trace`` and monitor publishing are not ported (ROADMAP.md
+Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
+import socket
 import threading
 import time
 from collections import defaultdict, deque
@@ -47,6 +58,20 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterable, Iterator, List, Optional
 
 log = logging.getLogger("blit_torch.observability")
+
+_HOSTNAME: Optional[str] = None
+
+# Worker id stamped into spans (0: the main process, by the pool's
+# convention); set by configure_logging(worker=...) at worker start-up.
+_WORKER = 0
+
+
+def hostname() -> str:
+    """This process's host name (cached: span creation must stay cheap)."""
+    global _HOSTNAME
+    if _HOSTNAME is None:
+        _HOSTNAME = socket.gethostname()
+    return _HOSTNAME
 
 
 @dataclass
@@ -161,6 +186,11 @@ class FlightRecorder:
         self._ring.append({"t": time.time(), "kind": "stage", "name": name,
                            "s": seconds, "bytes": nbytes})
 
+    def span_event(self, sp: "Span") -> None:
+        self._ring.append({"t": sp.t0, "kind": "span", "name": sp.name,
+                           "dur_s": round(sp.duration_s, 6),
+                           "span": sp.span_id, "parent": sp.parent_id})
+
     def event(self, kind: str, name: str, **fields) -> None:
         """Record a fault, mask or integrity event."""
         e = {"t": time.time(), "kind": kind, "name": name}
@@ -267,3 +297,229 @@ class StallWatchdog:
     def check(self, detail: str, active: bool = True) -> None:
         if self.stalled(active):
             self.trip(detail)
+
+
+# -- spans ------------------------------------------------------------------
+
+_id_counter = itertools.count(1)
+# Per-process id prefix: spans of N worker processes must not collide.
+# pid alone recycles; two random bytes are added.
+_ID_PREFIX = f"{os.getpid():x}{os.urandom(2).hex()}"
+_ID_PID = os.getpid()
+
+
+def _new_id() -> str:
+    global _ID_PREFIX, _ID_PID
+    pid = os.getpid()
+    if pid != _ID_PID:
+        # A forked child inherits the prefix and the counter's position:
+        # re-key the prefix per process.
+        _ID_PREFIX = f"{pid:x}{os.urandom(2).hex()}"
+        _ID_PID = pid
+    return f"{_ID_PREFIX}.{next(_id_counter):x}"
+
+
+def new_id() -> str:
+    """A fresh process-unique id in the span-id format."""
+    return _new_id()
+
+
+class Span:
+    """One finished traced operation: name, wall start (epoch seconds),
+    duration, host / worker / thread, trace id, span id, parent span id
+    and small free-form attrs."""
+
+    __slots__ = ("name", "t0", "duration_s", "trace_id", "span_id",
+                 "parent_id", "host", "worker", "tid", "attrs")
+
+    def __init__(self, name: str, trace_id: str, span_id: str,
+                 parent_id: Optional[str], attrs: Optional[Dict]):
+        self.name = name
+        self.t0 = time.time()
+        self.duration_s = 0.0
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.host = hostname()
+        self.worker = _WORKER
+        self.tid = threading.get_ident() & 0x7FFFFFFF
+        self.attrs = attrs
+
+    def as_dict(self) -> Dict:
+        d = {"name": self.name, "t0": self.t0,
+             "duration_s": self.duration_s, "trace": self.trace_id,
+             "span": self.span_id, "parent": self.parent_id,
+             "host": self.host, "worker": self.worker, "tid": self.tid}
+        if self.attrs:
+            d["attrs"] = self.attrs
+        return d
+
+
+class Tracer:
+    """Span recorder with an ambient (thread-local) trace context.
+
+    A :meth:`span` opened with no ambient context starts a new trace; one
+    opened inside another span of the same thread, or under
+    :meth:`activate` (a context adopted from another thread or process),
+    becomes its child.  :meth:`context` exports the current ``{"trace",
+    "span"}`` pair, which the pool ships to its workers.  Finished spans
+    land in a bounded deque (oldest dropped) and in the flight recorder.
+    ``enabled=False`` (or ``BLIT_SPANS=0``) makes :meth:`span` a no-op."""
+
+    def __init__(self, max_spans: int = 16384, enabled: Optional[bool] = None):
+        if enabled is None:
+            enabled = os.environ.get("BLIT_SPANS", "1").lower() not in (
+                "0", "false", "off", "")
+        self.enabled = enabled
+        self._spans: deque = deque(maxlen=max_spans)
+        self._span_lock = threading.Lock()
+        self._tls = threading.local()
+
+    def _stack(self) -> List:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[Optional[Span]]:
+        """Time a traced operation; yields the live :class:`Span` (None
+        when tracing is off).  Keyword args become span attrs."""
+        if not self.enabled:
+            yield None
+            return
+        stack = self._stack()
+        if stack:
+            trace_id, parent_id = stack[-1]
+        else:
+            trace_id, parent_id = _new_id(), None
+        sp = Span(name, trace_id, _new_id(), parent_id, attrs or None)
+        stack.append((trace_id, sp.span_id))
+        p0 = time.perf_counter()
+        try:
+            yield sp
+        finally:
+            sp.duration_s = time.perf_counter() - p0
+            stack.pop()
+            with self._span_lock:
+                self._spans.append(sp)
+            _FLIGHT.span_event(sp)
+
+    @contextlib.contextmanager
+    def activate(self, ctx: Optional[Dict]) -> Iterator[None]:
+        """Adopt a ``{"trace", "span"}`` context exported by
+        :meth:`context` elsewhere: spans opened inside become its
+        children."""
+        if not ctx or not self.enabled:
+            yield
+            return
+        stack = self._stack()
+        stack.append((str(ctx.get("trace", "")), str(ctx.get("span", ""))))
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def context(self) -> Optional[Dict]:
+        """The ambient ``{"trace", "span"}`` pair (None outside any span
+        or with tracing off)."""
+        if not self.enabled:
+            return None
+        stack = getattr(self._tls, "stack", None)
+        if not stack:
+            return None
+        trace_id, span_id = stack[-1]
+        return {"trace": trace_id, "span": span_id}
+
+    def spans(self) -> List[Span]:
+        with self._span_lock:
+            return list(self._spans)
+
+    def span_dicts(self) -> List[Dict]:
+        return [s.as_dict() for s in self.spans()]
+
+    def reset(self) -> None:
+        with self._span_lock:
+            self._spans.clear()
+
+
+_TRACER = Tracer()
+
+
+def tracer() -> Tracer:
+    """The process-wide tracer."""
+    return _TRACER
+
+
+def span(name: str, **attrs):
+    """``with observability.span("leg"): ...`` on the process tracer."""
+    return _TRACER.span(name, **attrs)
+
+
+def span_dicts() -> List[Dict]:
+    """The process tracer's finished spans as dicts.  A pool reads its
+    agents' with ``pool.broadcast(span_dicts)``: each agent's
+    ``agent.<fn>`` span names the pool's ``pool.<fn>`` dispatch span as
+    its parent, so a fan-out's tree spans the processes."""
+    return _TRACER.span_dicts()
+
+
+# -- structured logging -----------------------------------------------------
+
+
+class HostContextFilter(logging.Filter):
+    """Adds ``host`` and ``worker`` to every record so the fan-out's logs
+    stay attributable."""
+
+    def __init__(self, worker: int = 0):
+        super().__init__()
+        self.host = socket.gethostname()
+        self.worker = worker
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        record.host = self.host
+        record.worker = self.worker
+        return True
+
+
+class JsonLineFormatter(logging.Formatter):
+    """One JSON object per record (ts, level, host, worker, name, msg)."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        doc = {
+            "ts": round(record.created, 3),
+            "level": record.levelname,
+            "host": getattr(record, "host", hostname()),
+            "worker": getattr(record, "worker", 0),
+            "name": record.name,
+            "msg": record.getMessage(),
+        }
+        if record.exc_info:
+            doc["exc"] = self.formatException(record.exc_info)
+        return json.dumps(doc)
+
+
+def configure_logging(level: int = logging.INFO, worker: int = 0,
+                      json_lines: bool = False, stream=None) -> None:
+    """Structured stderr logging with host / worker context for every
+    ``blit_torch`` logger.  Idempotent: a second call replaces the first
+    handler.  ``json_lines=True`` emits :class:`JsonLineFormatter` lines
+    (the agent sets it from ``BLIT_LOG_JSON``); ``stream`` overrides the
+    handler's target (default stderr)."""
+    global _WORKER
+    _WORKER = worker
+    root = logging.getLogger("blit_torch")
+    for h in list(root.handlers):
+        if getattr(h, "_blit_torch_handler", False):
+            root.removeHandler(h)
+    handler = logging.StreamHandler(stream)
+    handler._blit_torch_handler = True
+    handler.addFilter(HostContextFilter(worker))
+    if json_lines:
+        handler.setFormatter(JsonLineFormatter())
+    else:
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(host)s/w%(worker)d %(name)s: %(message)s"))
+    root.setLevel(level)
+    root.addHandler(handler)
+    root.propagate = False

@@ -101,7 +101,7 @@ def fused_beamform_detect(vr: torch.Tensor, vi: torch.Tensor,
             out.data_ptr(), nchan, nant, nbeam, npol, ntime, nint,
             int(vr.dtype == torch.bfloat16), stream)
     kernels.check(lib, rc, "fused_beamform_detect")
-    fused_beamform_detect.launches += 1
+    kernels.count_launch(fused_beamform_detect)
     return out
 
 

@@ -184,7 +184,7 @@ def _tree_cuda(power: torch.Tensor, both: bool) -> torch.Tensor:
             power.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), T, F, int(both),
             stream, ctypes.byref(launched))
-    taylor_tree.launches += launched.value
+    kernels.count_launch(taylor_tree, launched.value)
     kernels.check(lib, rc, "taylor_tree")
     return out
 

@@ -178,7 +178,7 @@ def _tail2_detect_cuda(ur, ui, f2, f3, stokes):
             _STOKES_CODE[stokes], nif, int(ur.dtype == torch.bfloat16),
             stream)
     kernels.check(lib, rc, "tail2_detect")
-    tail2_detect.launches += 1
+    kernels.count_launch(tail2_detect)
     return out
 
 
@@ -285,7 +285,7 @@ def _detect_untwist_cuda(sr, si, factors):
             nframes, npol, f1, mid, flast, int(sr.dtype == torch.bfloat16),
             stream)
     kernels.check(lib, rc, "detect_untwist_i")
-    detect_untwist_i.launches += 1
+    kernels.count_launch(detect_untwist_i)
     return out
 
 

@@ -255,7 +255,7 @@ def dft_last(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
         raise ValueError(f"dft_last: unsupported device {xr.device}")
     out = dft_last_cuda(xr, xi, wr, wi)
     if xr.numel():
-        dft_last.launches += 1
+        kernels.count_launch(dft_last)
     return out
 
 
@@ -393,7 +393,7 @@ def dft_stage(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
         raise ValueError(f"dft_stage: unsupported device {xr.device}")
     out = dft_stage_cuda(xr, xi, wr, wi, tr, ti)
     if xr.numel():
-        dft_stage.launches += 1
+        kernels.count_launch(dft_stage)
     return out
 
 
@@ -590,7 +590,7 @@ def dft_tail2(xr: torch.Tensor, xi: torch.Tensor, f2: int, f3: int
             geo["nstage"][1], geo["smem"][1],
             int(xr.dtype == torch.bfloat16), stream)
     kernels.check(lib, rc, "dft_tail2")
-    dft_tail2.launches += 1
+    kernels.count_launch(dft_tail2)
     return or_, oi
 
 

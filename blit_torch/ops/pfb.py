@@ -191,7 +191,7 @@ def _pfb_dft1_cuda(voltages, coeffs, w1r, w1i, tr, ti, dtype):
             geo["nstage"], vec, geo["smem"], int(dtype == "bfloat16"),
             stream)
     kernels.check(lib, rc, "pfb_dft1")
-    pfb_dft1.launches += 1
+    kernels.count_launch(pfb_dft1)
     return ur, ui
 
 
@@ -298,7 +298,7 @@ def _pfb_dequant_cuda(voltages, coeffs, dtype):
             fi.data_ptr(), nchan, nfft, nblk, nframes, ntap,
             int(dtype == "bfloat16"), stream)
     kernels.check(lib, rc, "pfb_dequant")
-    pfb_dequant.launches += 1
+    kernels.count_launch(pfb_dequant)
     return fr, fi
 
 

@@ -80,7 +80,7 @@ def xengine_packed(sr: torch.Tensor, si: torch.Tensor) -> Planar:
         raise ValueError(f"xengine_packed: unsupported device {sr.device}")
     out = xengine_packed_cuda(sr, si)
     if sr.numel():
-        xengine_packed.launches += 1
+        kernels.count_launch(xengine_packed)
     return out
 
 

@@ -75,6 +75,7 @@ from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
 from blit_torch.io.sigproc import (
     FilWriter,
+    check_payload,
     read_fil_header,
     validate_slab,
     write_fil,
@@ -791,7 +792,8 @@ def resume_fil_ok(path: str, nif: int, nchans: int, rows: int,
     where a manifest exists, the claimed region's digest must match its
     ledger."""
     try:
-        _, off = read_fil_header(path)
+        hdr, off = read_fil_header(path)
+        check_payload(path, hdr, off)
         size = os.path.getsize(path)
     except (OSError, ValueError):
         return False

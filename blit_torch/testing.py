@@ -1,21 +1,93 @@
-"""Synthetic GUPPI RAW generators (test fixtures and smoke inputs).
+"""Synthetic BL@GBT data generators (test fixtures and smoke inputs).
 
-Counterpart of the RAW part of ``blit/testing.py``: the same header, the
-same seeded voltages and the same files for the same arguments, so a
-file written here reduces identically in both packages, one file
-(:func:`synth_raw`) or a ``.NNNN.raw`` scan (:func:`synth_raw_sequence`).
-Adds :func:`synth_raw_blocks`, which writes a large recording block by
-block at bounded memory (``synth_raw`` builds the whole float64 stream
-first).
+Counterpart of ``blit/testing.py``: the same headers, the same seeded
+voltages and spectra and the same files for the same arguments, so a
+file written here reads and reduces identically in both packages: RAW
+recordings, one file (:func:`synth_raw`) or a ``.NNNN.raw`` scan
+(:func:`synth_raw_sequence`), ``.fil`` and ``.h5`` products
+(:func:`synth_fil`, :func:`synth_fbh5`) and whole observation trees
+(:func:`build_observation_tree`).  Adds :func:`synth_raw_blocks`, which
+writes a large recording block by block at bounded memory
+(``synth_raw`` builds the whole float64 stream first).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from blit_torch.config import COARSE_MHZ, nfpc_from_foff
 from blit_torch.io.guppi import write_raw
+from blit_torch.io.sigproc import write_fil
+
+
+def make_fil_header(
+    nchans: int = 64,
+    nifs: int = 1,
+    fch1: float = 8437.5,
+    foff: Optional[float] = None,
+    tsamp: float = 1.0e-3,
+    tstart: float = 59897.0,
+    source_name: str = "SYNTH",
+) -> Dict:
+    """A plausible GBT filterbank header; ``foff`` defaults to one coarse
+    channel over ``nchans // 64`` fine channels (nfpc computes cleanly)."""
+    if foff is None:
+        foff = -COARSE_MHZ / max(nchans // 64, 1)
+    return {
+        "telescope_id": 6,  # GBT
+        "machine_id": 0,
+        "data_type": 1,
+        "source_name": source_name,
+        "barycentric": 0,
+        "pulsarcentric": 0,
+        "az_start": 0.0,
+        "za_start": 0.0,
+        "src_raj": 120000.0,
+        "src_dej": 450000.0,
+        "tstart": tstart,
+        "tsamp": tsamp,
+        "fch1": fch1,
+        "foff": foff,
+        "nchans": nchans,
+        "nifs": nifs,
+    }
+
+
+def make_spectra(
+    nsamps: int = 16,
+    nifs: int = 1,
+    nchans: int = 64,
+    seed: int = 0,
+    dtype=np.float32,
+) -> np.ndarray:
+    """Deterministic positive "power" spectra ``(nsamps, nifs, nchans)``."""
+    rng = np.random.default_rng(seed)
+    base = rng.chisquare(4, size=(nsamps, nifs, nchans))
+    ramp = 1.0 + np.arange(nchans) / nchans
+    return (base * ramp).astype(dtype)
+
+
+def synth_fil(path: str, nsamps=16, nifs=1, nchans=64, seed=0,
+              **hdrkw) -> Tuple[Dict, np.ndarray]:
+    hdr = make_fil_header(nchans=nchans, nifs=nifs, **hdrkw)
+    data = make_spectra(nsamps, nifs, nchans, seed)
+    write_fil(path, hdr, data)
+    return hdr, data
+
+
+def synth_fbh5(path: str, nsamps=16, nifs=1, nchans=64, seed=0,
+               compression=None, **hdrkw) -> Tuple[Dict, np.ndarray]:
+    """As :func:`synth_fil`, to an ``.h5`` product (needs ``h5py``)."""
+    from blit_torch.io.fbh5 import write_fbh5
+
+    hdr = make_fil_header(nchans=nchans, nifs=nifs, **hdrkw)
+    hdr["nfpc"] = nfpc_from_foff(hdr["foff"])
+    data = make_spectra(nsamps, nifs, nchans, seed)
+    write_fbh5(path, hdr, data, compression=compression)
+    return hdr, data
 
 
 def make_raw_header(
@@ -200,3 +272,57 @@ def synth_raw_blocks(
 
     write_raw(path, hdr, blocks())
     return hdr
+
+
+def build_observation_tree(
+    root: str,
+    session: str = "AGBT22B_999_01",
+    scans: Tuple[str, ...] = ("0011",),
+    players: Tuple[Tuple[int, int], ...] = ((0, 0), (0, 1)),
+    nsamps: int = 16,
+    nchans: int = 64,
+    kind: str = "fbh5",
+    nfiles: int = 1,
+    raw_ntime: int = 1024,
+) -> List[str]:
+    """A fake BL@GBT data tree, ``<root>/<session>/GUPPI/BLPbb/<guppi
+    name>``, of real, readable files; returns their paths.
+
+    ``kind`` is ``"fbh5"``, ``"fil"`` or ``"raw"``: per-player ``.NNNN.raw``
+    sequences (``nfiles`` members of 2 blocks of ``raw_ntime`` samples, a
+    tone in coarse channel ``bank % nchans``) whose banks tile each band,
+    bank k owning the k-th 187.5/8 MHz slice, descending, as ``blit``'s
+    tree does."""
+    paths = []
+    for band, bank in players:
+        player = f"BLP{band}{bank}"
+        host = f"blc{band}{bank}"
+        d = os.path.join(root, session, "GUPPI", player)
+        os.makedirs(d, exist_ok=True)
+        for scan in scans:
+            base = f"{host}_guppi_59897_21221_HD_84406_{scan}"
+            if kind == "fbh5":
+                p = os.path.join(d, base + ".rawspec.0002.h5")
+                synth_fbh5(p, nsamps=nsamps, nchans=nchans, seed=band * 8 + bank)
+            elif kind == "fil":
+                p = os.path.join(d, base + ".rawspec.0002.fil")
+                synth_fil(p, nsamps=nsamps, nchans=nchans, seed=band * 8 + bank)
+            elif kind == "raw":
+                bank_bw = -187.5 / 8
+                ps, _ = synth_raw_sequence(
+                    os.path.join(d, base),
+                    nfiles=nfiles,
+                    blocks_per_file=2,
+                    obsnchan=nchans,
+                    ntime_per_block=raw_ntime,
+                    seed=band * 8 + bank,
+                    tone_chan=bank % nchans,
+                    obsbw=bank_bw,
+                    obsfreq=8000.0 + band * 500.0 + (bank + 0.5) * bank_bw,
+                )
+                paths.extend(ps)
+                continue
+            else:
+                raise ValueError(f"unknown kind {kind!r}")
+            paths.append(p)
+    return paths

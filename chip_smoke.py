@@ -9,7 +9,10 @@ nfft 2^21 and one at nfft 6144, drives channelize's opt-in routes
 (detect_kernel="pallas", dft_order="twisted", one-pol input,
 fft_method="direct"), recovers injected ±20-bin drifts, and turns 64
 per-antenna recordings into tied-array beam power and FX visibilities
-at the array scale, all through the kernels, and checks the results.
+at the array scale, all through the kernels, then drives the
+reference's own API (inventory, the reduce_raw fan-out over a worker
+pool, load_scan, get_data / get_kurtosis, remote agents) over one band
+of eight banks, and checks the results.
 
     python3 chip_smoke.py
 
@@ -194,6 +197,38 @@ Phases, in order; any failure exits non-zero:
       .fil payload; (o5) the search (h) through search_resumable,
       interrupted after 20 windows and resumed, the .hits byte-identical
       to (h)'s search_to_file.  Launches are counted for each leg.
+  (p) last, in a directory of its own: the reference's own API
+      (blit_torch.gbt) over session AGBT22B_999_01, scan 0011, band 0:
+      banks 0-7 (BLP00..BLP07, hosts blc00..blc07) at the GBT widths
+      (64 coarse channels, OBSBW -187.5 MHz, OBSFREQ descending by bank
+      so the banks tile the band), each a 2-member .NNNN.raw sequence of
+      2 blocks of 2^17 samples (32 MiB blocks, 128 MiB a bank, 1 GiB the
+      band: the depth is cut to 2^19 samples a channel), a tone at 0.375
+      of coarse channel k in bank k.  setup_workers(thread, 8 hosts) →
+      get_inventories → raw_sequences (8 sequences of 2); the reduce_raw
+      fan-out, bank k on worker k+1, at nfft 1024 and nint 16 (0002's
+      width, nint cut from 2048): every product byte-identical to a
+      serial RawReducer(nfft=1024, nint=16).reduce_to_file outside the
+      pool, each tone in its fine channel, pfb_dequant and dft_last
+      counted as the path "gbt" and equal to the serial runs' counts
+      exactly; the fan-out again, warm, timed beside
+      the serial runs and byte-identical too; load_scan of the 8
+      products: the band
+      (nspectra, 1, 524288), bank-ascending, fch1 and nchans right, equal
+      to the stitched products despiked at nfpc 1024 (band[..., 512::1024]
+      == band[..., 511::1024]), and again at fqav_by 8, both timed;
+      get_data with idxs and an np.max fqav_func, and
+      get_kurtosis(device=True) against device=False (rtol 2e-3, atol
+      2e-3), over the 8 products; search_raw through the pool on bank 0
+      (nfft 1024, nint 1), the .hits byte-identical to a direct
+      DedopplerReducer.search_to_file, its taylor_tree launches added to
+      "gbt"; a remote pool of 2 agents (python -m blit_torch.agent) that
+      report their card, reduce banks 0 and 1 byte-identical to the
+      thread pool's products and return the same get_data slab, each
+      agent's reduce_raw span parented onto the pool's dispatch span.  Prints
+      the fan-out and serial walls with the aggregate RAW GB/s, the
+      load_scan seconds, the kurtosis maps' ms and the agents' spawn
+      seconds, each beside the card's name and power limit.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -831,6 +866,9 @@ EXPECTED = {
     "route (c) one pol": (_plan("torch", "dft_last", fft_method="matmul"),
                           ("dft_last",)),
     "route (d) direct": (_plan("torch", "torch", fft_method="direct"), ()),
+    "gbt": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
+    "gbt search": (_plan("pallas", "dft_last"),
+                   ("pfb_dequant", "dft_last", "taylor_tree")),
 }
 
 
@@ -2351,9 +2389,9 @@ def _interrupted(torch, point, after, match, fn):
     return time.perf_counter() - t0, read_launches()
 
 
-def split_recording(raw_path, tmp, members):
+def split_recording(raw_path, tmp, members, stem="scan"):
     """Copy the recording's blocks, byte for byte, into ``members``
-    ``<stem>.NNNN.raw`` files.  Returns their paths."""
+    ``<stem>.NNNN.raw`` files in ``tmp``.  Returns their paths."""
     from blit_torch.io.guppi import GuppiRaw
 
     raw = GuppiRaw(raw_path, native=False)
@@ -2364,7 +2402,7 @@ def split_recording(raw_path, tmp, members):
     with open(raw_path, "rb") as src:
         for m in range(members):
             blocks = range(m * per, min(raw.nblocks, (m + 1) * per))
-            path = os.path.join(tmp, f"scan.{m:04d}.raw")
+            path = os.path.join(tmp, f"{stem}.{m:04d}.raw")
             with open(path, "wb") as dst:
                 src.seek(starts[blocks[0]])
                 n = ends[blocks[-1]] - starts[blocks[0]]
@@ -2586,6 +2624,292 @@ def tch_usable(nfft, nint):
     return tch.usable_frames(RAW_SAMPLES, nfft, NTAP, nint) // nint
 
 
+# (p) the reference workflow: one session, scan 0011, band 0 of 8 banks at
+# the GBT widths (64 coarse channels of a 187.5 MHz bank, banks tiling the
+# band downwards from GBT_TOP_MHZ), each bank a 2-member .NNNN.raw sequence
+# of GBT_MEMBER_BLOCKS blocks of GBT_BLOCK_NTIME samples (32 MiB blocks,
+# 128 MiB a bank: depth cut to 2^19 samples a channel), reduced at 0002's
+# nfft with nint cut from 2048 to GBT_NINT.
+GBT_SESSION, GBT_SCAN = "AGBT22B_999_01", "0011"
+GBT_BANKS = 8
+GBT_BLOCK_NTIME = 1 << 17
+GBT_MEMBERS = 2
+GBT_MEMBER_BLOCKS = 2
+GBT_NFFT, GBT_NINT = 1024, 16
+GBT_TOP_MHZ = 9500.0
+GBT_COARSE_MHZ = 187.5 / 64   # a bank is NCHAN of these: 187.5 MHz at 64
+GBT_AGENTS = 2
+
+
+def write_gbt_tree(root):
+    """(p)'s tree: ``<root>/<session>/GUPPI/BLP0k/blc0k_guppi_..._0011.000m.raw``,
+    a tone at TONE_FREQ of coarse channel k in bank k.  Returns
+    {bank: member paths}."""
+    from blit_torch.testing import synth_raw_blocks
+
+    seqs = {}
+    for k in range(GBT_BANKS):
+        d = os.path.join(root, GBT_SESSION, "GUPPI", f"BLP0{k}")
+        os.makedirs(d, exist_ok=True)
+        whole = os.path.join(d, "whole.raw")
+        synth_raw_blocks(whole, nblocks=GBT_MEMBERS * GBT_MEMBER_BLOCKS,
+                         obsnchan=NCHAN, ntime_per_block=GBT_BLOCK_NTIME,
+                         seed=SEED + k, tone_chan=k, tone_freq=TONE_FREQ,
+                         obsbw=-NCHAN * GBT_COARSE_MHZ,
+                         obsfreq=GBT_TOP_MHZ - (k + 0.5) * NCHAN * GBT_COARSE_MHZ)
+        seqs[k] = split_recording(whole, d, GBT_MEMBERS,
+                                  stem=f"blc0{k}_guppi_59897_21221_HD_84406_{GBT_SCAN}")
+        os.unlink(whole)
+    return seqs
+
+
+def gbt_tone_chan(hdr, raw_hdr, k):
+    """The fine channel of bank k's tone, from the product's header."""
+    chan_bw = hdr["foff"] * GBT_NFFT
+    f_tone = (float(raw_hdr["OBSFREQ"]) - float(raw_hdr["OBSBW"]) / 2
+              + chan_bw / 2 + k * chan_bw + TONE_FREQ * chan_bw)
+    return int(round((f_tone - hdr["fch1"]) / hdr["foff"]))
+
+
+def phase_gbt(torch, dev, smi):
+    """(p): the reference's own API on the card.  Inventory over a thread
+    pool of 8 workers (blc00..blc07), the reduce_raw fan-out (each bank's
+    sequence on its own worker) byte-identical to serial RawReducer runs
+    with each tone in its fine channel, load_scan (the band stitched,
+    despiked at nfpc 1024; again at fqav_by 8), get_data and
+    get_kurtosis(device=True) fan-outs against the host, search_raw
+    through the pool against a direct search, and 2 remote agents (python
+    -m blit_torch.agent) reducing banks 0 and 1 on the card.  Returns the
+    launch counts of the gbt path (fan-out and search)."""
+    import filecmp
+
+    import numpy as np
+
+    from blit_torch import gbt, observability, workers
+    from blit_torch.device import device_name
+    from blit_torch.io.guppi import GuppiRaw
+    from blit_torch.io.sigproc import read_fil
+    from blit_torch.ops import channelize as tch
+    from blit_torch.ops import dedoppler as tpd
+    from blit_torch.ops.despike import despike
+    from blit_torch.ops.fqav import fqav
+    from blit_torch.parallel.pool import WorkerPool, reset_pool
+    from blit_torch.parallel.remote import agent_env_with_repo, local_agent_command
+    from blit_torch.pipeline import RawReducer
+    from blit_torch.search import DedopplerReducer
+
+    root = tempfile.mkdtemp(prefix="blit-smoke-gbt-")
+    try:
+        t0 = time.perf_counter()
+        seqs = write_gbt_tree(root)
+        raw_bytes = sum(os.path.getsize(p) for ps in seqs.values() for p in ps)
+        log(f"gbt: wrote {GBT_BANKS} banks × {GBT_MEMBERS} members, "
+            f"{raw_bytes / 1e9:.3f} GB RAW, in {time.perf_counter() - t0:.1f} s")
+        hosts = [f"blc0{k}" for k in range(GBT_BANKS)]
+        reset_pool()
+        pool = gbt.setup_workers(hosts=hosts, backend="thread")
+
+        # Inventory: every worker sees the shared tree; the sequences dedup.
+        invs = gbt.get_inventories(r"\.raw$", root=root)
+        found = gbt.raw_sequences([r for inv in invs for r in inv])
+        if ([(r.band, r.bank, len(p)) for r, p in found]
+                != [(0, k, GBT_MEMBERS) for k in range(GBT_BANKS)]
+                or [p for _, p in found] != [seqs[k] for k in range(GBT_BANKS)]):
+            raise AssertionError(f"gbt: raw_sequences found {found}")
+        log(f"gbt: inventory {[len(i) for i in invs]} records a worker; "
+            f"raw_sequences: {len(found)} sequences of {GBT_MEMBERS} members")
+
+        # The fan-out: bank k's sequence on worker k+1 (host blc0k).
+        wids = [hosts.index(f"blc{r.band}{r.bank}") + 1 for r, _ in found]
+        outs = [os.path.join(os.path.dirname(p[0]),
+                             os.path.basename(p[0])[:-len(".0000.raw")]
+                             + ".rawspec.0002.fil") for _, p in found]
+        reset_launches()
+        t0 = time.perf_counter()
+        hdrs = gbt.reduce_raw(wids, [p for _, p in found], outs,
+                              nfft=GBT_NFFT, nint=GBT_NINT)
+        fan_s = time.perf_counter() - t0
+        launches = read_launches()
+        plan = tch.last_kernel_plan()
+        log(f"gbt fan-out: plan {json.dumps(plan)} launches {json.dumps(launches)}")
+        check_plan("gbt", plan, launches)
+        reset_launches()
+        t0 = time.perf_counter()
+        serial = []
+        for k, (_, paths) in enumerate(found):
+            out = os.path.join(root, f"serial{k}.fil")
+            RawReducer(nfft=GBT_NFFT, nint=GBT_NINT).reduce_to_file(paths, out)
+            serial.append(out)
+        serial_s = time.perf_counter() - t0
+        # The fan-out ran the same chunks as the serial runs, one reducer
+        # per thread: its counts must be theirs exactly (no lost count).
+        serial_counts = read_launches()
+        log(f"gbt serial runs: launches {json.dumps(serial_counts)}")
+        if any(launches[k] != serial_counts[k] for k in EXPECTED["gbt"][1]):
+            raise AssertionError(f"gbt: fan-out launches {launches} differ from "
+                                 f"the serial runs' {serial_counts}")
+        # The first fan-out paid the pool's first use of the card (eight
+        # reducers' staging allocations); a second one, warm, is timed
+        # beside the serial runs.
+        warm = [os.path.join(root, f"warm{k}.fil") for k in range(len(found))]
+        t0 = time.perf_counter()
+        gbt.reduce_raw(wids, [p for _, p in found], warm, nfft=GBT_NFFT, nint=GBT_NINT)
+        warm_s = time.perf_counter() - t0
+        identical = [filecmp.cmp(a, b, shallow=False) and filecmp.cmp(c, b, shallow=False)
+                     for a, b, c in zip(outs, serial, warm)]
+        tones = []
+        for k, (out, (_, paths)) in enumerate(zip(outs, found)):
+            fhdr, data = read_fil(out)
+            raw_hdr = GuppiRaw(paths[0], native=False).header(0)
+            want = gbt_tone_chan(fhdr, raw_hdr, k)
+            got = int(np.asarray(data).mean(axis=0)[0].argmax())
+            tones.append((got, want))
+            if not np.isfinite(np.asarray(data)).all():
+                raise AssertionError(f"gbt: bank {k}'s product has non-finite values")
+        log(f"gbt fan-out: {GBT_BANKS} banks in {fan_s:.3f} s, aggregate RAW "
+            f"GB/s {raw_bytes / fan_s / 1e9:.3f}; serial {serial_s:.3f} s "
+            f"(RAW GB/s {raw_bytes / serial_s / 1e9:.3f}); fan-out again, warm, "
+            f"{warm_s:.3f} s (RAW GB/s {raw_bytes / warm_s / 1e9:.3f}); both "
+            f"fan-outs byte-identical to serial: {identical}; tone fine channel "
+            f"(peak, header) {tones}; card: {smi}")
+        if not all(identical):
+            raise AssertionError("gbt: fan-out products differ from serial runs")
+        if any(g != w for g, w in tones):
+            raise AssertionError("gbt: a tone is not in its fine channel")
+        if any(h["nchans"] != NCHAN * GBT_NFFT or workers.get_header(o)["nfpc"] != GBT_NFFT
+               for h, o in zip(hdrs, outs)):
+            raise AssertionError(f"gbt: product headers {hdrs}")
+
+        # load_scan: the band stitched bank-ascending and despiked.
+        pinvs = gbt.get_inventories(r"0002\.fil$", root=root)
+        banks = [np.array(read_fil(o)[1]) for o in outs]
+        nspec = banks[0].shape[0]
+        stitched = np.concatenate(banks, axis=-1)
+        band_n = GBT_BANKS * NCHAN * GBT_NFFT
+        scan_s = {}
+        for fq in (1, 8):
+            t0 = time.perf_counter()
+            got = gbt.load_scan(pinvs, GBT_SESSION, GBT_SCAN, suffix="0002.fil",
+                                fqav_by=fq)
+            scan_s[fq] = time.perf_counter() - t0
+            hdr, band = got[0]
+            nfpc = GBT_NFFT // fq
+            want = despike(fqav(stitched, fq), nfpc)
+            ok = (sorted(got) == [0] and band.shape == (nspec, 1, band_n // fq)
+                  and hdr["nchans"] == band_n // fq
+                  and hdr["fch1"] == (hdrs[0]["fch1"] if fq == 1
+                                      else hdrs[0]["fch1"] + (fq - 1) * hdrs[0]["foff"] / 2)
+                  and np.array_equal(band, want)
+                  and np.array_equal(band[..., nfpc // 2::nfpc],
+                                     band[..., nfpc // 2 - 1::nfpc]))
+            if fq == 1:
+                peaks = [int(band.mean(axis=0)[0, k * NCHAN * GBT_NFFT:
+                                                  (k + 1) * NCHAN * GBT_NFFT].argmax())
+                         + k * NCHAN * GBT_NFFT for k in range(GBT_BANKS)]
+                ok = ok and peaks == [k * NCHAN * GBT_NFFT + w
+                                      for k, (_, w) in enumerate(tones)]
+            log(f"gbt load_scan fqav_by={fq}: {scan_s[fq]:.3f} s, band {band.shape}, "
+                f"fch1 {hdr['fch1']!r}, nchans {hdr['nchans']}, despiked at nfpc "
+                f"{nfpc}, equal to the stitched products: {ok}; card: {smi}")
+            if not ok:
+                raise AssertionError(f"gbt: load_scan fqav_by={fq} is not the stitched band")
+            del got, band, want
+
+        # get_data and get_kurtosis fanned out over the 8 products.
+        idxs = (slice(0, 8), 0, slice(None))
+        slabs = gbt.get_data(wids, outs, idxs, 16, np.max)
+        ok = all(np.array_equal(s_, b[0:8, 0:1].reshape(-1, 1, b.shape[-1] // 16, 16).max(-1))
+                 for s_, b in zip(slabs, banks))
+        log(f"gbt get_data (np.max over 16, 8 spectra): equal to the host: {ok}")
+        if not ok:
+            raise AssertionError("gbt: get_data slabs differ")
+        gbt.get_kurtosis(wids, outs, device=True)  # warm the card
+        t0 = time.perf_counter()
+        maps = gbt.get_kurtosis(wids, outs, device=True)
+        kurt_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = gbt.get_kurtosis(wids, outs, device=False)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        err = max(float(np.nanmax(np.abs(m - h))) for m, h in zip(maps, host))
+        ok = all(m.shape == (NCHAN * GBT_NFFT, 1)
+                 and np.allclose(m, h, rtol=2e-3, atol=2e-3, equal_nan=True)
+                 for m, h in zip(maps, host))
+        log(f"gbt get_kurtosis: 8 maps on the card in {kurt_ms:.1f} ms (host "
+            f"{host_ms:.1f} ms), max |card - host| {err:.3g}, within rtol 2e-3 / "
+            f"atol 2e-3: {ok}; card: {smi}")
+        if not ok:
+            raise AssertionError("gbt: the card's kurtosis maps differ from the host's")
+
+        # search_raw through the pool on bank 0, against a direct search.
+        hits = os.path.join(root, "bank0.hits")
+        direct = os.path.join(root, "direct.hits")
+        reset_launches()
+        t0 = time.perf_counter()
+        shdr = pool.run_on([1], workers.search_raw, [(found[0][1], hits)],
+                           kwargs=dict(nfft=GBT_NFFT, nint=1))[0]
+        search_s = time.perf_counter() - t0
+        counts = read_launches()
+        per_window = tpd.kernel_route(shdr["search_window_spectra"])[1]
+        check_plan("gbt search", tch.last_kernel_plan(), counts,
+                   per_window * shdr["search_windows"])
+        launches = {k: launches[k] + counts[k] for k in launches}
+        DedopplerReducer(nfft=GBT_NFFT, nint=1).search_to_file(found[0][1], direct)
+        ok = filecmp.cmp(hits, direct, shallow=False)
+        log(f"gbt search_raw: {search_s:.3f} s, {shdr['search_windows']} windows of "
+            f"{shdr['search_window_spectra']} spectra, {shdr['search_nhits']} hits, "
+            f"taylor_tree launches {counts['taylor_tree']}, .hits byte-identical "
+            f"to a direct search: {ok}")
+        if not ok or shdr["search_windows"] < 1:
+            raise AssertionError("gbt: search_raw's .hits differ")
+        reset_pool()
+
+        # Two remote agents on the card.
+        rpool = WorkerPool(hosts[:GBT_AGENTS], backend="remote",
+                           transport=lambda host: local_agent_command(),
+                           agent_env=agent_env_with_repo(), call_timeout=600.0)
+        try:
+            t0 = time.perf_counter()
+            names = rpool.broadcast(device_name)
+            spawn_s = time.perf_counter() - t0
+            routs = [os.path.join(root, f"agent{k}.fil") for k in range(GBT_AGENTS)]
+            t0 = time.perf_counter()
+            gbt.reduce_raw(list(range(1, GBT_AGENTS + 1)),
+                           [found[k][1] for k in range(GBT_AGENTS)], routs,
+                           pool=rpool, nfft=GBT_NFFT, nint=GBT_NINT)
+            agent_s = time.perf_counter() - t0
+            same = [filecmp.cmp(a, b, shallow=False)
+                    for a, b in zip(routs, outs[:GBT_AGENTS])]
+            rslab = gbt.get_data([1], [outs[0]], idxs, 16, np.max, pool=rpool)[0]
+            slab_ok = np.array_equal(rslab, slabs[0])
+            # The span tree across processes: each agent's reduce_raw span
+            # parents onto the pool's dispatch span that shipped it.
+            dispatch = {s["span"]: s for s in observability.span_dicts()
+                        if s["name"] == "pool.reduce_raw"}
+            agent_spans = rpool.broadcast(observability.span_dicts)
+        finally:
+            rpool.shutdown()
+        tree = [[(s["worker"], dispatch[s["parent"]]["attrs"]["worker"],
+                  round(s["duration_s"], 3), round(dispatch[s["parent"]]["duration_s"], 3))
+                 for s in theirs if s["name"] == "agent.reduce_raw"
+                 and s["parent"] in dispatch
+                 and s["trace"] == dispatch[s["parent"]]["trace"]]
+                for theirs in agent_spans]
+        log(f"gbt agents: {GBT_AGENTS} spawned and answered in {spawn_s:.2f} s, "
+            f"devices {names}; banks 0-{GBT_AGENTS - 1} reduced in {agent_s:.3f} s, "
+            f"byte-identical to the thread pool's: {same}; get_data slab equal: "
+            f"{slab_ok}; span tree (agent worker, dispatch worker, agent s, "
+            f"dispatch s): {tree}; card: {smi}")
+        if not (all(same) and slab_ok and names == [device_name()] * GBT_AGENTS):
+            raise AssertionError("gbt: the agents' products differ")
+        if [[t[:2] for t in ts] for ts in tree] != [[(k, k)] for k in range(1, GBT_AGENTS + 1)]:
+            raise AssertionError(f"gbt: the agents' spans do not parent onto the "
+                                 f"pool's: {agent_spans}")
+        return launches
+    finally:
+        reset_pool()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2666,6 +2990,10 @@ def main() -> int:
         plane_rows += phase_plane_array(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # (p) the reference's own API: inventory, the reduce_raw fan-out,
+    # load_scan, get_data / get_kurtosis, search_raw, remote agents
+    launches["gbt"] = phase_gbt(torch, dev, smi)
 
     from blit_torch import hostmem
 

@@ -886,3 +886,48 @@ def test_antenna_feeds_through_pinned_slots(dev, tmp_path):
                                   prefetch_depth=depth, device=dev)
         got = C.correlate_stream(feed, h, nfft=64, device=dev)
         assert torch.equal(got[0], acc[0]) and torch.equal(got[1], acc[1])
+
+
+@pytest.mark.cuda
+def test_get_kurtosis_on_the_card_matches_the_host(dev, tmp_path):
+    # blit's device-against-host bound (tests/test_stats.py:55).
+    from blit_torch import workers
+    from blit_torch.testing import synth_fil
+
+    p = str(tmp_path / "k.fil")
+    synth_fil(p, nsamps=512, nifs=2, nchans=256, seed=3)
+    host = workers.get_kurtosis(p, device=False)
+    for idxs in ((slice(None),) * 3, (slice(0, 256), 0, slice(None))):
+        card = workers.get_kurtosis(p, idxs, device=True)
+        want = workers.get_kurtosis(p, idxs, device=False)
+        assert card.shape == want.shape
+        np.testing.assert_allclose(card, want, rtol=2e-3, atol=2e-3)
+        # The card is the default.
+        np.testing.assert_array_equal(workers.get_kurtosis(p, idxs), card)
+    assert host.shape == (256, 2)
+
+
+@pytest.mark.cuda
+def test_thread_fanout_of_reduce_raw_is_byte_identical_to_serial(dev, tmp_path):
+    # Two reducers at once on one card (their producer, readback and sink
+    # threads, the shared staging pool and process timeline) must write
+    # what one reducer writes alone.
+    import filecmp
+
+    from blit_torch import gbt, workers
+    from blit_torch.parallel.pool import WorkerPool
+    from blit_torch.testing import synth_raw
+
+    raws = []
+    for k in range(2):
+        p = str(tmp_path / f"b{k}.raw")
+        synth_raw(p, nblocks=4, obsnchan=8, ntime_per_block=1 << 15, seed=k,
+                  tone_chan=k)
+        raws.append(p)
+    outs = [str(tmp_path / f"f{k}.fil") for k in range(2)]
+    with WorkerPool(["blc00", "blc01"], backend="thread") as pool:
+        gbt.reduce_raw([1, 2], raws, outs, pool=pool, nfft=1024, nint=4)
+    for raw, out in zip(raws, outs):
+        serial = out + ".serial.fil"
+        workers.reduce_raw(raw, serial, nfft=1024, nint=4)
+        assert filecmp.cmp(out, serial, shallow=False)

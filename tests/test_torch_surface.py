@@ -41,10 +41,14 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.outplane", "blit_torch.ops.narrow", "blit_torch.faults",
             "blit_torch.integrity", "blit_torch.io.native", "blit_torch.io.bshuf",
             "blit_torch.io.sigproc", "blit_torch.config",
-            "blit_torch.testing"} <= set(mods)
-    # blit_torch.io.fbh5 imports h5py by design; every other module and
-    # the pipeline must not pull it in.
-    plain = [m for m in mods if m != "blit_torch.io.fbh5"]
+            "blit_torch.testing", "blit_torch.naming", "blit_torch.inventory",
+            "blit_torch.workers", "blit_torch.gbt", "blit_torch.agent",
+            "blit_torch.parallel.pool", "blit_torch.parallel.remote",
+            "blit_torch.ops.stats", "blit_torch.ops.despike",
+            "blit_torch.io.fbh5"} <= set(mods)
+    # h5py loads only when an .h5 file is opened: no module imports it,
+    # blit_torch.io.fbh5 included.
+    plain = mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {plain!r}: importlib.import_module(m)\n"
@@ -63,8 +67,26 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     # Importing builds nothing: no g++ or nvcc output appeared.
     assert [_listing(d) for d in builds] == before
-    # With fbh5 too, still no jax and no blit.
-    code = code.replace(repr(plain), repr(mods)).replace(", 'h5py'", "")
+
+
+def test_workers_and_gbt_import_no_h5py_jax_or_blit(tmp_path):
+    # A GPU host may lack h5py: the workers' format dispatch and
+    # the .fil path must run without it.
+    code = (
+        "import json, sys\n"
+        "import blit_torch.workers, blit_torch.gbt\n"
+        "from blit_torch import testing, workers\n"
+        f"p = {str(tmp_path / 'x.fil')!r}\n"
+        "testing.synth_fil(p, nsamps=4, nchans=64)\n"
+        "from blit_torch.io.fbh5 import is_hdf5\n"
+        "assert not is_hdf5(p)\n"
+        "workers.get_header(p); workers.get_data(p, fqav_by=4)\n"
+        "workers.get_kurtosis(p, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'blit', 'h5py') or "
+        "m.startswith(('jax.', 'jaxlib', 'h5py.', 'blit.')))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
