@@ -55,6 +55,14 @@ repaired) and the ``reduce_raw`` fan-out, over a worker pool
 ``python -m blit_torch.agent`` workers).  These submodules load on
 first access, as ``blit``'s do.
 
+The live plane (:mod:`blit_torch.stream`: ``stream_reduce`` /
+``stream_search`` from a growing file, a paced replay or a packet
+stream, with watermark masking, rejoin and chunk-to-product latency),
+per-rig tuning profiles and the online tuner (:mod:`blit_torch.tune`),
+the metrics publisher (:mod:`blit_torch.monitor`) and ``python -m
+blit_torch`` (``reduce``, ``search``, ``stream``, ``inventory``,
+``info``, ``tune``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -82,10 +90,18 @@ __all__ = [
 # Submodules that load on first access (blit's lazy surface).
 _LAZY = ("gbt", "workers", "inventory", "naming", "config", "testing",
          "faults", "observability", "agent", "integrity", "hostmem",
-         "outplane", "io", "ops", "parallel", "pipeline", "search")
+         "outplane", "io", "ops", "parallel", "pipeline", "search",
+         "stream", "tune", "monitor")
+# The live plane's front-door names, re-exported from blit_torch.stream
+# on first access (as blit's are).
+_STREAM_EXPORTS = ("stream_reduce", "stream_search")
 
 
 def __getattr__(name):
+    if name in _STREAM_EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module("blit_torch.stream"), name)
     if name in _LAZY:
         import importlib
 

@@ -8,8 +8,14 @@ with :meth:`SiteConfig.io_retry_policy` /
 :meth:`SiteConfig.call_retry_policy`, and the four ``search_*`` knobs;
 :data:`DEFAULT`, :func:`datahosts`, :func:`search_defaults` with the same
 ``BLIT_SEARCH_*`` overrides, and :func:`nfpc_from_foff`, which the
-``.h5`` reader needs.  ``blit``'s serving, streaming, mesh and monitor
-fields come with the planes that read them.
+``.h5`` reader needs; the live plane's fields (``stream_*``,
+``packet_*``, ``tune_dir``, ``monitor_*``, ``slo_*``, and the history
+switches the publisher refuses) with :func:`stream_defaults`,
+:func:`packet_defaults`, :func:`monitor_defaults`, :func:`slo_defaults`,
+:func:`history_defaults` and :func:`default_window_frames`, under the
+same ``BLIT_STREAM_*`` / ``BLIT_PACKET_*`` / ``BLIT_MONITOR_*`` /
+``BLIT_SLO_*`` / ``BLIT_HISTORY_DIR`` / ``BLIT_INCIDENT_DIR`` overrides.
+``blit``'s serving and mesh fields come with the planes that read them.
 """
 
 from __future__ import annotations
@@ -96,6 +102,46 @@ class SiteConfig:
     search_top_k: int = SEARCH_TOP_K
     search_snr_threshold: float = SEARCH_SNR_THRESHOLD
     search_max_drift_bins: Optional[int] = SEARCH_MAX_DRIFT_BINS
+    # The live plane (see stream_defaults): the watermark's lateness
+    # budget (a missing chunk is masked once the watermark passes it), the
+    # tailer's poll cadence and idle timeout (None: wait for the done
+    # marker forever) and the live feed's stall watchdog (None: unarmed).
+    stream_lateness_s: float = 2.0
+    stream_poll_s: float = 0.05
+    stream_idle_timeout_s: Optional[float] = None
+    stream_stall_timeout_s: Optional[float] = None
+    # The packet front end (see packet_defaults): where a PacketSource
+    # listens, its SO_RCVBUF, the framer's time samples per packet and
+    # the assembler's reorder horizon in blocks.
+    packet_host: str = "127.0.0.1"
+    packet_port: int = 60000
+    packet_rcvbuf_bytes: int = 32 << 20
+    packet_ntime: int = 64
+    packet_horizon_blocks: int = 2
+    # Where per-rig tuning profiles live (None: BLIT_TUNE_DIR, else
+    # ~/.cache/blit/tune).
+    tune_dir: Optional[str] = None
+    # The metrics publisher is off unless a spool dir or a port is set
+    # (port 0 binds an ephemeral one); see monitor_defaults.
+    monitor_interval_s: float = 1.0
+    monitor_port: Optional[int] = None
+    monitor_spool_dir: Optional[str] = None
+    # Service-level objectives (None disables one) and the multi-window
+    # burn-rate rule; see slo_defaults.
+    slo_serve_wait_p99_s: Optional[float] = None
+    slo_stream_latency_p99_s: Optional[float] = None
+    slo_ingest_gbps_floor: Optional[float] = None
+    slo_packet_assembly_p99_s: Optional[float] = None
+    slo_budget: float = 0.01
+    slo_fast_burn: float = 14.0
+    slo_slow_burn: float = 2.0
+    slo_fast_window: int = 5
+    slo_slow_window: int = 30
+    slo_objectives: Optional[List[Dict]] = None
+    # blit's history store and incident bundles (not ported: a publisher
+    # configured with either raises).
+    history_dir: Optional[str] = None
+    incident_dir: Optional[str] = None
 
     def io_retry_policy(self):
         """The :class:`blit_torch.faults.RetryPolicy` of worker-side file
@@ -152,6 +198,132 @@ def search_defaults(config: SiteConfig = DEFAULT) -> Dict:
         "snr_threshold": float(os.environ.get(
             "BLIT_SEARCH_SNR", config.search_snr_threshold)),
         "max_drift_bins": max_drift,
+    }
+
+
+# Device-window budget in samples of the windowed reductions: 8 frames of
+# the 0000 product, scaled to whole frames at other nfft.
+WINDOW_SAMPLES = 8 << 20
+
+
+def default_window_frames(nfft: int) -> int:
+    """The default ``window_frames`` for ``nfft``: ~``WINDOW_SAMPLES``
+    samples, at least 8 whole frames."""
+    return max(8, WINDOW_SAMPLES // nfft)
+
+
+def _opt_float(env: str, fallback: Optional[float]) -> Optional[float]:
+    """An optional float knob from the environment: "", "none" and a
+    negative value mean unset (the -1 encoding of the search knobs)."""
+    v = os.environ.get(env)
+    if v is None:
+        return fallback
+    if not v or v.lower() == "none":
+        return None
+    f = float(v)
+    return None if f < 0 else f
+
+
+def stream_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The live plane's knobs: ``config``'s values with the
+    ``BLIT_STREAM_LATENESS`` / ``_POLL`` / ``_IDLE_TIMEOUT`` /
+    ``_STALL_TIMEOUT`` overrides, read when a stream is built."""
+    return {
+        "lateness_s": float(os.environ.get(
+            "BLIT_STREAM_LATENESS", config.stream_lateness_s)),
+        "poll_s": float(os.environ.get(
+            "BLIT_STREAM_POLL", config.stream_poll_s)),
+        "idle_timeout_s": _opt_float(
+            "BLIT_STREAM_IDLE_TIMEOUT", config.stream_idle_timeout_s),
+        "stall_timeout_s": _opt_float(
+            "BLIT_STREAM_STALL_TIMEOUT", config.stream_stall_timeout_s),
+    }
+
+
+def packet_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The packet front end's knobs: ``config``'s values with the
+    ``BLIT_PACKET_HOST`` / ``_PORT`` / ``_RCVBUF`` / ``_NTIME`` /
+    ``_HORIZON`` overrides."""
+    return {
+        "host": os.environ.get("BLIT_PACKET_HOST", config.packet_host),
+        "port": int(os.environ.get("BLIT_PACKET_PORT", config.packet_port)),
+        "rcvbuf_bytes": int(os.environ.get(
+            "BLIT_PACKET_RCVBUF", config.packet_rcvbuf_bytes)),
+        "ntime": int(os.environ.get("BLIT_PACKET_NTIME", config.packet_ntime)),
+        "horizon_blocks": int(os.environ.get(
+            "BLIT_PACKET_HORIZON", config.packet_horizon_blocks)),
+    }
+
+
+def monitor_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The publisher's knobs: ``config``'s values with the
+    ``BLIT_MONITOR_INTERVAL`` / ``_PORT`` / ``_SPOOL`` / ``_SPANS``
+    overrides.  ``enabled`` only when a spool dir or a port is set (a
+    negative port, or an empty spool, means none)."""
+    port_env = os.environ.get("BLIT_MONITOR_PORT")
+    port = int(port_env) if port_env not in (None, "") else config.monitor_port
+    if port is not None and port < 0:
+        port = None
+    spool = os.environ.get("BLIT_MONITOR_SPOOL")
+    if spool is None:
+        spool = config.monitor_spool_dir
+    elif not spool:
+        spool = None
+    return {
+        "interval_s": float(os.environ.get(
+            "BLIT_MONITOR_INTERVAL", config.monitor_interval_s)),
+        "port": port,
+        "spool_dir": spool,
+        "spans": os.environ.get("BLIT_MONITOR_SPANS", "").lower() not in (
+            "", "0", "false", "off"),
+        "enabled": port is not None or spool is not None,
+    }
+
+
+def slo_defaults(config: SiteConfig = DEFAULT) -> List[Dict]:
+    """The objective list as plain dicts (``blit``'s four built-in ones,
+    each enabled by its field or ``BLIT_SLO_SERVE_WAIT_P99`` /
+    ``_STREAM_P99`` / ``_INGEST_GBPS_FLOOR`` / ``_PACKET_P99``, then
+    ``config.slo_objectives``)."""
+    objs: List[Dict] = []
+    wait = _opt_float("BLIT_SLO_SERVE_WAIT_P99", config.slo_serve_wait_p99_s)
+    if wait is not None:
+        objs.append({"name": "serve-queue-wait", "kind": "latency",
+                     "metric": "sched.wait_s", "threshold": wait,
+                     "budget": config.slo_budget})
+    lat = _opt_float("BLIT_SLO_STREAM_P99", config.slo_stream_latency_p99_s)
+    if lat is not None:
+        objs.append({"name": "stream-latency", "kind": "latency",
+                     "metric": "stream.chunk_to_product_s",
+                     "threshold": lat, "budget": config.slo_budget})
+    floor = _opt_float("BLIT_SLO_INGEST_GBPS_FLOOR", config.slo_ingest_gbps_floor)
+    if floor is not None:
+        objs.append({"name": "ingest-throughput", "kind": "throughput",
+                     "metric": "ingest", "threshold": floor,
+                     "budget": config.slo_budget})
+    asm = _opt_float("BLIT_SLO_PACKET_P99", config.slo_packet_assembly_p99_s)
+    if asm is not None:
+        objs.append({"name": "packet-assembly", "kind": "latency",
+                     "metric": "packet.assembly_s", "threshold": asm,
+                     "budget": config.slo_budget})
+    objs.extend(config.slo_objectives or [])
+    return objs
+
+
+def history_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The switches of ``blit``'s history store and incident bundles:
+    ``BLIT_HISTORY_DIR`` / ``BLIT_INCIDENT_DIR`` (an empty value unsets).
+    ``enabled`` when a history dir is set."""
+
+    def opt_dir(env: str, fallback: Optional[str]) -> Optional[str]:
+        v = os.environ.get(env)
+        return fallback if v is None else (v or None)
+
+    d = opt_dir("BLIT_HISTORY_DIR", config.history_dir)
+    return {
+        "dir": d,
+        "incident_dir": opt_dir("BLIT_INCIDENT_DIR", config.incident_dir),
+        "enabled": d is not None,
     }
 
 

@@ -16,10 +16,21 @@ wall clock of the whole streaming loop).  End-to-end RAW GB/s is
 is the work stages' seconds over that wall.  The search adds the stages
 ``search.window_fill`` (spectra copied into a window slot) and
 ``search.write`` (``.hits`` lines written), and the per-window
-observations ``search.tree_s`` (from the dispatch of the window's H2D
+histograms ``search.tree_s`` (from the dispatch of the window's H2D
 copy to its packed hits on the host: the drift transform, SNR and top-k
 between; on the asynchronous plane the wait behind earlier windows too)
 and ``search.hits_per_window``.
+
+Per-event values go into log-bucketed histograms
+(:class:`HistogramStats`, ``blit``'s: 64 buckets from 1 µs, exact
+``min`` / ``max`` / ``sum``, quantiles good to a factor of 2):
+the output plane's ``out.readback_lag_s`` / ``out.chunk_latency_s`` /
+``out.write_s``, the live plane's ``stream.chunk_to_product_s``, the
+packet plane's ``packet.assembly_s``.  :meth:`Timeline.report`,
+:meth:`Timeline.merge`, :meth:`Timeline.state` /
+:meth:`Timeline.from_state` and :func:`merge_fleet` /
+:func:`render_prometheus` are ``blit``'s, so the metrics publisher
+(:mod:`blit_torch.monitor`) spools samples either package reads.
 
 Counters (:meth:`Timeline.count`, e.g. ``block.masked`` for a RAW
 block that failed its digest) are byte-free stages.  The flight
@@ -28,9 +39,13 @@ recorder's ring also takes fault and mask events
 what code outside a reducer records (retry backoffs, verification
 times).
 
-Stages are timed from several threads (producer, dispatch, readback,
-sink), so readers copy the stage dict before iterating it, never the
-live one.
+Stages are timed, and histograms observed, from several threads
+(producer, dispatch, readback, sink), so readers copy the dicts before
+iterating them, never the live ones.  As in ``blit``, no lock guards
+the updates: each histogram is observed from one thread (the sink's
+``stream.chunk_to_product_s``, the readback thread's
+``out.readback_lag_s``), and a report read meanwhile may be one sample
+behind.
 
 Spans (:class:`Tracer`, :func:`span`) trace the worker fan-out: the
 pool records each dispatch as a span, ships its ``{"trace", "span"}``
@@ -38,9 +53,8 @@ context to a remote agent, and the agent's span parents onto it.
 :func:`configure_logging` stamps host and worker into every
 ``blit_torch`` log record (:class:`HostContextFilter`), as JSON lines on
 request (:class:`JsonLineFormatter`).  The Chrome trace export, the
-fleet harvest (``telemetry_snapshot`` / ``merge_fleet``),
-``profile_trace`` and monitor publishing are not ported (ROADMAP.md
-Queue 1 item 8).
+pool's fleet harvest (``telemetry_snapshot``) and ``profile_trace`` are
+not ported (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -49,13 +63,14 @@ import contextlib
 import itertools
 import json
 import logging
+import math
 import os
 import socket
 import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 log = logging.getLogger("blit_torch.observability")
 
@@ -105,21 +120,196 @@ class GaugeStats:
         self.n += 1
 
 
+# Log-bucketed histogram geometry (blit's): bucket i covers
+# (base·2^(i-1), base·2^i] with base = 1 µs, 64 buckets.
+_HIST_BASE = 1e-6
+_HIST_NBUCKETS = 64
+_LOG2 = math.log(2.0)
+
+# Per-bucket trace-id exemplars (the trace of the most recent sample of
+# each bucket, taken from the ambient span); BLIT_EXEMPLARS=0 turns them
+# off.
+_EXEMPLARS = os.environ.get("BLIT_EXEMPLARS", "1").lower() not in (
+    "0", "false", "off", "")
+
+# Captured once at import: this process's (epoch, monotonic) clock pair,
+# shipped beside every spool sample so readers can align processes.
+_WALL_ANCHOR = {"epoch": round(time.time(), 6),
+                "mono": round(time.monotonic(), 6)}
+
+
+def wall_anchor() -> Dict[str, float]:
+    """This process's ``{"epoch", "mono"}`` clock pair, taken at import."""
+    return dict(_WALL_ANCHOR)
+
+
+def hist_bucket_edges() -> List[float]:
+    """The upper edge of every histogram bucket, in order: the ``le``
+    labels of :func:`render_prometheus` and the SLO bad-sample cut
+    (:func:`blit_torch.monitor.bad_fraction`) both derive from it."""
+    return [_HIST_BASE * 2.0 ** i for i in range(_HIST_NBUCKETS)]
+
+
+class HistogramStats:
+    """Log-bucketed value distribution (``blit``'s): 64 counters, so
+    bounded memory; mergeable across threads and processes; quantiles
+    good to one bucket (a factor of 2), with exact ``min`` / ``max`` /
+    ``sum`` beside them.  Updates take no lock, as in ``blit``: the
+    reducer's threads each observe their own histograms (the sink thread
+    ``stream.chunk_to_product_s``, the readback thread
+    ``out.readback_lag_s``), and a report read while one updates may be
+    one sample behind."""
+
+    __slots__ = ("counts", "n", "total", "vmin", "vmax", "exemplars")
+
+    def __init__(self):
+        self.counts = [0] * _HIST_NBUCKETS
+        self.n = 0
+        self.total = 0.0
+        self.vmin = 0.0
+        self.vmax = 0.0
+        # bucket -> [trace_id, value, epoch seconds], None until one lands.
+        self.exemplars: Optional[Dict[int, List]] = None
+
+    def observe(self, value: float, trace_id: Optional[str] = None) -> None:
+        v = float(value)
+        if v <= _HIST_BASE:
+            i = 0
+        else:
+            i = min(_HIST_NBUCKETS - 1,
+                    int(math.ceil(math.log(v / _HIST_BASE) / _LOG2)))
+        self.counts[i] += 1
+        if self.n == 0:
+            self.vmin = self.vmax = v
+        else:
+            self.vmin = min(self.vmin, v)
+            self.vmax = max(self.vmax, v)
+        self.n += 1
+        self.total += v
+        if trace_id is None and _EXEMPLARS:
+            ctx = _TRACER.context()
+            if ctx:
+                trace_id = ctx["trace"]
+        if trace_id:
+            if self.exemplars is None:
+                self.exemplars = {}
+            self.exemplars[i] = [trace_id, v, time.time()]
+
+    def percentile(self, p: float) -> float:
+        """Nearest-rank quantile (0.0 when empty): the midpoint of the
+        rank's bucket, clamped to the observed [min, max]."""
+        if self.n == 0:
+            return 0.0
+        rank = min(self.n - 1, max(0, int(math.ceil(p * self.n)) - 1))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if c and acc > rank:
+                lo = _HIST_BASE * 2.0 ** (i - 1) if i else 0.0
+                hi = _HIST_BASE * 2.0 ** i
+                return min(max((lo + hi) / 2.0, self.vmin), self.vmax)
+        return self.vmax
+
+    def merge(self, other: "HistogramStats") -> "HistogramStats":
+        """Fold ``other`` into self (bucket counts and totals sum, the
+        envelope widens; the newer exemplar of a bucket wins)."""
+        if other.n:
+            if self.n == 0:
+                self.vmin, self.vmax = other.vmin, other.vmax
+            else:
+                self.vmin = min(self.vmin, other.vmin)
+                self.vmax = max(self.vmax, other.vmax)
+        for i, c in enumerate(other.counts):
+            if c:
+                self.counts[i] += c
+        self.n += other.n
+        self.total += other.total
+        if other.exemplars:
+            if self.exemplars is None:
+                self.exemplars = {}
+            for i, rec in other.exemplars.items():
+                if i not in self.exemplars or rec[2] >= self.exemplars[i][2]:
+                    self.exemplars[i] = list(rec)
+        return self
+
+    def reset(self) -> None:
+        """Zero in place (the object may be held by another thread)."""
+        for i in range(_HIST_NBUCKETS):
+            self.counts[i] = 0
+        self.n = 0
+        self.total = 0.0
+        self.vmin = self.vmax = 0.0
+        self.exemplars = None
+
+    def report(self) -> Dict[str, float]:
+        mean = self.total / self.n if self.n else 0.0
+        return {"n": self.n, "mean": round(mean, 6),
+                "p50": round(self.percentile(0.50), 6),
+                "p90": round(self.percentile(0.90), 6),
+                "p99": round(self.percentile(0.99), 6),
+                "max": round(self.vmax, 6)}
+
+    def state(self) -> Dict:
+        """The raw, unrounded state as JSON (``blit``'s wire format)."""
+        st = {"counts": list(self.counts), "n": self.n,
+              "total": self.total, "vmin": self.vmin, "vmax": self.vmax}
+        if self.exemplars:
+            st["exemplars"] = {str(i): list(rec)
+                               for i, rec in self.exemplars.items()}
+        return st
+
+    def since(self, st: Dict) -> "HistogramStats":
+        """A new histogram of the samples observed after ``st`` (a prior
+        :meth:`state`): counts, n and total subtract exactly; the
+        envelope and the exemplars stay the cumulative ones."""
+        h = HistogramStats()
+        old = st.get("counts", [])
+        for i in range(_HIST_NBUCKETS):
+            prev = old[i] if i < len(old) else 0
+            h.counts[i] = max(0, self.counts[i] - prev)
+        h.n = max(0, self.n - int(st.get("n", 0)))
+        h.total = max(0.0, self.total - float(st.get("total", 0.0)))
+        h.vmin, h.vmax = self.vmin, self.vmax
+        if self.exemplars:
+            h.exemplars = {i: list(rec) for i, rec in self.exemplars.items()}
+        return h
+
+    @classmethod
+    def from_state(cls, st: Dict) -> "HistogramStats":
+        h = cls()
+        counts = list(st.get("counts", []))[:_HIST_NBUCKETS]
+        h.counts[:len(counts)] = [int(c) for c in counts]
+        h.n = int(st.get("n", 0))
+        h.total = float(st.get("total", 0.0))
+        h.vmin = float(st.get("vmin", 0.0))
+        h.vmax = float(st.get("vmax", 0.0))
+        for i, rec in (st.get("exemplars") or {}).items():
+            try:
+                bucket = int(i)
+                trace, v, t = rec
+            except (TypeError, ValueError):
+                continue
+            if h.exemplars is None:
+                h.exemplars = {}
+            h.exemplars[bucket] = [str(trace), float(v), float(t)]
+        return h
+
+
 @dataclass
 class Timeline:
-    """A registry of named stage timings, per-event observations and
-    gauges (one per reducer)."""
+    """A registry of named stage timings, latency histograms and gauges
+    (one per reducer)."""
 
     stages: Dict[str, StageStats] = field(
         default_factory=lambda: defaultdict(StageStats))
-    observations: Dict[str, List[float]] = field(
-        default_factory=lambda: defaultdict(list))
     gauges: Dict[str, GaugeStats] = field(
         default_factory=lambda: defaultdict(GaugeStats))
+    hists: Dict[str, HistogramStats] = field(
+        default_factory=lambda: defaultdict(HistogramStats))
 
     def observe(self, name: str, value: float) -> None:
-        """Record one value of the per-event metric ``name``."""
-        self.observations[name].append(value)
+        """Record one sample into the histogram ``name``."""
+        self.hists[name].observe(value)
 
     def gauge(self, name: str, value: float) -> None:
         """Sample the level ``name`` (kept apart from the stage table)."""
@@ -149,6 +339,19 @@ class Timeline:
                 s.byte_free = True
             _FLIGHT.stage_event(name, dt, nbytes)
 
+    def reset(self) -> None:
+        """Zero every stage, gauge and histogram in place (objects other
+        threads hold keep counting into what the report reads)."""
+        for s in list(self.stages.values()):
+            s.calls = 0
+            s.seconds = 0.0
+            s.bytes = 0
+        for g in list(self.gauges.values()):
+            g.last = g.lo = g.hi = 0.0
+            g.n = 0
+        for h in list(self.hists.values()):
+            h.reset()
+
     def overlap_efficiency(self, wall: str = "stream",
                            work: Iterable[str] = ("device", "readback",
                                                   "write")) -> float:
@@ -164,6 +367,122 @@ class Timeline:
         eff = work_s / wall_s if wall_s > 0 else 0.0
         self.gauge(f"overlap.{wall}", eff)
         return eff
+
+    def report(self, include_faults: bool = False) -> Dict[str, Dict]:
+        """``blit``'s report: a row per stage, then ``gauges``, ``hists``
+        and, with ``include_faults``, the process-wide fault counters."""
+        out = {}
+        for k, v in sorted(list(self.stages.items())):
+            row = {"calls": v.calls, "seconds": round(v.seconds, 6),
+                   "bytes": v.bytes, "gbps": round(v.gbps, 3)}
+            if v.byte_free:
+                row["byte_free"] = True
+            out[k] = row
+        if self.gauges:
+            out["gauges"] = {
+                k: {"last": round(g.last, 6), "lo": round(g.lo, 6),
+                    "hi": round(g.hi, 6), "n": g.n}
+                for k, g in sorted(list(self.gauges.items()))
+            }
+        if self.hists:
+            out["hists"] = {k: h.report()
+                            for k, h in sorted(list(self.hists.items()))}
+        if include_faults:
+            from blit_torch import faults
+
+            c = faults.counters()
+            if c:
+                out["faults"] = c
+        return out
+
+    def snapshot(self) -> Dict[str, tuple]:
+        """Point-in-time stage counters, for :meth:`since`."""
+        return {k: (v.calls, v.seconds, v.bytes)
+                for k, v in list(self.stages.items())}
+
+    def since(self, snap: Dict[str, tuple]) -> Dict[str, Dict]:
+        """Per-stage deltas since a :meth:`snapshot`."""
+        out = {}
+        for k, v in list(self.stages.items()):
+            c0, s0, b0 = snap.get(k, (0, 0.0, 0))
+            if v.calls != c0 or v.bytes != b0 or v.seconds != s0:
+                out[k] = {"calls": v.calls - c0,
+                          "seconds": round(v.seconds - s0, 6),
+                          "bytes": v.bytes - b0}
+        return out
+
+    def hist_quantiles(self, names: Optional[Iterable[str]] = None
+                       ) -> Dict[str, Dict]:
+        """``n`` / ``p50`` / ``p99`` / ``max`` of each named histogram
+        with samples (every one for ``names=None``)."""
+        keys = list(self.hists) if names is None else list(names)
+        out = {}
+        for k in keys:
+            h = self.hists.get(k)
+            if h is None or h.n == 0:
+                continue
+            rep = h.report()
+            out[k] = {f: rep[f] for f in ("n", "p50", "p99", "max")}
+        return out
+
+    def merge(self, other: "Timeline") -> "Timeline":
+        """Fold ``other`` into self: stages and histograms sum, gauges
+        keep the widened envelope and the count (``last`` stays self's
+        unless self never sampled)."""
+        for k, s in list(other.stages.items()):
+            d = self.stages[k]
+            d.calls += s.calls
+            d.seconds += s.seconds
+            d.bytes += s.bytes
+            if s.byte_free:
+                d.byte_free = True
+        for k, g in list(other.gauges.items()):
+            d = self.gauges[k]
+            if g.n:
+                if d.n == 0:
+                    d.last, d.lo, d.hi = g.last, g.lo, g.hi
+                else:
+                    d.lo = min(d.lo, g.lo)
+                    d.hi = max(d.hi, g.hi)
+                d.n += g.n
+        for k, h in list(other.hists.items()):
+            self.hists[k].merge(h)
+        return self
+
+    def state(self) -> Dict:
+        """The full raw state as JSON (unrounded, so :meth:`from_state`
+        and :meth:`merge` are exact): ``blit``'s spool format."""
+        return {
+            "stages": {
+                k: {"calls": v.calls, "seconds": v.seconds,
+                    "bytes": v.bytes, "byte_free": v.byte_free}
+                for k, v in list(self.stages.items())
+            },
+            "gauges": {
+                k: {"last": g.last, "lo": g.lo, "hi": g.hi, "n": g.n}
+                for k, g in list(self.gauges.items())
+            },
+            "hists": {k: h.state() for k, h in list(self.hists.items())},
+        }
+
+    @classmethod
+    def from_state(cls, st: Dict) -> "Timeline":
+        tl = cls()
+        for k, v in (st.get("stages") or {}).items():
+            s = tl.stages[k]
+            s.calls = int(v.get("calls", 0))
+            s.seconds = float(v.get("seconds", 0.0))
+            s.bytes = int(v.get("bytes", 0))
+            s.byte_free = bool(v.get("byte_free", False))
+        for k, v in (st.get("gauges") or {}).items():
+            g = tl.gauges[k]
+            g.last = float(v.get("last", 0.0))
+            g.lo = float(v.get("lo", 0.0))
+            g.hi = float(v.get("hi", 0.0))
+            g.n = int(v.get("n", 0))
+        for k, v in (st.get("hists") or {}).items():
+            tl.hists[k] = HistogramStats.from_state(v)
+        return tl
 
 
 # -- flight recorder --------------------------------------------------------
@@ -372,6 +691,7 @@ class Tracer:
                 "0", "false", "off", "")
         self.enabled = enabled
         self._spans: deque = deque(maxlen=max_spans)
+        self._total = 0  # spans ever recorded: the spans_since cursor
         self._span_lock = threading.Lock()
         self._tls = threading.local()
 
@@ -403,6 +723,7 @@ class Tracer:
             stack.pop()
             with self._span_lock:
                 self._spans.append(sp)
+                self._total += 1
             _FLIGHT.span_event(sp)
 
     @contextlib.contextmanager
@@ -438,6 +759,20 @@ class Tracer:
     def span_dicts(self) -> List[Dict]:
         return [s.as_dict() for s in self.spans()]
 
+    def spans_since(self, cursor: int) -> Tuple[int, List[Dict]]:
+        """``(new cursor, span dicts)`` of the spans recorded after a
+        prior cursor (the publisher ships them per tick).  Spans that
+        aged out of the bounded deque between two reads are lost."""
+        with self._span_lock:
+            total = self._total
+            new = total - int(cursor)
+            if new <= 0:
+                return total, []
+            recent = list(self._spans)
+        if new < len(recent):
+            recent = recent[-new:]
+        return total, [s.as_dict() for s in recent]
+
     def reset(self) -> None:
         with self._span_lock:
             self._spans.clear()
@@ -462,6 +797,148 @@ def span_dicts() -> List[Dict]:
     ``agent.<fn>`` span names the pool's ``pool.<fn>`` dispatch span as
     its parent, so a fan-out's tree spans the processes."""
     return _TRACER.span_dicts()
+
+
+# -- fleet report and Prometheus text ------------------------------------
+
+
+def merge_fleet(snapshots: Iterable[Optional[Dict]],
+                errors: Optional[Dict[str, str]] = None) -> Dict:
+    """Fold telemetry snapshots (``{"host", "pid", "worker", "timeline":
+    Timeline.state(), "faults", "spans"}``) into ``blit``'s per-host
+    report: each host's merged stage table, raw histogram state and
+    fault counters, and the whole run's fold under ``fleet``.  One
+    snapshot per (host, pid) counts, the richest."""
+    hosts: Dict[str, Dict] = {}
+    fleet = Timeline()
+    fleet_faults: Dict[str, int] = {}
+    spans: List[Dict] = []
+    best: Dict = {}
+    for snap in snapshots:
+        if not isinstance(snap, dict) or "host" not in snap:
+            continue
+        key = (snap["host"], snap.get("pid"))
+        richness = (len((snap.get("timeline") or {}).get("stages") or {})
+                    + len(snap.get("spans") or []))
+        if key not in best or richness > best[key][0]:
+            best[key] = (richness, snap)
+    for _, snap in best.values():
+        entry = hosts.setdefault(
+            snap["host"], {"workers": [], "tl": Timeline(), "faults": {}})
+        entry["workers"].append(
+            {"pid": snap.get("pid"), "worker": snap.get("worker", 0)})
+        tl = Timeline.from_state(snap.get("timeline") or {})
+        entry["tl"].merge(tl)
+        fleet.merge(tl)
+        for k, v in (snap.get("faults") or {}).items():
+            entry["faults"][k] = entry["faults"].get(k, 0) + v
+            fleet_faults[k] = fleet_faults.get(k, 0) + v
+        spans.extend(snap.get("spans") or [])
+    report = {
+        "hosts": {
+            h: {"workers": e["workers"], "stages": e["tl"].report(),
+                "hist_state": {k: hh.state()
+                               for k, hh in list(e["tl"].hists.items())},
+                "faults": e["faults"]}
+            for h, e in sorted(hosts.items())
+        },
+        "fleet": fleet.report(),
+        "faults": fleet_faults,
+        "spans": spans,
+    }
+    if errors:
+        report["errors"] = dict(errors)
+    return report
+
+
+def prom_escape(value) -> str:
+    """Prometheus label-value escaping (backslash, quote, newline)."""
+    return (str(value).replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+PROM_CTYPE = "text/plain; version=0.0.4"
+OPENMETRICS_CTYPE = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+
+
+def wants_openmetrics(accept: Optional[str]) -> bool:
+    """Did the scraper ask for OpenMetrics (the exemplar-carrying form)?"""
+    return bool(accept) and "application/openmetrics-text" in accept
+
+
+def render_prometheus(report: Dict, *, openmetrics: bool = False) -> str:
+    """A :func:`merge_fleet` report as Prometheus exposition text, line
+    for line ``blit``'s: host-labelled stage, gauge and fault series;
+    each histogram as native cumulative ``_bucket`` counts at
+    :func:`hist_bucket_edges` with ``_sum`` / ``_count``, plus the
+    p50/p90/p99 gauges.  ``openmetrics=True`` adds the per-bucket
+    exemplars and the ``# EOF`` line."""
+    lines: List[str] = []
+
+    def head(metric: str, mtype: str, help_: str) -> None:
+        lines.append(f"# HELP {metric} {help_}")
+        lines.append(f"# TYPE {metric} {mtype}")
+
+    head("blit_stage_seconds_total", "counter",
+         "Accumulated wall seconds per pipeline stage")
+    head("blit_stage_calls_total", "counter", "Stage invocations")
+    head("blit_stage_bytes_total", "counter", "Bytes moved per stage")
+    head("blit_gauge", "gauge", "Last sampled level")
+    head("blit_latency_seconds", "histogram",
+         "Log-bucketed latency distribution (64 log2 buckets from 1 us)")
+    head("blit_latency_quantile", "gauge",
+         "Precomputed latency quantiles (seconds; bucket-midpoint "
+         "estimates)")
+    head("blit_fault_total", "counter", "Failure/recovery counters")
+    edges = hist_bucket_edges()
+    for host, e in (report.get("hosts") or {}).items():
+        hl = prom_escape(host)
+        stages = e.get("stages") or {}
+        for k, row in stages.items():
+            if k in ("gauges", "hists", "faults") or not isinstance(row, dict):
+                continue
+            lab = f'{{host="{hl}",stage="{prom_escape(k)}"}}'
+            lines.append(f"blit_stage_seconds_total{lab} {row.get('seconds', 0)}")
+            lines.append(f"blit_stage_calls_total{lab} {row.get('calls', 0)}")
+            lines.append(f"blit_stage_bytes_total{lab} {row.get('bytes', 0)}")
+        for k, g in (stages.get("gauges") or {}).items():
+            lines.append(f'blit_gauge{{host="{hl}",name="{prom_escape(k)}"}} '
+                         f'{g.get("last", 0)}')
+        hist_state = e.get("hist_state") or {}
+        for k, h in (stages.get("hists") or {}).items():
+            nl = prom_escape(k)
+            st = hist_state.get(k)
+            if st:
+                exemplars = st.get("exemplars") or {}
+                acc = 0
+                for i, c in enumerate(st.get("counts") or []):
+                    if not c:
+                        continue
+                    acc += int(c)
+                    line = (f'blit_latency_seconds_bucket{{host="{hl}",'
+                            f'name="{nl}",le="{edges[i]:.10g}"}} {acc}')
+                    ex = (exemplars.get(str(i)) or exemplars.get(i)
+                          if openmetrics else None)
+                    if ex:
+                        trace, v, t = ex
+                        line += (f' # {{trace_id="{prom_escape(trace)}"}}'
+                                 f' {float(v):.9g} {float(t):.3f}')
+                    lines.append(line)
+                lines.append(f'blit_latency_seconds_bucket{{host="{hl}",'
+                             f'name="{nl}",le="+Inf"}} {int(st.get("n", 0))}')
+                lines.append(f'blit_latency_seconds_sum{{host="{hl}",name="{nl}"}} '
+                             f'{st.get("total", 0.0)}')
+                lines.append(f'blit_latency_seconds_count{{host="{hl}",'
+                             f'name="{nl}"}} {int(st.get("n", 0))}')
+            for q, key in (("0.5", "p50"), ("0.9", "p90"), ("0.99", "p99")):
+                lines.append(f'blit_latency_quantile{{host="{hl}",name="{nl}",'
+                             f'quantile="{q}"}} {h.get(key, 0)}')
+        for k, v in (e.get("faults") or {}).items():
+            lines.append(f'blit_fault_total{{host="{hl}",'
+                         f'counter="{prom_escape(k)}"}} {v}')
+    if openmetrics:
+        lines.append("# EOF")
+    return "\n".join(lines) + "\n"
 
 
 # -- structured logging -----------------------------------------------------

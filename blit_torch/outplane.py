@@ -48,6 +48,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from collections import deque
 from typing import Callable, Iterator, List, Optional
 
@@ -60,6 +61,12 @@ from blit_torch.observability import StallWatchdog, Timeline
 log = logging.getLogger("blit_torch.outplane")
 
 _EOF = object()
+
+# The output plane's per-chunk histograms (blit's), as the tune command
+# and the online tuner read them: readback lag (put to the readback
+# thread picking the output up), per-chunk service latency (the event
+# wait and the host copy) and per-append write time.
+INGEST_HISTS = ("out.chunk_latency_s", "out.readback_lag_s", "out.write_s")
 
 
 def readback_extra_slots(out_depth: int, prefetch_depth: int) -> int:
@@ -154,8 +161,10 @@ class OutputRotation:
                         self._eof = True
                         self._cv.notify_all()
                     return
-                out, event, nbytes, payload, on_consumed = item
+                out, event, nbytes, payload, on_consumed, t_enq = item
                 del item
+                t_got = time.perf_counter()
+                self._tl.observe("out.readback_lag_s", t_got - t_enq)
                 self._wd.beat()
                 with self._tl.stage("device", nbytes=nbytes or 0,
                                     byte_free=nbytes is None):
@@ -173,6 +182,8 @@ class OutputRotation:
                 self._wd.beat()
                 release = None if slab is None else (
                     lambda s=slab: self._release_slab(s))
+                self._tl.observe("out.chunk_latency_s",
+                                 time.perf_counter() - t_got)
                 with self._cv:
                     self._pending -= 1
                     self._done.append(OutputSlab(host, payload, release))
@@ -276,7 +287,8 @@ class OutputRotation:
         with self._cv:
             self._check()
             self._pending += 1
-        self._in.put((out, event, nbytes, payload, on_consumed))
+        self._in.put((out, event, nbytes, payload, on_consumed,
+                      time.perf_counter()))
         ready: List[OutputSlab] = []
         poll = self._wd.poll_s(0.2)
         with self._cv:
@@ -402,8 +414,10 @@ class AsyncSink:
             if self._exc is None:
                 try:
                     faults.fire("sink.write", key=self._key)
+                    t0 = time.perf_counter()
                     with self._tl.stage(self._stage, nbytes=slab.nbytes):
                         self._writer.append(slab)
+                    self._tl.observe("out.write_s", time.perf_counter() - t0)
                 except BaseException as e:  # noqa: BLE001 — consumer re-raises
                     self._exc = e
             if release is not None:

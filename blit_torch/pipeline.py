@@ -50,9 +50,19 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   path list or a stem) or an open :class:`GuppiRaw` / :class:`GuppiScan`:
   a scan streams across its members as one recording.
 
-``blit``'s tuning profiles and online tuner, the live ``feed_blocks()``
-source, spans and ``profile_trace`` are later items (ROADMAP.md,
-Queue 1).
+- Tuning (:mod:`blit_torch.tune`): ``chunk_frames``, ``prefetch_depth``
+  and ``out_depth`` left ``None`` come from this rig's profile when one
+  exists (keyed by the reducer's device), else from the defaults;
+  :meth:`RawReducer.tuning_provenance` names the source of each.  With
+  ``tune_online`` the asynchronous plane feeds an
+  :class:`~blit_torch.tune.OnlineTuner` once per dispatched chunk.
+- A source with ``feed_blocks()`` (the live
+  :class:`blit_torch.stream.LiveRawStream`) feeds the producer in place
+  of the file's blocks, through the same chunk framing, so a stream of
+  a completed recording is byte-identical to its batch reduction.
+- Every ``_pump`` runs under :func:`blit_torch.monitor.publishing`.
+
+``profile_trace`` is a later item (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -301,10 +311,11 @@ class RawReducer:
     # blit's) gives 0002 2048 frames and 0001 only 128.
     chunk_frames: Optional[int] = None
     # Chunk slots in the ingest rotation (>= 2): the producer reads chunk
-    # i+1 while the device works on chunk i.
-    prefetch_depth: int = 2
-    # Outputs in readback flight and write-behind queue slots; None =
-    # max(2, prefetch_depth).
+    # i+1 while the device works on chunk i.  None: the tuning profile,
+    # else 2.
+    prefetch_depth: Optional[int] = None
+    # Outputs in readback flight and write-behind queue slots; None = the
+    # tuning profile, else max(2, prefetch_depth).
     out_depth: Optional[int] = None
     # The asynchronous output plane; False (or BLIT_SYNC_OUTPUT=1) runs
     # the synchronous path, byte-identical.
@@ -318,6 +329,9 @@ class RawReducer:
     quant_offset: float = 0.0
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)
+    # The online tuner: a knob recommendation from the first chunks'
+    # stages (tune.rec_* gauges; a profile with BLIT_TUNE_ONLINE=1).
+    tune_online: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -326,6 +340,25 @@ class RawReducer:
         check_quant(self.nbits)
         if self.stokes not in STOKES_NIF:
             raise ValueError(f"unknown stokes {self.stokes!r}")
+        # Knobs left unset resolve from this rig's tuning profile.
+        self._tuning_profile = None
+        self._stream_nchan: Optional[int] = None
+        self._profile_nchan_mismatch: Optional[int] = None
+        self._knob_sources = {
+            k: "explicit" if getattr(self, k) is not None else "default"
+            for k in ("chunk_frames", "prefetch_depth", "out_depth")}
+        if None in (self.chunk_frames, self.prefetch_depth, self.out_depth):
+            from blit_torch import tune
+
+            prof = tune.lookup(**self._tune_fingerprint_kw())
+            if prof is not None:
+                self._tuning_profile = prof
+                for knob, value in prof.knobs().items():
+                    if getattr(self, knob) is None:
+                        setattr(self, knob, value)
+                        self._knob_sources[knob] = "profile"
+        if self.prefetch_depth is None:
+            self.prefetch_depth = 2
         if self.out_depth is None:
             self.out_depth = max(2, self.prefetch_depth)
         self.out_depth = max(2, self.out_depth)
@@ -343,6 +376,52 @@ class RawReducer:
         # Chunk slots kept across streams of this reducer; retired to the
         # staging pool after a stream that ended synchronized.
         self._buf_cache: List[hostmem.HostSlab] = []
+
+    def _tune_fingerprint_kw(self) -> Dict:
+        """What this reduction's tuning profile is keyed under
+        (:func:`blit_torch.tune.rig_fingerprint`)."""
+        return dict(
+            nfft=self.nfft, ntap=self.ntap, nint=self.nint,
+            stokes=self.stokes, window=self.window, fqav_by=self.fqav_by,
+            dtype=self.dtype, fft_method=self.fft_method, nbits=self.nbits,
+            workload="reduce", device=self.device,
+        )
+
+    def tuning_provenance(self) -> Dict:
+        """Where the ingest knobs came from (``blit``'s block): their
+        values, each one's source (explicit, profile or default), the
+        profile's provenance and a channel-count mismatch, if any."""
+        prov = {
+            "chunk_frames": self.chunk_frames,
+            "prefetch_depth": self.prefetch_depth,
+            "out_depth": self.out_depth,
+            "sources": dict(self._knob_sources),
+        }
+        if self._tuning_profile is not None:
+            prov["profile"] = self._tuning_profile.provenance()
+        if self._profile_nchan_mismatch is not None:
+            prov["profile_nchan_mismatch"] = {
+                "tuned": self._profile_nchan_mismatch,
+                "stream": self._stream_nchan,
+            }
+        return prov
+
+    def _note_stream_nchan(self, nchan: int) -> None:
+        """Warn once a stream when the loaded profile was measured on a
+        recording of another channel count (the fingerprint leaves it
+        out, but per-chunk cost scales with it)."""
+        if self._stream_nchan == nchan:
+            return
+        self._stream_nchan = nchan
+        prof = self._tuning_profile
+        tuned = int(getattr(prof, "tuned_nchan", 0) or 0) if prof else 0
+        if tuned and tuned != nchan:
+            self._profile_nchan_mismatch = tuned
+            log.warning(
+                "tuning profile %s was measured on a %d-channel recording "
+                "but this stream has %d channels; re-run the tune command "
+                "on a matching recording (or set the knobs) if ingest "
+                "underperforms", prof.key[:12], tuned, nchan)
 
     @property
     def coeffs(self) -> torch.Tensor:
@@ -399,6 +478,7 @@ class RawReducer:
             t0, nt = to_skip, nt - to_skip
             to_skip = 0
             nchan = hdr["OBSNCHAN"]
+            self._note_stream_nchan(nchan)
             npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
             while nt > 0:
                 if cur is None:
@@ -445,14 +525,18 @@ class RawReducer:
         """The pipelined chunker: :class:`_Chunk` handles in stream order.
         The caller must release every chunk once nothing reads its slot.
         ``extra_slots`` widens the rotation beyond ``prefetch_depth`` for
-        the chunks the output plane keeps in flight."""
+        the chunks the output plane keeps in flight.  A source with
+        ``feed_blocks()`` (a live stream) feeds the producer in place of
+        its file's blocks."""
         nbufs = max(2, self.prefetch_depth) + max(0, extra_slots)
         bufs: List[Optional[hostmem.HostSlab]] = [None] * nbufs
-        rot = BufferRotation(
-            nbufs,
-            lambda r: self._fill_rotation(raw_block_feed(raw), skip_frames,
-                                          bufs, r),
-            name="blit-ingest")
+
+        def fill(r):
+            feed = (raw.feed_blocks() if hasattr(raw, "feed_blocks")
+                    else raw_block_feed(raw))
+            self._fill_rotation(feed, skip_frames, bufs, r)
+
+        rot = BufferRotation(nbufs, fill, name="blit-ingest")
         with self.timeline.stage("stream"):
             try:
                 for idx, (frames, samps) in rot.slots():
@@ -503,7 +587,7 @@ class RawReducer:
 
     # -- streaming ---------------------------------------------------------
     def _stream_async(self, raw: GuppiRaw, skip_frames: int, reuse: bool,
-                      narrow: bool = False) -> Iterator:
+                      narrow: bool = False, tuner=None) -> Iterator:
         """The overlapped core of :meth:`stream` and :meth:`_pump`:
         dispatch each chunk, record an event, hand the output to an
         :class:`OutputRotation` and yield its slabs in stream order.
@@ -523,6 +607,8 @@ class RawReducer:
                     out = self._dispatch(chunk, narrow)
                     ev = record_event(out)
                 self._output_frames += chunk.frames
+                if tuner is not None:
+                    tuner.observe_chunk()
                 slabs = rot.put(out, event=ev, nbytes=chunk.view.nbytes,
                                 on_consumed=chunk.release)
                 del out
@@ -596,7 +682,15 @@ class RawReducer:
         read, H2D and compute, readback and the disk write each on a
         thread of their own (producer, dispatch, readback, sink), with
         back-pressure end to end.  Returns the spectra written; on error
-        the writer is aborted and the error re-raised."""
+        the writer is aborted and the error re-raised.  Runs under
+        :func:`blit_torch.monitor.publishing` (a no-op unless monitoring
+        is configured)."""
+        from blit_torch.monitor import publishing
+
+        with publishing(self.timeline):
+            return self._pump_impl(raw, writer, skip_frames)
+
+    def _pump_impl(self, raw: GuppiRaw, writer, skip_frames: int) -> int:
         if not self.async_output:
             try:
                 for slab in self._stream(raw, skip_frames):
@@ -607,12 +701,22 @@ class RawReducer:
                 writer.abort()
                 raise
             return writer.nsamps
+        tuner = None
+        if self.tune_online:
+            from blit_torch.tune import OnlineTuner
+
+            tuner = OnlineTuner(
+                self.timeline,
+                {"chunk_frames": self.chunk_frames,
+                 "prefetch_depth": self.prefetch_depth,
+                 "out_depth": self.out_depth},
+                nint=self.nint)
         sink = AsyncSink(writer, depth=max(2, self.out_depth),
                          timeline=self.timeline,
                          stall_timeout_s=self.output_stall_timeout_s)
         try:
             for slab in self._stream_async(raw, skip_frames, reuse=True,
-                                           narrow=True):
+                                           narrow=True, tuner=tuner):
                 sink.append(slab.data, release=slab.release)
             t0 = time.perf_counter()
             sink.close()
@@ -622,6 +726,9 @@ class RawReducer:
             raise
         self.timeline.overlap_efficiency()
         self._retire_staging()
+        if tuner is not None:
+            tuner.maybe_persist(tuned_nchan=self._stream_nchan or 0,
+                                **self._tune_fingerprint_kw())
         return sink.nsamps
 
     # -- whole-recording entry points ---------------------------------------

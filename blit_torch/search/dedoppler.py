@@ -28,8 +28,12 @@ knobs are gone: the device picks the path, and the paths agree bitwise.
 :meth:`DedopplerReducer.search_resumable` writes the ``.hits`` product
 crash-resumably: a :class:`SearchCursor` sidecar claims each window after
 its lines are durable, and a re-run restarts at the claimed window
-through the inner reducer's ``skip_frames`` replay.  The worker entry
-point is a later slice (ROADMAP.md Queue 1).
+through the inner reducer's ``skip_frames`` replay.  The ingest knobs
+left ``None`` resolve through the inner reducer's tuning profile
+(:meth:`DedopplerReducer.tuning_provenance`); a live source
+(``feed_blocks()``) feeds the inner reducer's producer, as
+:func:`blit_torch.stream.stream_search` uses it; ``_pump`` runs under
+:func:`blit_torch.monitor.publishing`.
 """
 
 from __future__ import annotations
@@ -105,8 +109,9 @@ class DedopplerReducer:
     snr_threshold: Optional[float] = None
     max_drift_bins: Optional[int] = None
     chunk_frames: Optional[int] = None
-    # The planes' knobs, as on RawReducer (the inner reducer takes them).
-    prefetch_depth: int = 2
+    # The planes' knobs, as on RawReducer (the inner reducer takes them;
+    # None: the rig's tuning profile, else the reducer's defaults).
+    prefetch_depth: Optional[int] = None
     out_depth: Optional[int] = None
     async_output: bool = True
     output_stall_timeout_s: Optional[float] = None
@@ -138,9 +143,16 @@ class DedopplerReducer:
             output_stall_timeout_s=self.output_stall_timeout_s,
             device=self.device, timeline=self.timeline,
         )
+        # The knobs as the inner reducer resolved them (profile or
+        # default), so the window rotation's depths agree.
         self.device = self._red.device
         self.chunk_frames = self._red.chunk_frames
+        self.prefetch_depth = self._red.prefetch_depth
         self.out_depth = self._red.out_depth
+
+    def tuning_provenance(self) -> Dict:
+        """The inner reducer's (the knobs are its)."""
+        return self._red.tuning_provenance()
 
     # -- identity ----------------------------------------------------------
     def fingerprint_extra(self) -> Dict:
@@ -341,7 +353,15 @@ class DedopplerReducer:
         """Drive the search stream into a ``.hits`` writer (write-behind
         through an :class:`AsyncSink` on the asynchronous plane) and
         finalize it.  Returns the writer's hit count; on error the writer
-        is aborted and the error re-raised."""
+        is aborted and the error re-raised.  Runs under
+        :func:`blit_torch.monitor.publishing`."""
+        from blit_torch.monitor import publishing
+
+        with publishing(self.timeline):
+            return self._pump_impl(raw, hdr, writer, skip_windows)
+
+    def _pump_impl(self, raw: GuppiRaw, hdr: Dict, writer,
+                   skip_windows: int) -> int:
         if not self.async_output:
             try:
                 for widx, hits in self._search_stream(raw, hdr, skip_windows):

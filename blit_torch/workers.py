@@ -19,8 +19,9 @@ reducers, which run on the card unless ``device="cpu"`` is passed.
 ``.h5`` files are recognised by their signature
 (:func:`blit_torch.io.fbh5.is_hdf5`, which needs no ``h5py``);
 ``h5py`` is imported only when an ``.h5`` file is read, so the ``.fil``
-and RAW paths run where it is missing.  ``blit``'s ``stream_raw``
-comes with the streaming plane (ROADMAP.md Queue 1 item 7).
+and RAW paths run where it is missing.  :func:`stream_raw` reduces or
+searches a recording that is still being written, on the worker that
+owns it (:mod:`blit_torch.stream`).
 """
 
 from __future__ import annotations
@@ -225,6 +226,62 @@ def reduce_raw(
     if resume:
         raise ValueError("reduce_raw: resume=True requires a .fil out_path")
     return red.reduce(raw_path)
+
+
+def stream_raw(
+    raw_path: str,
+    out_path: str,
+    search: bool = False,
+    replay_rate: Optional[float] = None,
+    lateness_s: Optional[float] = None,
+    idle_timeout_s: Optional[float] = None,
+    done_path: Optional[str] = None,
+    source: Optional[dict] = None,
+    nfft: int = 1024,
+    nint: int = 1,
+    **reducer_kw,
+):
+    """Reduce a recording live on this worker, the streaming twin of
+    :func:`reduce_raw` / :func:`search_raw`: the host that owns the
+    growing file tails it (:class:`blit_torch.stream.FileTailSource`),
+    and only the product header crosses the wire.
+
+    ``replay_rate`` replays an at-rest recording at that multiple of its
+    cadence (:class:`blit_torch.stream.ReplaySource`); ``source`` is a
+    source spec (:func:`blit_torch.stream.source_from_spec`: tail,
+    replay, packet or packet-replay) and overrides both; ``search=True``
+    writes a ``.hits`` product through
+    :func:`blit_torch.stream.stream_search` instead of a filterbank.
+    ``reducer_kw`` passes the reducer's knobs (``device`` among them: the
+    card by default); the watermark knobs left ``None`` resolve from the
+    site defaults + ``BLIT_STREAM_*`` on the worker.  A packet source's
+    report comes back under ``_packet_report``."""
+    from blit_torch.observability import process_timeline
+    from blit_torch.stream import (
+        FileTailSource,
+        ReplaySource,
+        source_from_spec,
+        stream_reduce,
+        stream_search,
+    )
+
+    reducer_kw.setdefault("timeline", process_timeline())
+    if source is not None:
+        spec = dict(source)
+        spec.setdefault("raw", raw_path)
+        src = source_from_spec(spec, timeline=reducer_kw["timeline"])
+    elif replay_rate is not None:
+        src = ReplaySource(raw_path, rate=replay_rate)
+    else:
+        src = FileTailSource(raw_path, idle_timeout_s=idle_timeout_s,
+                             done_path=done_path)
+    fn = stream_search if search else stream_reduce
+    hdr = fn(src, out_path, lateness_s=lateness_s, nfft=nfft, nint=nint,
+             **reducer_kw)
+    if hasattr(src, "packet_report"):
+        hdr = dict(hdr)
+        hdr["_packet_report"] = src.packet_report()
+    return hdr
 
 
 def search_raw(

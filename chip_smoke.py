@@ -12,7 +12,9 @@ per-antenna recordings into tied-array beam power and FX visibilities
 at the array scale, all through the kernels, then drives the
 reference's own API (inventory, the reduce_raw fan-out over a worker
 pool, load_scan, get_data / get_kurtosis, remote agents) over one band
-of eight banks, and checks the results.
+of eight banks, drives the live plane (streams from a replay, a growing
+file and packets, a rejoin, the metrics publisher) and the command
+line, and checks the results.
 
     python3 chip_smoke.py
 
@@ -229,6 +231,30 @@ Phases, in order; any failure exits non-zero:
       the fan-out and serial walls with the aggregate RAW GB/s, the
       load_scan seconds, the kurtosis maps' ms and the agents' spawn
       seconds, each beside the card's name and power limit.
+  (q) after (n), before (o), on (d)'s recording: the live plane.  (q1)
+      the 0000 product through stream_reduce from a ReplaySource at the
+      rate that delivers a bank's 0.75 GB/s (1.0: the recording is
+      critically sampled), then unthrottled: each .fil byte-identical to
+      (d)'s, pfb_dft1 and tail2_detect launched as often as in (d),
+      0 masked chunks; with BLIT_MONITOR_SPOOL set for the paced run,
+      the publisher's spool holds samples whose dev.hbm_in_use_bytes
+      (torch.cuda.memory_stats) is above 0 (q7); (q2) 0002 through a
+      FileTailSource following a file a thread grows block by block at
+      0.75 GB/s, byte-identical to (d)'s; (q3) 0002 from a
+      PacketReplaySource with every packet of block 5 dropped, equal to
+      the batch reduction of the recording with that block zero-filled,
+      masking it, and differing from (d)'s product only in the rows the
+      block's samples reach (degraded_rows counts them); (q4) 0000
+      through stream_reduce(resume=True) stopped by a sink.write fault,
+      then rejoined, byte-identical to (d)'s; (q5) the search (h) through
+      stream_search, the .hits byte-identical; each leg's wall, RAW
+      GB/s, p50/p99 stream.chunk_to_product_s and peak
+      stream.watermark_lag_s in a "live table"; (q6) python -m
+      blit_torch as subprocesses with BLIT_TUNE_DIR in the run's temp
+      dir: tune (3 trials on the recording, nfft 1024, nint 2048), reduce
+      --product 0002 (the profile's key in the provenance, the card's
+      name in its rig identity), stream --replay-rate (the same bytes as
+      reduce) and info.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -1518,12 +1544,14 @@ def search_summary(red, hdr, wall, extra):
     # search.tree_s is the synchronous path's per-window time; on the
     # asynchronous plane the windows overlap, and the stage table holds
     # the readback thread's waits ("device").
-    tree_s = sorted(red.timeline.observations.get("search.tree_s", []))
+    # The histogram's p50 is a bucket midpoint (within a factor of 2).
+    tree_s = red.timeline.hists.get("search.tree_s")
     gbps = st["ingest"].bytes / st["stream"].seconds / 1e9
     return dict(windows=hdr["search_windows"], hits=hdr["search_nhits"],
                 wall_s=wall, windows_per_s=hdr["search_windows"] / wall,
-                window_device_s_median=tree_s[len(tree_s) // 2] if tree_s else None,
-                window_device_s_sum=sum(tree_s), raw_gb=st["ingest"].bytes / 1e9,
+                window_device_s_p50=tree_s.percentile(0.5) if tree_s else None,
+                window_device_s_sum=tree_s.total if tree_s else 0.0,
+                raw_gb=st["ingest"].bytes / 1e9,
                 raw_gbps=gbps, realtime_factor=gbps / REALTIME_BANK_GBPS,
                 stages=stages, **extra)
 
@@ -2618,6 +2646,373 @@ def phase_resume(torch, dev, raw_path, tmp):
     return launches
 
 
+LIVE_DROP_BLOCK = 5          # (q3): the block whose every packet is dropped
+LIVE_TUNE_TRIALS = 3         # (q6): the cut sweep of the tune command
+LIVE_MONITOR_INTERVAL = 0.5  # (q7): the publisher's cadence, seconds
+CLI_DEVICE = "cuda"          # (q6): --device of the command line's runs
+
+
+def _live_leg(torch, path, fn):
+    """``fn()`` with the launches counted alone; returns (result, wall,
+    launches).  The plan check is the batch path ``path``'s."""
+    from blit_torch.ops import channelize as tch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_plan(path, tch.last_kernel_plan(), launches)
+    return out, wall, launches
+
+
+def live_summary(red, hdr, wall, **extra) -> dict:
+    """Wall, RAW GB/s over it, chunk-to-product p50/p99, the peak
+    watermark lag and the masked chunks of one live run."""
+    tl = red.timeline
+    lat = tl.hists["stream.chunk_to_product_s"]
+    lag = tl.gauges["stream.watermark_lag_s"]
+    raw_gb = tl.stages["ingest"].bytes / 1e9
+    return dict(extra, wall_s=wall, raw_gb=raw_gb, raw_gbps=raw_gb / wall,
+                chunk_to_product_n=lat.n,
+                chunk_to_product_p50_s=lat.percentile(0.5),
+                chunk_to_product_p99_s=lat.percentile(0.99),
+                chunk_to_product_max_s=lat.vmax,
+                watermark_lag_peak_s=lag.hi,
+                masked_chunks=hdr["stream_masked_chunks"],
+                late_chunks=hdr["stream_late_chunks"])
+
+
+def _block_spans(raw_path):
+    """(start, end) byte offsets of each block (header and payload) and
+    each block's payload offset, of a RAW file."""
+    from blit_torch.io.guppi import GuppiRaw
+
+    raw = GuppiRaw(raw_path, native=False)
+    ends = [off + h["BLOCSIZE"] for off, h in zip(raw._data_offsets, raw.headers)]
+    spans = list(zip([0] + ends[:-1], ends))
+    offsets = list(raw._data_offsets)
+    tbin = float(raw.header(0)["TBIN"])
+    npol = 2 if raw.header(0)["NPOL"] > 2 else raw.header(0)["NPOL"]
+    raw.close()
+    return spans, offsets, tbin, NCHAN * npol * 2
+
+
+def _grow(raw_path, live_path, done_path, gbps, spans):
+    """Append the recording's blocks to ``live_path`` at ``gbps`` (a
+    recorder's cadence), then write the done marker.  Returns the
+    writer thread and a dict that receives its wall and any error."""
+    import threading
+
+    state = {}
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            sent = 0
+            with open(raw_path, "rb") as src, open(live_path, "wb") as dst:
+                for a, b in spans:
+                    src.seek(a)
+                    dst.write(src.read(b - a))
+                    dst.flush()
+                    sent += b - a
+                    ahead = sent / (gbps * 1e9) - (time.perf_counter() - t0)
+                    if ahead > 0:
+                        time.sleep(ahead)
+            with open(done_path, "w"):
+                pass
+            state["wall_s"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — re-raised by the reader
+            state["error"] = e
+
+    t = threading.Thread(target=run, name="smoke-recorder", daemon=True)
+    t.start()
+    return t, state
+
+
+def _product_rows(path):
+    """The .fil product's header bytes and its rows as bytes."""
+    from blit_torch.io.sigproc import read_fil_header
+
+    hdr, off = read_fil_header(path)
+    with open(path, "rb") as f:
+        head = f.read(off)
+        body = f.read()
+    row = hdr["nchans"] * hdr.get("nifs", 1) * hdr["nbits"] // 8
+    return head, [body[i:i + row] for i in range(0, len(body), row)]
+
+
+def degraded_rows_of(a, b, nfft, ntap, nint):
+    """The output rows whose PFB windows touch gap-free samples [a, b):
+    frame f reads samples [f·nfft, (f+ntap)·nfft)."""
+    f_lo = max(0, (a - ntap * nfft) // nfft + 1)
+    f_hi = (b - 1) // nfft
+    return set(range(f_lo // nint, f_hi // nint + 1))
+
+
+def phase_live(torch, dev, raw_path, tmp, batch_launches, smi):
+    """(q) the live plane on (d)'s recording, against (d)'s and (h)'s
+    batch products (smoke.0000.fil, smoke.0002.fil, smoke.hits).
+    Returns the launches of each leg."""
+    import subprocess
+
+    from blit_torch import faults, integrity, monitor
+    from blit_torch.pipeline import reducer_for_product
+    from blit_torch.search import DedopplerReducer
+    from blit_torch.stream import (
+        FileTailSource,
+        PacketReplaySource,
+        ReplaySource,
+        StreamCursor,
+        stream_reduce,
+        stream_search,
+    )
+
+    launches = {}
+    rows = []
+    ref0000 = os.path.join(tmp, "smoke.0000.fil")
+    ref0002 = os.path.join(tmp, "smoke.0002.fil")
+    ref_hits = os.path.join(tmp, "smoke.hits")
+    spans, offsets, tbin, bytes_per_sample = _block_spans(raw_path)
+    # ReplaySource paces block i at its cumulative samples · TBIN / rate:
+    # this rate delivers a bank's 0.75 GB/s.
+    realtime_rate = REALTIME_BANK_GBPS * 1e9 / bytes_per_sample * tbin
+
+    def cleanup(*paths):
+        for q in paths:
+            for f in (q, integrity.manifest_path(q)):
+                if os.path.exists(f):
+                    os.unlink(f)
+
+    # (q1) a live 0000 stream, at a bank's rate and unthrottled; (q7) the
+    # publisher spools the paced run.
+    spool = os.path.join(tmp, "spool")
+    os.environ["BLIT_MONITOR_SPOOL"] = spool
+    os.environ["BLIT_MONITOR_INTERVAL"] = str(LIVE_MONITOR_INTERVAL)
+    try:
+        for tag, rate in (("0.75 GB/s", realtime_rate), ("unthrottled", 1e6)):
+            out = os.path.join(tmp, "live.0000.fil")
+            red = reducer_for_product("0000", **PRODUCTS["0000"])
+            hdr, wall, lc = _live_leg(torch, "0000", lambda: stream_reduce(
+                ReplaySource(raw_path, rate=rate), out, reducer=red))
+            launches[f"live 0000 {tag}"] = lc
+            summary = live_summary(red, hdr, wall, leg="q1", product="0000",
+                                   source=f"replay {tag}", rate=rate)
+            rows.append(summary)
+            identical = same_file(out, ref0000)
+            same = all(lc[k] == batch_launches["0000"][k]
+                       for k in ("pfb_dft1", "tail2_detect"))
+            log(f"live 0000 ({tag}): {json.dumps(summary)}; byte-identical to "
+                f"reduce_to_file: {identical}; launches {json.dumps(lc)} equal to "
+                f"the batch run's: {same}")
+            if not (identical and same and hdr["stream_masked_chunks"] == 0):
+                raise AssertionError(f"live 0000 ({tag}): not the batch product")
+            cleanup(out)
+            if tag == "0.75 GB/s":
+                monitor.shutdown_publisher()
+                os.environ.pop("BLIT_MONITOR_SPOOL")
+                samples = monitor.read_spool(spool, tail=1000)
+                hbm = [s["gauges"].get("dev.hbm_in_use_bytes", 0) for s in samples]
+                chunks = max((s["timeline"]["stages"].get(
+                    "stream.chunks", {}).get("calls", 0) for s in samples),
+                    default=0)
+                lat_n = max((s["timeline"]["hists"].get(
+                    "stream.chunk_to_product_s", {}).get("n", 0) for s in samples),
+                    default=0)
+                log(f"publisher: {len(samples)} spool samples at "
+                    f"{LIVE_MONITOR_INTERVAL} s; dev.hbm_in_use_bytes max "
+                    f"{max(hbm, default=0)} (torch.cuda.memory_stats); live "
+                    f"chunks spooled {chunks}, stream.chunk_to_product_s "
+                    f"samples spooled {lat_n}")
+                if not (len(samples) >= 2 and max(hbm, default=0) > 0 and chunks > 0):
+                    raise AssertionError("publisher: no device gauges or live "
+                                         "timeline in the spool")
+    finally:
+        os.environ.pop("BLIT_MONITOR_SPOOL", None)
+        os.environ.pop("BLIT_MONITOR_INTERVAL", None)
+        monitor.shutdown_publisher()
+
+    # (q2) tailing a file a recorder thread grows at 0.75 GB/s.
+    live_raw = os.path.join(tmp, "growing.0000.raw")
+    done = os.path.join(tmp, "growing.done")
+    out = os.path.join(tmp, "live.0002.fil")
+    writer, state = _grow(raw_path, live_raw, done, REALTIME_BANK_GBPS, spans)
+    red = reducer_for_product("0002", **PRODUCTS["0002"])
+    try:
+        hdr, wall, lc = _live_leg(torch, "0002", lambda: stream_reduce(
+            FileTailSource(live_raw, poll_s=0.01), out, reducer=red))
+    finally:
+        writer.join(timeout=600)
+    if "error" in state:
+        raise state["error"]
+    launches["live 0002 tail"] = lc
+    summary = live_summary(red, hdr, wall, leg="q2", product="0002",
+                           source="tail at 0.75 GB/s",
+                           recorder_wall_s=state.get("wall_s"))
+    rows.append(summary)
+    identical = same_file(out, ref0002)
+    log(f"live 0002 (tail): {json.dumps(summary)}; byte-identical to "
+        f"reduce_to_file: {identical}")
+    if not (identical and hdr["stream_chunks"] == len(spans)):
+        raise AssertionError("live 0002 (tail): not the batch product")
+    cleanup(out)
+    os.unlink(live_raw)
+    os.unlink(done)
+
+    # (q3) the packet stream with one block's packets dropped, against the
+    # batch reduction of the recording with that block zero-filled.
+    zero_raw = os.path.join(tmp, "zeroed.raw")
+    shutil.copyfile(raw_path, zero_raw)
+    a, b = spans[LIVE_DROP_BLOCK]
+    with open(zero_raw, "r+b") as f:
+        f.seek(offsets[LIVE_DROP_BLOCK])
+        f.write(bytes(b - offsets[LIVE_DROP_BLOCK]))
+    zref = os.path.join(tmp, "zeroed.0002.fil")
+    reducer_for_product("0002", **PRODUCTS["0002"]).reduce_to_file(zero_raw, zref)
+    os.unlink(zero_raw)
+    out = os.path.join(tmp, "packets.0002.fil")
+    red = reducer_for_product("0002", **PRODUCTS["0002"])
+    src = PacketReplaySource(raw_path, rate=1e6, drop_blocks=[LIVE_DROP_BLOCK],
+                             timeline=red.timeline)
+    hdr, wall, lc = _live_leg(torch, "0002", lambda: stream_reduce(
+        src, out, reducer=red, lateness_s=5.0))
+    launches["live 0002 packets"] = lc
+    rep = src.packet_report()
+    summary = live_summary(red, hdr, wall, leg="q3", product="0002",
+                           source="packets, one block dropped",
+                           packets=rep["packets"], gaps=rep["gaps"],
+                           assembly_p50_s=rep["assembly_p50_s"],
+                           assembly_p99_s=rep["assembly_p99_s"])
+    rows.append(summary)
+    identical = same_file(out, zref)
+    kept = BLOCK_NTIME  # synth_raw_blocks writes no overlap
+    want = degraded_rows_of(LIVE_DROP_BLOCK * kept, (LIVE_DROP_BLOCK + 1) * kept,
+                            red.nfft, red.ntap, red.nint)
+    want = {r for r in want if r < hdr["nsamps"]}
+    head, got_rows = _product_rows(out)
+    bhead, batch_rows = _product_rows(ref0002)
+    differ = {i for i, (x, y) in enumerate(zip(got_rows, batch_rows)) if x != y}
+    log(f"live 0002 (packets): {json.dumps(summary)}; byte-identical to the "
+        f"zero-filled batch product: {identical}; masked {hdr.get('_masked_chunks')}; "
+        f"degraded_rows {hdr['stream_degraded_spectra']}, rows {sorted(want)} "
+        f"touch the block, rows differing from the intact product {sorted(differ)}")
+    if not (identical and hdr.get("_masked_chunks") == [LIVE_DROP_BLOCK]
+            and rep["gapped_blocks"] == [LIVE_DROP_BLOCK]
+            and hdr["stream_degraded_spectra"] == len(want)
+            and differ <= want and differ and head == bhead):
+        raise AssertionError("live 0002 (packets): not the zero-filled oracle")
+    cleanup(out, zref)
+
+    # (q4) rejoin: a resumable 0000 stream stopped by a sink.write fault,
+    # then rejoined.
+    out = os.path.join(tmp, "rejoin.0000.fil")
+    red = reducer_for_product("0000", **PRODUCTS["0000"])
+    first_s, launches["live rejoin leg 1"] = _interrupted(
+        torch, "sink.write", 1, "rejoin.0000", lambda: stream_reduce(
+            ReplaySource(raw_path, rate=1e6), out, reducer=red, resume=True))
+    cur = StreamCursor.load(out)
+    if cur is None or cur.frames_done <= 0:
+        raise AssertionError("live rejoin: no stream cursor after the stop")
+    red = reducer_for_product("0000", **PRODUCTS["0000"])
+    hdr, second_s, launches["live rejoin leg 2"] = _live_leg(
+        torch, "0000", lambda: stream_reduce(ReplaySource(raw_path, rate=1e6),
+                                             out, reducer=red, resume=True))
+    identical = same_file(out, ref0000)
+    gone = StreamCursor.load(out) is None
+    log(f"live rejoin 0000: cursor claimed {cur.frames_done} frames; leg 1 "
+        f"{first_s:.3f} s, leg 2 {second_s:.3f} s; byte-identical to the "
+        f"uninterrupted product: {identical}; cursor removed: {gone}")
+    if not (identical and gone):
+        raise AssertionError("live rejoin 0000: not the uninterrupted product")
+    cleanup(out)
+
+    # (q5) a live search at search_defaults().
+    out = os.path.join(tmp, "live.hits")
+    red = DedopplerReducer(nfft=SEARCH_NFFT, nint=1)
+    hdr, wall, lc = _live_leg(torch, "search", lambda: stream_search(
+        ReplaySource(raw_path, rate=1e6), out, searcher=red))
+    launches["live search"] = lc
+    summary = live_summary(red, hdr, wall, leg="q5", product="hits",
+                           source="replay unthrottled",
+                           windows=hdr["search_windows"])
+    rows.append(summary)
+    identical = same_file(out, ref_hits)
+    log(f"live search: {json.dumps(summary)}; .hits byte-identical to "
+        f"search_to_file: {identical}")
+    if not identical:
+        raise AssertionError("live search: not the batch .hits")
+    cleanup(out)
+    for r in rows:
+        log(f"live table: {json.dumps({k: r[k] for k in ('leg', 'product', 'source', 'wall_s', 'raw_gbps', 'chunk_to_product_p50_s', 'chunk_to_product_p99_s', 'watermark_lag_peak_s', 'masked_chunks')})}")
+    log(f"live card: {smi}")
+
+    # (q6) the command line, as subprocesses on the card.
+    tune_dir = os.path.join(tmp, "tune")
+    env = dict(os.environ, BLIT_TUNE_DIR=tune_dir,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (os.path.dirname(os.path.abspath(__file__)),
+                               os.environ.get("PYTHONPATH")) if p))
+
+    def cli(*argv, timeout=600):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "blit_torch", *argv],
+                             capture_output=True, text=True, env=env,
+                             timeout=timeout)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"blit_torch {argv[0]} failed ({res.returncode}): "
+                                 f"{res.stderr[-2000:]}")
+        return res.stdout, wall
+
+    text, wall = cli("tune", "--raw", raw_path, "--nfft", "1024", "--nint", "2048",
+                     "--trials", str(LIVE_TUNE_TRIALS), "--device", CLI_DEVICE)
+    tuned = json.loads(text.strip().splitlines()[-1])
+    log(f"cli tune: {wall:.1f} s; winner {json.dumps(tuned['winner'])}, "
+        f"{json.dumps(tuned['trials'])}")
+    x = os.path.join(tmp, "cli.0002.fil")
+    text, wall = cli("reduce", raw_path, "-o", x, "--product", "0002",
+                     "--device", CLI_DEVICE)
+    rep = json.loads(text.strip().splitlines()[-1])
+    old = os.environ.get("BLIT_TUNE_DIR")
+    os.environ["BLIT_TUNE_DIR"] = tune_dir
+    try:
+        prov = reducer_for_product("0002", device=CLI_DEVICE).tuning_provenance()
+    finally:
+        if old is None:
+            os.environ.pop("BLIT_TUNE_DIR")
+        else:
+            os.environ["BLIT_TUNE_DIR"] = old
+    with open(tuned["profile"]) as f:
+        rig = json.load(f)["rig"]
+    log(f"cli reduce: {wall:.1f} s, {json.dumps(rep)}; provenance "
+        f"{json.dumps(prov)}; the profile's rig {json.dumps(rig)}")
+    if not (prov.get("profile", {}).get("key") == tuned["key"]
+            and set(prov["sources"].values()) == {"profile"}
+            and rig["device_kind"] == (torch.cuda.get_device_name(0)
+                                       if CLI_DEVICE == "cuda" else "cpu")
+            and rig["backend"] == CLI_DEVICE):
+        raise AssertionError("cli: the reduction did not take the card's profile")
+    y = os.path.join(tmp, "cli.stream.0002.fil")
+    text, wall = cli("stream", raw_path, "-o", y, "--product", "0002",
+                     "--replay-rate", "1000000", "--device", CLI_DEVICE)
+    srep = json.loads(text.strip().splitlines()[-1])
+    log(f"cli stream: {wall:.1f} s, {json.dumps(srep)}; byte-identical to the "
+        f"cli reduce product: {same_file(x, y)}")
+    if not (same_file(x, y) and srep["masked_chunks"] == 0
+            and srep["chunk_to_product_p99_s"] is not None):
+        raise AssertionError("cli stream: not the reduce product")
+    text, wall = cli("info", y)
+    info = json.loads(text)
+    log(f"cli info: {wall:.1f} s; nchans {info['nchans']}, nsamps "
+        f"{info.get('nsamps')}")
+    if info["nchans"] != NCHAN * 1024:
+        raise AssertionError("cli info: wrong header")
+    cleanup(x, y)
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    return launches
+
+
 def tch_usable(nfft, nint):
     from blit_torch.ops import channelize as tch
 
@@ -2963,6 +3358,10 @@ def main() -> int:
         launches["hi-res search"], _ = phase_hires_search(torch, dev, raw_path)
         # (n) the asynchronous plane against the synchronous path
         plane_rows = phase_plane_products(torch, dev, raw_path, tmp)
+        # (q) the live plane and the command line
+        t0 = time.perf_counter()
+        launches.update(phase_live(torch, dev, raw_path, tmp, launches, smi))
+        log(f"live: phase (q) took {time.perf_counter() - t0:.1f} s")
         # (o) resume, the scan, the native reader, .h5 products
         launches.update(phase_resume(torch, dev, raw_path, tmp))
         os.unlink(raw_path)

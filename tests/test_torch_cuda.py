@@ -931,3 +931,32 @@ def test_thread_fanout_of_reduce_raw_is_byte_identical_to_serial(dev, tmp_path):
         serial = out + ".serial.fil"
         workers.reduce_raw(raw, serial, nfft=1024, nint=4)
         assert filecmp.cmp(out, serial, shallow=False)
+
+
+@pytest.mark.cuda
+def test_live_0000_stream_is_byte_identical_to_batch_on_the_card(dev, tmp_path):
+    # A replayed 0000 recording through the live plane: the same bytes as
+    # reduce_to_file, through the same kernels the same number of times.
+    from blit_torch.pipeline import reducer_for_product
+    from blit_torch.stream import ReplaySource, stream_reduce
+    from blit_torch.testing import synth_raw
+
+    raw = str(tmp_path / "x.raw")
+    synth_raw(raw, nblocks=3, obsnchan=2, ntime_per_block=(4 + 3) * NFFT // 3 * 2,
+              tone_chan=1)
+    counts, files = [], []
+    for live in (False, True):
+        p = str(tmp_path / f"{live}.fil")
+        tpfb.pfb_dft1.launches = tdet.tail2_detect.launches = 0
+        red = reducer_for_product("0000", chunk_frames=2, device=dev)
+        if live:
+            hdr = stream_reduce(ReplaySource(raw, rate=1e6), p, reducer=red)
+            assert hdr["stream_masked_chunks"] == 0
+            assert red.timeline.hists["stream.chunk_to_product_s"].n >= 1
+        else:
+            red.reduce_to_file(raw, p)
+        counts.append((tpfb.pfb_dft1.launches, tdet.tail2_detect.launches))
+        with open(p, "rb") as f:
+            files.append(f.read())
+    assert files[0] == files[1]
+    assert counts[0] == counts[1] and min(counts[0]) > 0

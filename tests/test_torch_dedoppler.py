@@ -299,9 +299,9 @@ def test_search_matches_blit(tmp_path, drift_bins):
     # The tone is found within one drift step, in its coarse channel.
     top = max(hits, key=lambda h: h.snr)
     assert abs(top.drift_bins - drift_bins) <= 1 and top.band == 1
-    obs = red.timeline.observations
-    assert len(obs["search.tree_s"]) == 2
-    assert sum(obs["search.hits_per_window"]) == len(hits)
+    hists = red.timeline.hists
+    assert hists["search.tree_s"].n == 2
+    assert hists["search.hits_per_window"].total == len(hits)
     fill = red.timeline.stages["search.window_fill"]
     assert fill.bytes == 2 * T * hdr["nchans"] * 4
 

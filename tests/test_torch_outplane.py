@@ -568,8 +568,7 @@ class TestAsyncSyncEquivalence:
         assert _bytes(a) == _bytes(s)
         with open(a) as f, open(b) as g:
             assert f.readline() == g.readline()  # the header line
-        obs = red.timeline.observations
-        assert len(obs["search.tree_s"]) == 17
+        assert red.timeline.hists["search.tree_s"].n == 17
         assert red.timeline.stages["search.write"].calls == 17
         # The hits, against blit's on the same recording.
         _, hits = DedopplerReducer(device=CPU, **knobs).search(raw)

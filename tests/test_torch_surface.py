@@ -45,7 +45,11 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.workers", "blit_torch.gbt", "blit_torch.agent",
             "blit_torch.parallel.pool", "blit_torch.parallel.remote",
             "blit_torch.ops.stats", "blit_torch.ops.despike",
-            "blit_torch.io.fbh5"} <= set(mods)
+            "blit_torch.io.fbh5", "blit_torch.tune", "blit_torch.monitor",
+            "blit_torch.__main__", "blit_torch.stream",
+            "blit_torch.stream.source", "blit_torch.stream.packet",
+            "blit_torch.stream.cursor", "blit_torch.stream.plane",
+            "blit_torch.stream.session"} <= set(mods)
     # h5py loads only when an .h5 file is opened: no module imports it,
     # blit_torch.io.fbh5 included.
     plain = mods
@@ -114,6 +118,28 @@ def test_source_has_no_jax_or_blit_imports():
                     if top in ("jax", "jaxlib", "blit", "triton"):
                         offenders.append(f"{path}: {n}")
     assert offenders == []
+
+
+def test_live_plane_modules_import_no_jax_blit_triton_or_cpp_extension():
+    # The live plane and the command line, each imported alone in a fresh
+    # process: no jax, no blit, no triton, no cpp_extension, and CUDA
+    # left uninitialized (the publisher and the tuner touch it only for
+    # a reducer on the card).
+    for mod in ("blit_torch.stream", "blit_torch.tune", "blit_torch.monitor",
+                "blit_torch.__main__"):
+        code = (
+            "import importlib, json, sys, torch\n"
+            f"importlib.import_module({mod!r})\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'jaxlib', 'triton')) or m == 'blit' or "
+            "m.startswith('blit.') or m.startswith('torch.utils.cpp_extension'))\n"
+            "print(json.dumps([bad, torch.cuda.is_initialized()]))\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=dict(os.environ, PYTHONPATH=REPO),
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False], mod
 
 
 def test_default_device_without_gpu_raises_clear_error():
