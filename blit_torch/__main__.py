@@ -17,6 +17,17 @@ has, each with ``blit``'s flags and its one JSON line on stdout:
   tune       Sweep the ingest knobs with timed reductions on this rig and
              save the winner as its tuning profile (``BLIT_TUNE_DIR``),
              which reducers with unset knobs then load.
+  scan       A whole (session, scan) of a data tree → one product a band
+             (or, with ``--search``, a ``.hits`` a player) over the
+             ``(band, bank)`` mesh: the sharded plane (``--sharded``),
+             the mesh loop, or the pool path (``--pool``), every player
+             seated on ``--device``.
+  session    Run (or rejoin) a whole live session from a spec file: one
+             supervised stream consumer a recorder seat.
+  chaos      Run a seeded kill/hang schedule against a supervised scan
+             (``--workload scan`` / ``scan-search``) or a live consumer
+             (``stream``) and check recovery with identical bytes (exit
+             0 only then).
 
 One flag is the port's own: ``--device`` (default ``cuda``) on the
 commands that compute; ``--device cpu`` runs the plain PyTorch path.
@@ -304,6 +315,361 @@ def _cmd_tune(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_scan(args: argparse.Namespace) -> int:
+    from blit_torch.config import default_window_frames, mesh_defaults
+    from blit_torch.inventory import get_inventory
+    from blit_torch.observability import Timeline
+    from blit_torch.parallel.scan import (
+        reduce_scan_mesh_to_files,
+        reduce_scan_pool_to_files,
+    )
+
+    if args.trace_logdir is not None:
+        raise SystemExit("--trace-logdir (profile_trace) is not in the port "
+                         "yet (ROADMAP.md Queue 1 item 8)")
+    mdef = mesh_defaults()
+    # --sharded: the threaded sharded plane; --pool: the pool path (the
+    # oracle); neither: SiteConfig / BLIT_MESH_SHARDED picks between the
+    # sharded plane and the mesh loop.
+    sharded = args.sharded or (mdef["sharded"] and not args.pool)
+    invs = [get_inventory(args.file_re or r"\.raw$", root=args.root)]
+    tuning = {"source": "explicit"}
+    depths = {"prefetch_depth": mdef["prefetch_depth"],
+              "out_depth": mdef["out_depth"]}
+    if args.window_frames is None:
+        # An unset window consults this rig's tuning profile through a
+        # probe reducer, the key recipe reduce and stream use.
+        from blit_torch.pipeline import RawReducer
+
+        probe = RawReducer(nfft=args.nfft, nint=args.nint, stokes=args.stokes,
+                           fqav_by=args.fqav, dtype=args.dtype,
+                           device=args.device)
+        prov = probe.tuning_provenance()
+        for knob in ("prefetch_depth", "out_depth"):
+            if depths[knob] is None and prov["sources"][knob] == "profile":
+                depths[knob] = getattr(probe, knob)
+        if prov["sources"]["chunk_frames"] == "profile":
+            wf = probe.chunk_frames
+            pprov = prov["profile"]
+            pprov["profile_source"] = pprov.pop("source")
+            tuning = {"source": "profile", **pprov}
+        else:
+            wf = default_window_frames(args.nfft)
+            tuning = {"source": "default"}
+    else:
+        wf = args.window_frames
+    wf = max((wf // args.nint) * args.nint, args.nint)
+    tl = Timeline()
+    parallel = "sharded" if sharded else ("pool" if args.pool else "mesh")
+    if args.search:
+        if args.resume:
+            raise SystemExit("--resume is not supported with scan --search; "
+                             "re-run fresh, or use `search --resume` per player")
+        if args.stokes != "I":
+            raise SystemExit("--stokes is not supported with --search "
+                             "(drift search runs on Stokes I)")
+        if args.fqav != 1:
+            raise SystemExit("--fqav is not supported with --search (the drift "
+                             "transform needs full-resolution fine channels)")
+        if args.compression is not None:
+            raise SystemExit("--compression applies to .h5 filterbank "
+                             "products, not .hits")
+        from blit_torch.search import DedopplerReducer
+
+        probe = DedopplerReducer(nfft=args.nfft, nint=args.nint,
+                                 dtype=args.dtype,
+                                 window_spectra=args.window_spectra,
+                                 device=args.device)
+        unit = probe.window_spectra * args.nint
+        wf = max((wf // unit) * unit, unit)
+        if args.pool:
+            if args.max_frames is not None:
+                raise SystemExit("--max-frames is not supported with --pool "
+                                 "--search (the per-player reducers search "
+                                 "whole recordings)")
+            written = _pool_scan_search(args, invs, wf, tl)
+        else:
+            from blit_torch.parallel.sharded import search_scan_sharded_to_files
+
+            parallel = "sharded"
+            written = search_scan_sharded_to_files(
+                args.session, args.scan, inventories=invs,
+                out_dir=args.output_dir, nfft=args.nfft, nint=args.nint,
+                dtype=args.dtype, window_spectra=args.window_spectra,
+                top_k=args.top_k, snr_threshold=args.snr,
+                max_drift_bins=args.max_drift_bins, window_frames=wf,
+                max_frames=args.max_frames, timeline=tl, device=args.device,
+                **depths)
+        for player, (path, hdr) in sorted(written.items()):
+            print(json.dumps({"player": list(player), "output": path,
+                              "windows": hdr.get("search_windows"),
+                              "nchans": hdr.get("nchans")}))
+        print(json.dumps({"window_frames": wf, "parallel": parallel,
+                          "tuning": tuning, "stages": tl.report()}))
+        return 0
+    kw = dict(inventories=invs, out_dir=args.output_dir, nfft=args.nfft,
+              nint=args.nint, stokes=args.stokes, fqav_by=args.fqav,
+              despike=not args.no_despike, window_frames=wf,
+              max_frames=args.max_frames, compression=args.compression,
+              dtype=args.dtype, timeline=tl, device=args.device)
+    if args.pool:
+        if args.resume:
+            raise SystemExit("--resume applies to the mesh and sharded paths; "
+                             "the pool path re-runs whole reductions")
+        written = reduce_scan_pool_to_files(args.session, args.scan, **kw)
+    elif sharded:
+        from blit_torch.parallel.sharded import reduce_scan_sharded_to_files
+
+        written = reduce_scan_sharded_to_files(args.session, args.scan,
+                                               resume=args.resume, **depths,
+                                               **kw)
+    else:
+        written = reduce_scan_mesh_to_files(args.session, args.scan,
+                                            resume=args.resume, **kw)
+    for band, (path, hdr) in sorted(written.items()):
+        print(json.dumps({"band": band, "output": path,
+                          "nsamps": hdr.get("nsamps"),
+                          "nchans": hdr.get("nchans"), "fch1": hdr.get("fch1"),
+                          "foff": hdr.get("foff")}))
+    print(json.dumps({"window_frames": wf, "parallel": parallel,
+                      "tuning": tuning, "stages": tl.report()}))
+    return 0
+
+
+def _pool_scan_search(args: argparse.Namespace, invs, wf: int, tl) -> dict:
+    """The pool path of a whole-scan search: one
+    :class:`~blit_torch.search.DedopplerReducer` a player at the sharded
+    search's dispatch shapes (``chunk_frames = window_frames``), its
+    byte-identity oracle where the players share a whole-window span."""
+    import os
+
+    from blit_torch.inventory import scan_grid
+    from blit_torch.search import DedopplerReducer
+
+    band_ids, _, grid = scan_grid(invs, args.session, args.scan)
+    written = {}
+    for b, row in enumerate(grid):
+        for k, rp in enumerate(row):
+            red = DedopplerReducer(
+                nfft=args.nfft, nint=args.nint, dtype=args.dtype,
+                window_spectra=args.window_spectra, top_k=args.top_k,
+                snr_threshold=args.snr, max_drift_bins=args.max_drift_bins,
+                chunk_frames=wf, timeline=tl, device=args.device)
+            out = os.path.join(args.output_dir, f"band{band_ids[b]}bank{k}.hits")
+            written[(band_ids[b], k)] = (out, red.search_to_file(rp, out))
+    return written
+
+
+def _cmd_session(args: argparse.Namespace) -> int:
+    """Run (or rejoin) a live session from a JSON spec::
+
+        {"seats": [{"name": "blc00", "out": "...", "raw": "...",
+                    "source": {"kind": "replay", "raw": "...", "rate": 1.0},
+                    "knobs": {"nfft": 1024}}, ...],
+         "work_dir": "...", "lease_ttl_s": 5.0}
+
+    (:class:`blit_torch.stream.SessionSupervisor`).  Re-running the same
+    spec after a crash rejoins every seat mid-product.  Prints the
+    session report; exit 0 when every seat completed."""
+    import tempfile
+
+    from blit_torch.observability import Timeline
+    from blit_torch.stream import SessionSupervisor
+
+    with open(args.spec) as f:
+        spec = json.load(f)
+    tl = Timeline()
+    pub = _monitor_from_flags(args)
+    work = (args.work_dir or spec.get("work_dir")
+            or tempfile.mkdtemp(prefix="blit-session-"))
+    sup = SessionSupervisor(
+        spec["seats"], work_dir=work,
+        lease_ttl_s=(args.lease_ttl if args.lease_ttl is not None
+                     else spec.get("lease_ttl_s")),
+        poll_s=args.poll if args.poll is not None else spec.get("poll_s"),
+        max_attempts=(args.attempts if args.attempts is not None
+                      else spec.get("max_attempts")),
+        faults=spec.get("faults"), timeline=tl, device=args.device)
+    rep = sup.run()
+    rep["work_dir"] = work
+    if pub is not None:
+        pub.tick()
+        rep["monitor"] = {"port": pub.port, "spool": pub.spool_path}
+        from blit_torch import monitor
+
+        monitor.shutdown_publisher()
+    body = json.dumps(rep)
+    print(body)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(body)
+    return 0 if rep["ok"] else 1
+
+
+def _chaos_run(sup) -> dict:
+    """Run a supervisor for the drill; an exhausted recovery budget is a
+    failed report, not a traceback."""
+    try:
+        return sup.run()
+    except RuntimeError as e:
+        return {"recovered": False, "error": str(e), "attempts": [],
+                "attempts_tried": sup.state().get("attempt", 0) + 1}
+
+
+def _cmd_chaos(args: argparse.Namespace) -> int:
+    """A seeded kill/hang schedule against a supervised workload: a
+    multi-process sharded scan (``--workload scan`` / ``scan-search``)
+    or a live consumer (``stream``).  The failure must be detected within
+    the lease budget, the scan re-planned (a smaller pod or the pool
+    path) or the consumer rejoined, and the products byte-identical to
+    an uninterrupted oracle.  Prints the drill report; exit 0 when it
+    recovered with identical bytes."""
+    import filecmp
+    import os
+    import tempfile
+
+    from blit_torch.observability import Timeline
+    from blit_torch.recover import RECOVER_HISTS, ScanSupervisor, StreamSupervisor
+    from blit_torch.testing import synth_raw
+
+    tl = Timeline()
+    work = args.work_dir or tempfile.mkdtemp(prefix="blit-chaos-")
+    os.makedirs(work, exist_ok=True)
+    if args.fault == "reorder" and args.workload != "stream":
+        print("--fault reorder requires --workload stream (wire reordering "
+              "is a packet front-end failure shape)", file=sys.stderr)
+        return 2
+    use_packets = args.workload == "stream" and (
+        args.packets or args.fault == "reorder")
+    point = args.point or ("packet.recv" if args.fault == "reorder"
+                           else "stream.chunk" if args.workload == "stream"
+                           else "mesh.window")
+    fault = (f"{point}:{args.fault}:after={args.after}"
+             + (f":hang={args.hang_s}" if args.fault == "hang" else ""))
+    report = {"workload": args.workload, "fault": fault, "procs": args.procs,
+              "device": args.device}
+    if args.workload == "stream":
+        from blit_torch.pipeline import RawReducer
+
+        raw = os.path.join(work, "chaos.raw")
+        nblocks = max(4, args.chunks)
+        ntime = (args.chunks * args.window_frames + 3) * args.nfft
+        hdr0, blocks = synth_raw(raw, nblocks=nblocks, obsnchan=args.nchan,
+                                 ntime_per_block=-(-ntime // nblocks),
+                                 seed=args.seed)
+        out = os.path.join(work, "chaos.fil")
+        oracle = os.path.join(work, "oracle.fil")
+        source = None
+        oracle_raw = raw
+        if use_packets:
+            # --packets drops one whole block off the wire: the oracle is
+            # the recording with that block zero-filled.
+            source = {"kind": "packet-replay", "raw": raw,
+                      "rate": args.replay_rate,
+                      "packet_ntime": args.packet_ntime, "seed": args.seed}
+            if args.packets:
+                from blit_torch.io.guppi import write_raw
+
+                source.update(drop_blocks=[1], reorder=0.15, dup=0.05)
+                report["gapped_blocks"] = [1]
+                zb = [b.copy() for b in blocks]
+                zb[1][:] = 0
+                oracle_raw = os.path.join(work, "chaos_zeroed.raw")
+                write_raw(oracle_raw, hdr0, zb)
+        RawReducer(nfft=args.nfft, nint=args.nint,
+                   chunk_frames=args.window_frames, tune_online=False,
+                   device=args.device).reduce_to_file(oracle_raw, oracle)
+        sup = StreamSupervisor(
+            raw, out, kind="reduce",
+            knobs=dict(nfft=args.nfft, nint=args.nint,
+                       chunk_frames=args.window_frames, tune_online=False),
+            replay_rate=args.replay_rate, source=source, faults=fault,
+            lease_ttl_s=args.lease_ttl, poll_s=args.poll,
+            max_attempts=args.attempts, timeline=tl, device=args.device)
+        rep = _chaos_run(sup)
+        products = [(out, oracle)]
+    else:
+        kind = "search" if args.workload == "scan-search" else "reduce"
+        grid = []
+        bank_bw = -187.5 / args.nbank
+        for b in range(args.nband):
+            row = []
+            for k in range(args.nbank):
+                p = os.path.join(work, f"blc{b}{k}.raw")
+                synth_raw(p, nblocks=2, obsnchan=args.nchan,
+                          ntime_per_block=-(-(args.chunks * args.window_frames
+                                              + 3) * args.nfft // 2),
+                          seed=args.seed + b * 8 + k, tone_chan=k % args.nchan,
+                          obsbw=bank_bw,
+                          obsfreq=8000.0 + b * 500.0 + (k + 0.5) * bank_bw)
+                row.append(p)
+            grid.append(row)
+        out_dir = os.path.join(work, "products")
+        oracle_dir = os.path.join(work, "oracle")
+        os.makedirs(oracle_dir, exist_ok=True)
+        search_kw = dict(window_spectra=args.window_spectra, top_k=4,
+                         snr_threshold=2.0, max_drift_bins=None)
+        sup = ScanSupervisor(
+            grid, out_dir=out_dir, kind=kind, nfft=args.nfft, nint=args.nint,
+            despike=False, window_frames=args.window_frames,
+            search=search_kw if kind == "search" else None, nprocs=args.procs,
+            devices_per_proc=(args.devices_per_proc if args.devices_per_proc
+                              else (args.nband * args.nbank) // args.procs),
+            lease_ttl_s=args.lease_ttl, poll_s=args.poll,
+            max_attempts=args.attempts, faults={args.victim: fault},
+            timeline=tl, device=args.device)
+        rep = _chaos_run(sup)
+        wf = sup.wf
+        if kind == "search":
+            from blit_torch.search import DedopplerReducer
+
+            products = []
+            for b in range(args.nband):
+                for k in range(args.nbank):
+                    op = os.path.join(oracle_dir, f"band{b}bank{k}.hits")
+                    DedopplerReducer(nfft=args.nfft, nint=args.nint,
+                                     chunk_frames=wf, device=args.device,
+                                     **search_kw).search_to_file(grid[b][k], op)
+                    products.append(
+                        (os.path.join(out_dir, f"band{b}bank{k}.hits"), op))
+        else:
+            from blit_torch.parallel.scan import reduce_scan_pool_to_files
+
+            written = reduce_scan_pool_to_files(
+                grid, out_dir=oracle_dir, nfft=args.nfft, nint=args.nint,
+                despike=False, window_frames=wf, device=args.device)
+            products = [(os.path.join(out_dir, os.path.basename(path)), path)
+                        for _, (path, _) in sorted(written.items())]
+    identical = True
+    diffs = []
+    for got, want in products:
+        try:
+            same = filecmp.cmp(got, want, shallow=False)
+        except OSError:
+            same = False
+        if not same:
+            identical = False
+            diffs.append(got)
+    hists = tl.report().get("hists", {})
+    report.update(
+        recovered=rep.get("recovered", False), error=rep.get("error"),
+        byte_identical=identical, differing_products=diffs,
+        attempts=rep.get("attempts"), result=rep.get("result"),
+        recover={h: hists.get(h, {}) for h in RECOVER_HISTS},
+        windows_recomputed=sum(a.get("windows_recomputed", 0)
+                               for a in (rep.get("attempts") or [])),
+        work_dir=work)
+    body = json.dumps(report)
+    print(body)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(body)
+    # kill and hang demand a recovery; reorder is absorbed in place.
+    crashy = args.fault in ("kill", "hang")
+    ok = identical and (report["recovered"] if crashy else not rep.get("error"))
+    return 0 if ok else 1
+
+
 def _add_device(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to compute on (default cuda; "
@@ -480,6 +846,128 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="repetitions per measurement (best-of)")
     _add_device(pn)
     pn.set_defaults(fn=_cmd_tune)
+
+    pv = sub.add_parser(
+        "session",
+        help="run (or rejoin) a whole live session from a spec file: one "
+             "supervised stream consumer a recorder seat")
+    pv.add_argument("spec", help="session spec JSON: {\"seats\": [{name, "
+                                 "out, source, knobs...}], ...}")
+    pv.add_argument("--work-dir", default=None,
+                    help="lease/spec scratch dir (default: the spec's "
+                         "work_dir, else a fresh temp dir); re-use it to "
+                         "rejoin after a crash")
+    pv.add_argument("--lease-ttl", type=float, default=None,
+                    help="per-seat heartbeat lease TTL in seconds")
+    pv.add_argument("--poll", type=float, default=None,
+                    help="seat supervisor watch cadence")
+    pv.add_argument("--attempts", type=int, default=None,
+                    help="per-seat recovery attempt budget")
+    pv.add_argument("--json-out", default=None,
+                    help="also write the session report JSON here")
+    _add_monitor_flags(pv)
+    _add_device(pv)
+    pv.set_defaults(fn=_cmd_session)
+
+    ps = sub.add_parser(
+        "scan", help="whole (session, scan) → per-band products via the mesh")
+    ps.add_argument("root", help="data tree root (as `inventory`)")
+    ps.add_argument("session", help="e.g. AGBT22B_999_01")
+    ps.add_argument("scan", help="4-digit scan number, e.g. 0011")
+    ps.add_argument("-o", "--output-dir", required=True)
+    ps.add_argument("--file-re", default=None,
+                    help=r"inventory filename filter (default \.raw$)")
+    ps.add_argument("--nfft", type=int, default=1024)
+    ps.add_argument("--nint", type=int, default=1)
+    ps.add_argument("--stokes", default="I")
+    ps.add_argument("--fqav", type=int, default=1,
+                    help="per-player frequency averaging before the stitch")
+    ps.add_argument("--no-despike", action="store_true")
+    ps.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ps.add_argument("--window-frames", type=int, default=None,
+                    help="PFB frames a window (bounds device memory, host "
+                         "memory and readback; default max(8, 2^23/nfft))")
+    ps.add_argument("--max-frames", type=int, default=None)
+    ps.add_argument("--trace-logdir", default=None,
+                    help="not in the port yet (ROADMAP.md Queue 1 item 8)")
+    ps.add_argument("--compression", default=None,
+                    choices=["gzip", "bitshuffle"],
+                    help="write .h5 (FBH5) band products with this codec")
+    ps.add_argument("--resume", action="store_true",
+                    help="crash-resumable streaming (a cursor sidecar a band)")
+    par = ps.add_mutually_exclusive_group()
+    par.add_argument("--sharded", action="store_true",
+                     help="the threaded sharded plane (default: SiteConfig / "
+                          "BLIT_MESH_SHARDED)")
+    par.add_argument("--pool", action="store_true",
+                     help="the pool path: a reducer a player and a host "
+                          "stitch, the mesh paths' byte-identity oracle")
+    ps.add_argument("--search", action="store_true",
+                    help="write a .hits drift-search product a player")
+    ps.add_argument("--window-spectra", type=int, default=None)
+    ps.add_argument("--snr", type=float, default=None)
+    ps.add_argument("--top-k", type=int, default=None)
+    ps.add_argument("--max-drift-bins", type=int, default=None)
+    ps.add_argument("--kernel", default="auto",
+                    choices=["auto", "reference", "pallas"],
+                    help="accepted for blit's command lines; the port's "
+                         "search has one route")
+    ps.add_argument("--interpret", action="store_true",
+                    help="accepted for blit's command lines; no effect")
+    _add_device(ps)
+    ps.set_defaults(fn=_cmd_scan)
+
+    pc = sub.add_parser(
+        "chaos",
+        help="run a seeded kill/hang schedule against a supervised scan or "
+             "live stream and check recovery with identical bytes")
+    pc.add_argument("--workload", default="scan",
+                    choices=["scan", "scan-search", "stream"])
+    pc.add_argument("--fault", default="kill", choices=["kill", "hang", "reorder"],
+                    help="kill / hang the victim at the point; reorder "
+                         "(stream only) holds packets back at packet.recv")
+    pc.add_argument("--after", type=int, default=2,
+                    help="fire after this many windows/chunks")
+    pc.add_argument("--hang-s", type=float, default=60.0,
+                    help="hang duration (must exceed --lease-ttl)")
+    pc.add_argument("--point", default=None,
+                    help="injection point (default mesh.window for scans, "
+                         "stream.chunk for streams)")
+    pc.add_argument("--victim", type=int, default=0,
+                    help="pod process the schedule targets (scan modes)")
+    pc.add_argument("--procs", type=int, default=2,
+                    help="pod size of the first scan attempt")
+    pc.add_argument("--devices-per-proc", type=int, default=None,
+                    help="players a host seats (default: the mesh share, so "
+                         "losing a host forces the pool path; the whole mesh "
+                         "re-plans onto a smaller pod)")
+    pc.add_argument("--nband", type=int, default=2)
+    pc.add_argument("--nbank", type=int, default=2)
+    pc.add_argument("--nchan", type=int, default=2)
+    pc.add_argument("--nfft", type=int, default=32)
+    pc.add_argument("--nint", type=int, default=1)
+    pc.add_argument("--window-frames", type=int, default=4)
+    pc.add_argument("--window-spectra", type=int, default=4,
+                    help="search window (scan-search workload)")
+    pc.add_argument("--chunks", type=int, default=6,
+                    help="windows/chunks the synthetic recordings span")
+    pc.add_argument("--replay-rate", type=float, default=200.0,
+                    help="stream workload replay speed")
+    pc.add_argument("--packets", action="store_true",
+                    help="feed the stream workload through the packet front "
+                         "end with a seeded whole-block drop")
+    pc.add_argument("--packet-ntime", type=int, default=64)
+    pc.add_argument("--lease-ttl", type=float, default=3.0,
+                    help="heartbeat lease TTL (the detection budget)")
+    pc.add_argument("--poll", type=float, default=0.1,
+                    help="supervisor watch cadence")
+    pc.add_argument("--attempts", type=int, default=3)
+    pc.add_argument("--seed", type=int, default=0)
+    pc.add_argument("--work-dir", default=None)
+    pc.add_argument("--json-out", default=None)
+    _add_device(pc)
+    pc.set_defaults(fn=_cmd_chaos)
 
     args = p.parse_args(argv)
     return args.fn(args)

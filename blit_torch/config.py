@@ -23,7 +23,7 @@ from __future__ import annotations
 import os
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Pattern
+from typing import Dict, List, Optional, Pattern, Tuple
 
 from blit_torch import naming
 
@@ -142,6 +142,26 @@ class SiteConfig:
     # configured with either raises).
     history_dir: Optional[str] = None
     incident_dir: Optional[str] = None
+    # The (band, bank) mesh (see mesh_defaults): mesh_shape is the
+    # logical grid of a whole site; mesh_sharded makes the scan command
+    # default to the threaded sharded plane (the mesh loop and the pool
+    # stay selectable); mesh_probe_windows is how many leading windows
+    # time the stitch alone (mesh.gather_s; 0: none); the depths size
+    # the sharded plane's feed and readback (None: the ingest defaults).
+    mesh_shape: Tuple[int, int] = (8, 8)
+    mesh_sharded: bool = False
+    mesh_probe_windows: int = 2
+    mesh_prefetch_depth: Optional[int] = None
+    mesh_out_depth: Optional[int] = None
+    # The crash-recovery plane (see recover_defaults): a supervised
+    # child whose lease goes stale for recover_lease_ttl_s is declared
+    # hung; recover_poll_s is the watch cadence, recover_max_attempts
+    # bounds abort -> re-plan -> resume, recover_grace_s is the bring-up
+    # budget before a child's first beat (torch import, process group).
+    recover_lease_ttl_s: float = 10.0
+    recover_poll_s: float = 0.2
+    recover_max_attempts: int = 3
+    recover_grace_s: float = 120.0
 
     def io_retry_policy(self):
         """The :class:`blit_torch.faults.RetryPolicy` of worker-side file
@@ -330,3 +350,48 @@ def history_defaults(config: SiteConfig = DEFAULT) -> Dict:
 def _compile(p) -> Pattern:
     """Accept a str or a compiled pattern for every regex option."""
     return re.compile(p) if isinstance(p, str) else p
+
+
+def mesh_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The sharded plane's knobs: ``config``'s values with the
+    per-process overrides ``BLIT_MESH_SHARDED``, ``BLIT_MESH_PROBE``,
+    ``BLIT_MESH_PREFETCH`` and ``BLIT_MESH_OUT_DEPTH`` applied (a
+    negative depth means unset)."""
+
+    def opt_int(env: str, fallback: Optional[int]) -> Optional[int]:
+        v = os.environ.get(env)
+        if v is None or v == "":
+            return fallback
+        i = int(v)
+        return None if i < 0 else i
+
+    sharded = os.environ.get("BLIT_MESH_SHARDED")
+    return {
+        "sharded": (
+            config.mesh_sharded if sharded is None
+            else sharded not in ("", "0", "false", "False")
+        ),
+        "probe_windows": int(os.environ.get(
+            "BLIT_MESH_PROBE", config.mesh_probe_windows)),
+        "prefetch_depth": opt_int(
+            "BLIT_MESH_PREFETCH", config.mesh_prefetch_depth),
+        "out_depth": opt_int(
+            "BLIT_MESH_OUT_DEPTH", config.mesh_out_depth),
+    }
+
+
+def recover_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The recovery plane's knobs: ``config``'s values with the
+    per-process overrides ``BLIT_RECOVER_LEASE_TTL``,
+    ``BLIT_RECOVER_POLL``, ``BLIT_RECOVER_MAX_ATTEMPTS`` and
+    ``BLIT_RECOVER_GRACE`` applied."""
+    return {
+        "lease_ttl_s": float(os.environ.get(
+            "BLIT_RECOVER_LEASE_TTL", config.recover_lease_ttl_s)),
+        "poll_s": float(os.environ.get(
+            "BLIT_RECOVER_POLL", config.recover_poll_s)),
+        "max_attempts": int(os.environ.get(
+            "BLIT_RECOVER_MAX_ATTEMPTS", config.recover_max_attempts)),
+        "grace_s": float(os.environ.get(
+            "BLIT_RECOVER_GRACE", config.recover_grace_s)),
+    }

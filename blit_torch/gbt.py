@@ -9,11 +9,12 @@ the reference's commented-out scan loader (src/gbt.jl:90-114)
 first-class: per-band bank stitching + DC despike.
 
 This is the host-side control plane; the workers' reductions and
-``get_kurtosis`` run on their card unless the caller asks for the host.  ``blit``'s mesh-backed
-wrappers (``load_scan_mesh``, ``reduce_scan_mesh_to_files``,
-``reduce_scan_sharded_to_files``, ``reduce_scan_pool_to_files``,
-``search_scan_sharded_to_files``) come with the (band, bank) mesh
-(ROADMAP.md Queue 1 item 6).
+``get_kurtosis`` run on their card unless the caller asks for the host.
+The mesh-backed wrappers (``load_scan_mesh``,
+``reduce_scan_mesh_to_files``, ``reduce_scan_sharded_to_files``,
+``reduce_scan_pool_to_files``, ``search_scan_sharded_to_files``) import
+the ``(band, bank)`` mesh (:mod:`blit_torch.parallel.scan`,
+:mod:`blit_torch.parallel.sharded`) when called.
 """
 
 from __future__ import annotations
@@ -39,6 +40,52 @@ from blit_torch.parallel.pool import (  # noqa: F401 (re-export)
     current_pool,
     setup_workers,
 )
+
+
+
+
+def load_scan_mesh(*args, **kw):
+    """Mesh-backed whole-scan reduction (RAW files → each player's
+    channelizer → the bank stitch); see
+    :func:`blit_torch.parallel.scan.load_scan_mesh`.  The mesh is imported
+    when called."""
+    from blit_torch.parallel.scan import load_scan_mesh as _impl
+
+    return _impl(*args, **kw)
+
+
+def reduce_scan_mesh_to_files(*args, **kw):
+    """The windowed mesh reduction streaming each stitched band to its
+    product; see :func:`blit_torch.parallel.scan.reduce_scan_mesh_to_files`."""
+    from blit_torch.parallel.scan import reduce_scan_mesh_to_files as _impl
+
+    return _impl(*args, **kw)
+
+
+def reduce_scan_sharded_to_files(*args, **kw):
+    """The sharded reduction plane (the mesh loop with every host leg on
+    a thread); see
+    :func:`blit_torch.parallel.sharded.reduce_scan_sharded_to_files`."""
+    from blit_torch.parallel.sharded import reduce_scan_sharded_to_files as _impl
+
+    return _impl(*args, **kw)
+
+
+def reduce_scan_pool_to_files(*args, **kw):
+    """The pool path of a whole-scan reduction and the mesh paths'
+    byte-identity oracle; see
+    :func:`blit_torch.parallel.scan.reduce_scan_pool_to_files`."""
+    from blit_torch.parallel.scan import reduce_scan_pool_to_files as _impl
+
+    return _impl(*args, **kw)
+
+
+def search_scan_sharded_to_files(*args, **kw):
+    """The sharded whole-scan drift search, one ``.hits`` a player; see
+    :func:`blit_torch.parallel.sharded.search_scan_sharded_to_files`."""
+    from blit_torch.parallel.sharded import search_scan_sharded_to_files as _impl
+
+    return _impl(*args, **kw)
 
 
 log = logging.getLogger("blit_torch.gbt")
@@ -162,8 +209,8 @@ def load_scan(
     The first-class rebuild of the reference's commented-out ``loadscan``
     (src/gbt.jl:90-114) — same stitch (``reduce(vcat, banks)``) and despike
     semantics, without the main-process-only limitation: this host-side path
-    serves small/interactive reads (``blit`` also runs the same product as
-    an ``all_gather`` over its device mesh, ROADMAP.md Queue 1 item 6).
+    serves small/interactive reads (:func:`load_scan_mesh` runs the same
+    product as a gather over the ``(band, bank)`` mesh).
 
     Returns ``{band: (stitched_header, stitched_array)}``; bands with missing
     banks are stitched from what exists (ragged results are first-class) with

@@ -603,6 +603,10 @@ class StallWatchdog:
             return base
         return min(base, max(0.05, self.timeout_s / 2))
 
+    def age_s(self) -> float:
+        """Seconds since the last beat."""
+        return time.monotonic() - self._beat
+
     def stalled(self, active: bool = True) -> bool:
         return (self.timeout_s is not None and active
                 and time.monotonic() - self._beat > self.timeout_s)

@@ -173,6 +173,12 @@ class OutputRotation:
                 if on_consumed is not None:
                     on_consumed()
                 self._wd.beat()
+                if out is None:
+                    # An ordering-only put: nothing to copy.
+                    with self._cv:
+                        self._pending -= 1
+                        self._cv.notify_all()
+                    continue
                 with self._tl.stage("readback"):
                     host, slab = self._fetch(out, event)
                     if host is None:
@@ -276,14 +282,18 @@ class OutputRotation:
         if self._pending > 0:
             self._wd.check("readback stalled", active=self._thread.is_alive())
 
-    def put(self, out: torch.Tensor, *, event=None, nbytes: Optional[int] = None,
-            payload=None, on_consumed: Optional[Callable[[], None]] = None
+    def put(self, out: Optional[torch.Tensor], *, event=None,
+            nbytes: Optional[int] = None, payload=None,
+            on_consumed: Optional[Callable[[], None]] = None
             ) -> List[OutputSlab]:
         """Hand a dispatched output to the readback thread; return the
         slabs completed so far, blocking while ``depth`` are pending.
         ``event`` is waited on before ``on_consumed`` and the copy (None:
-        the output is ready); ``nbytes`` (the dispatch's input bytes)
-        lands on the ``device`` stage."""
+        the output is ready; any object with ``synchronize()`` serves for
+        an ordering-only put); ``nbytes`` (the dispatch's input bytes)
+        lands on the ``device`` stage.  ``out=None`` copies nothing and
+        yields no slab: the put only orders ``on_consumed`` after the
+        event and back-pressures like any other."""
         with self._cv:
             self._check()
             self._pending += 1

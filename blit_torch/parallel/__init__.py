@@ -1,12 +1,11 @@
-"""blit_torch.parallel — the antenna-array plane on one card.
+"""blit_torch.parallel — worker pools (host fan-out) and the ``(band,
+bank)`` mesh (the collective data plane).
 
-Counterpart of the array part of ``blit.parallel``: per-antenna GUPPI RAW
-feeds (:mod:`~blit_torch.parallel.antenna`), tied-array beamforming
-(:mod:`~blit_torch.parallel.beamform`) and the FX correlator
-(:mod:`~blit_torch.parallel.correlator`).  ``blit`` runs them over a
-``jax.sharding.Mesh``; here the entry points take ``device=`` and no
-mesh: on one card every psum is the identity, each device holds the
-whole antenna axis (so detection fuses into the beamformer), and a
-correlator run is one band segment.  The sharded forms come with the
-``torch.distributed`` mesh (ROADMAP.md Queue 1 item 6).
+Counterpart of ``blit.parallel``: ``pool`` / ``remote`` are the control
+plane; ``mesh`` (players, the stitch, the psum), ``multihost`` (the
+``torch.distributed`` pod), ``scan`` / ``sharded`` (whole scans over the
+mesh), and the antenna-array plane (``antenna``, ``beamform``,
+``correlator``, each on one card with ``device=`` or over the mesh with
+``mesh=``) are the data plane.  Importing this package starts no
+process group.
 """

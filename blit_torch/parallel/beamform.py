@@ -1,12 +1,15 @@
-"""Coherent multibeam (tied-array) beamforming on one card.
+"""Coherent multibeam (tied-array) beamforming, on one card or over the
+``(band, bank)`` mesh.
 
-Counterpart of ``blit/parallel/beamform.py``.  ``blit`` shards the
-antenna axis over a mesh and completes the tied-array sum with one
-``psum``; on one card that psum is the identity and every antenna is
-local, so ``blit``'s gate for fusing detection (``mesh.shape[axis] ==
-1``) always holds.  The entry points take ``device=`` in place of
-``mesh`` and ``axis``; the sharded forms come with the
-``torch.distributed`` mesh (ROADMAP.md Queue 1 item 6).
+Counterpart of ``blit/parallel/beamform.py``.  With ``mesh=`` the
+antenna axis is split over ``axis`` (default ``bank``,
+:func:`antenna_sharding`): each player forms the partial beams of its own
+antennas and one ``psum`` over ``axis`` completes the tied-array sum (the
+only communication: partial beams travel, never voltages); detection
+follows.  ``blit``'s gate holds: the fused beamform + detect kernel runs
+only where every antenna is on one player (``mesh.shape[axis] == 1``),
+since the power of a sum is not the sum of powers.  ``device=`` is the
+one-card form, where every antenna is local and the gate always holds.
 
 Complex values travel planar, as ``(re, im)`` pairs; the entry points
 take a pair or one complex tensor, and the output dtype follows the
@@ -16,10 +19,10 @@ input as in ``blit``.  Two layouts:
   ``(nbeam, nant, nchan)``: ``blit``'s einsum route, here the four real
   products as ``torch.einsum`` (batched matmuls) in the voltages' dtype;
 - ``"chan"``: packed voltages ``(nchan, nant, npol, ntime)`` and weights
-  ``(nchan, nbeam, nant)``.  With ``detect=True`` and a shape the Hopper
-  gate (:func:`blit_torch.ops.beamform.fits`) admits, the fused
-  beamform + detect + integrate kernel (beams never reach device memory);
-  otherwise the same matmul route as above.
+  ``(nchan, nbeam, nant)``.  With ``detect=True``, every antenna local
+  and a shape the Hopper gate (:func:`blit_torch.ops.beamform.fits`)
+  admits, the fused beamform + detect + integrate kernel (beams never
+  reach device memory); otherwise the same matmul route as above.
 
 bf16 voltages round the weights to bf16 first, as ``blit`` does.
 :func:`last_beamform_plan` says which route the last call took.
@@ -36,7 +39,7 @@ completed.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import torch
 
@@ -46,6 +49,8 @@ from blit_torch.ops import beamform as beam_ops
 from blit_torch.ops.channelize import integrate
 from blit_torch.ops.dft import ComplexOrPlanar, Planar, as_planar
 from blit_torch.outplane import FoldInFlight, OutputRotation, record_event
+
+ANT_AXIS_DEFAULT = "bank"
 
 # Route of the most recent beamform call (read via last_beamform_plan()).
 _LAST_PLAN: dict = {}
@@ -101,29 +106,9 @@ def _beams(eq: str, vr, vi, wr, wi) -> Planar:
     return br, ri + ir
 
 
-def beamform(voltages: ComplexOrPlanar, weights: ComplexOrPlanar, *,
-             nint: int = 1, detect: bool = True, layout: str = "antenna",
-             device=None):
-    """Form tied-array beams (module docstring for the layouts).
-
-    ``detect=True`` → per-beam power integrated over ``nint`` samples,
-    f32: ``(nbeam, nchan, ntime // nint, npol)`` (antenna layout) or
-    ``(nchan, nbeam, npol, ntime // nint)`` (chan layout).
-    ``detect=False`` → beam voltages ``(nbeam, nchan, ntime, npol)`` /
-    ``(nchan, nbeam, npol, ntime)`` in the voltages' dtype: one complex64
-    tensor when both inputs were complex, else a planar pair.
-    ``device``: where to compute (``None``: the CUDA device); inputs
-    elsewhere are copied there.
-    """
-    if layout not in ("antenna", "chan"):
-        raise ValueError(f"bad layout {layout!r}")
-    dev = resolve_device(device)
-    vr, vi, v_cplx = as_planar(voltages)
-    wr, wi, w_cplx = as_planar(weights)
-    complex_out = v_cplx and w_cplx
-    vr, vi = vr.to(dev), vi.to(dev)
-    # bf16 voltages take bf16-rounded weights; f32 ones f32 weights.
-    wr, wi = wr.to(dev, vr.dtype), wi.to(dev, vr.dtype)
+def _geometry(layout: str, vr, wr, nint: int, detect: bool) -> Tuple:
+    """``(nchan, nant, npol, ntime, nbeam, equation)`` of a call (whole
+    shapes), refusing an ``nint`` that does not divide the time axis."""
     if layout == "chan":
         nchan, nant, npol, ntime = vr.shape
         nbeam = wr.shape[1]
@@ -134,19 +119,39 @@ def beamform(voltages: ComplexOrPlanar, weights: ComplexOrPlanar, *,
         eq = "bac,actp->bctp"
     if nint < 1 or (detect and ntime % nint):
         raise ValueError(f"integrate: nint={nint} does not divide ntime={ntime}")
-    fuse = (layout == "chan" and detect
-            and beam_ops.fits(nant, nbeam, npol, ntime, nint, vr.element_size(),
-                              nchan))
+    return nchan, nant, npol, ntime, nbeam, eq
+
+
+def _fits(geom: Tuple, layout: str, detect: bool, nint: int,
+          itemsize: int) -> bool:
+    """Whether the fused kernel's layout, mode and Hopper gate admit the
+    call (every antenna local is the caller's half of the gate)."""
+    nchan, nant, npol, ntime, nbeam, _ = geom
+    return (layout == "chan" and detect
+            and beam_ops.fits(nant, nbeam, npol, ntime, nint, itemsize, nchan))
+
+
+def _note_plan(layout: str, fuse: bool, dev, **extra) -> None:
     _LAST_PLAN.clear()
     _LAST_PLAN.update(layout=layout, fused=fuse,
-                      impl="cuda" if dev.type == "cuda" else "plain")
-    if fuse:
-        return beam_ops.fused_beamform_detect(
-            vr.contiguous(), vi.contiguous(), wr.contiguous(), wi.contiguous(),
-            nint=nint)
-    br, bi = _beams(eq, vr, vi, wr, wi)
+                      impl="cuda" if dev.type == "cuda" else "plain", **extra)
+
+
+def _fused(vr, vi, wr, wi, nint: int) -> torch.Tensor:
+    """The fused beamform + detect + integrate kernel; bf16 voltages
+    take bf16-rounded weights."""
+    return beam_ops.fused_beamform_detect(
+        vr.contiguous(), vi.contiguous(), wr.to(vr.dtype).contiguous(),
+        wi.to(vr.dtype).contiguous(), nint=nint)
+
+
+def _finish(br, bi, geom: Tuple, *, layout: str, nint: int, detect: bool,
+            complex_out: bool):
+    """Whole beams → the caller's product: the beams themselves, or their
+    power detected in f32 and integrated over ``nint``."""
     if not detect:
         return torch.complex(br, bi) if complex_out else (br, bi)
+    nchan, _, npol, ntime, nbeam, _ = geom
     br, bi = br.to(torch.float32), bi.to(torch.float32)
     power = br * br + bi * bi
     if layout == "antenna":
@@ -155,16 +160,139 @@ def beamform(voltages: ComplexOrPlanar, weights: ComplexOrPlanar, *,
     return power.reshape(nchan, nbeam, npol, ntime // nint, nint).sum(-1)
 
 
+def beamform(voltages: ComplexOrPlanar, weights: ComplexOrPlanar, *,
+             nint: int = 1, detect: bool = True, layout: str = "antenna",
+             device=None, mesh=None, axis: str = ANT_AXIS_DEFAULT):
+    """Form tied-array beams (module docstring for the layouts).
+
+    ``detect=True`` → per-beam power integrated over ``nint`` samples,
+    f32: ``(nbeam, nchan, ntime // nint, npol)`` (antenna layout) or
+    ``(nchan, nbeam, npol, ntime // nint)`` (chan layout).
+    ``detect=False`` → beam voltages ``(nbeam, nchan, ntime, npol)`` /
+    ``(nchan, nbeam, npol, ntime)`` in the voltages' dtype: one complex64
+    tensor when both inputs were complex, else a planar pair.
+    ``device``: where to compute (``None``: the CUDA device); inputs
+    elsewhere are copied there.  ``mesh`` / ``axis``: the mesh form
+    (module docstring); voltages and weights are tensors, split here by
+    :func:`antenna_sharding` / :func:`weight_sharding`, or mesh arrays
+    already split so.  The result is whole, on the device of this
+    process's first player.
+    """
+    if layout not in ("antenna", "chan"):
+        raise ValueError(f"bad layout {layout!r}")
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        return _beamform_mesh(voltages, weights, mesh=mesh, axis=axis,
+                              nint=nint, detect=detect, layout=layout)
+    dev = resolve_device(device)
+    vr, vi, v_cplx = as_planar(voltages)
+    wr, wi, w_cplx = as_planar(weights)
+    vr, vi = vr.to(dev), vi.to(dev)
+    # bf16 voltages take bf16-rounded weights; f32 ones f32 weights.
+    wr, wi = wr.to(dev, vr.dtype), wi.to(dev, vr.dtype)
+    geom = _geometry(layout, vr, wr, nint, detect)
+    fuse = _fits(geom, layout, detect, nint, vr.element_size())
+    _note_plan(layout, fuse, dev)
+    if fuse:
+        return _fused(vr, vi, wr, wi, nint)
+    br, bi = _beams(geom[-1], vr, vi, wr, wi)
+    return _finish(br, bi, geom, layout=layout, nint=nint, detect=detect,
+                   complex_out=v_cplx and w_cplx)
+
+
+def _planes(x, sharding) -> Tuple:
+    """``(re, im, was_complex)`` as mesh arrays split by ``sharding``."""
+    from blit_torch.parallel import mesh as M
+
+    if isinstance(x, tuple) and isinstance(x[0], M.MeshArray):
+        return x[0], x[1], False
+    r, i, cplx = as_planar(x)
+    return M.device_put(r, sharding), M.device_put(i, sharding), cplx
+
+
+def _beamform_mesh(voltages, weights, *, mesh, axis: str, nint: int,
+                   detect: bool, layout: str):
+    """Each local player's partial beams over its antennas, the psum over
+    ``axis``, then detection; the fused kernel where ``mesh.shape[axis]
+    == 1`` (every antenna on each player)."""
+    from blit_torch.parallel import mesh as M
+
+    vr, vi, v_cplx = _planes(voltages, antenna_sharding(mesh, axis, layout))
+    wr, wi, w_cplx = _planes(weights, weight_sharding(mesh, axis, layout))
+    geom = _geometry(layout, vr, wr, nint, detect)
+    local = sorted(vr.shards)
+    dev = mesh.devices[local[0]]
+    fuse = (mesh.shape[axis] == 1
+            and _fits(geom, layout, detect, nint,
+                      vr.shards[local[0]].element_size()))
+    _note_plan(layout, fuse, dev, mesh_axis_size=mesh.shape[axis])
+    if fuse:
+        # Every player holds every antenna and the product is replicated:
+        # this process's first player computes it.
+        p = local[0]
+        return _fused(vr.shards[p], vi.shards[p], wr.shards[p], wi.shards[p],
+                      nint)
+    partials = {}
+    for p in local:
+        xr, xi = vr.shards[p], vi.shards[p]
+        partials[p] = _beams(geom[-1], xr, xi, wr.shards[p].to(xr.dtype),
+                             wi.shards[p].to(xr.dtype))
+    groups = M.psum_groups(mesh, partials, axis)
+    br, bi = groups[min(groups)]
+    return _finish(br.to(dev), bi.to(dev), geom, layout=layout, nint=nint,
+                   detect=detect, complex_out=v_cplx and w_cplx)
+
+
+def antenna_sharding(mesh, axis: str = ANT_AXIS_DEFAULT, layout: str = "antenna"):
+    """Voltages ``(nant, nchan, ntime, npol)`` (or packed ``(nchan, nant,
+    npol, ntime)``): antennas over ``axis``, everything else whole."""
+    from blit_torch.parallel import mesh as M
+
+    spec = M.P(None, axis) if layout == "chan" else M.P(axis)
+    return M.NamedSharding(mesh, spec)
+
+
+def weight_sharding(mesh, axis: str = ANT_AXIS_DEFAULT, layout: str = "antenna"):
+    """Weights ``(nbeam, nant, nchan)`` (or packed ``(nchan, nbeam,
+    nant)``), split like :func:`antenna_sharding`."""
+    from blit_torch.parallel import mesh as M
+
+    spec = M.P(None, None, axis) if layout == "chan" else M.P(None, axis)
+    return M.NamedSharding(mesh, spec)
+
+
 def _device_weights(weights: ComplexOrPlanar, dev) -> Planar:
     wr, wi, _ = as_planar(weights)
     return wr.to(dev), wi.to(dev)
 
 
+def _stream_weights(weights: ComplexOrPlanar, dev, mesh, axis: str,
+                    layout: str):
+    """The weights placed once for a whole stream: on the device, or
+    split over the mesh."""
+    if mesh is None:
+        return _device_weights(weights, resolve_device(dev))
+    wr, wi, _ = _planes(weights, weight_sharding(mesh, axis, layout))
+    return wr, wi
+
+
+def _psum_bytes(win, layout: str, nbeam: int) -> int:
+    """Bytes of the partial beam planes one window's psum moves (both
+    planes, full time extent)."""
+    v = win.arrays[0]
+    shape = v.shape
+    nchan = shape[0] if layout == "chan" else shape[1]
+    npol = shape[2] if layout == "chan" else shape[3]
+    return 2 * nbeam * nchan * win.ntime * npol * torch.empty(
+        (), dtype=v.dtype).element_size()
+
+
 def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
                     nint: int = 1, layout: str = "antenna",
                     timeline: Optional[Timeline] = None, device=None,
-                    stall_timeout_s: Optional[float] = None
-                    ) -> Iterator[torch.Tensor]:
+                    stall_timeout_s: Optional[float] = None, mesh=None,
+                    axis: str = ANT_AXIS_DEFAULT) -> Iterator[torch.Tensor]:
     """Detected beam power over a windowed feed
     (:class:`blit_torch.parallel.antenna.AntennaStream`): one f32 host
     slab per window, in time order, ``(nbeam, nchan, wt // nint, npol)``
@@ -172,7 +300,9 @@ def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
     layout).  Concatenated along time they equal the one-shot
     :func:`beamform` on the same span bitwise: every sum is window-local
     and taken in the same order.  Every window must hold a whole number
-    of integrations.
+    of integrations.  With ``mesh`` (a mesh feed's windows) each window's
+    psum over ``axis`` is accounted on ``mesh.ici`` / ``mesh.psum_ici_bytes``;
+    masked antennas count ``masked_antennas``.
 
     Window ``w`` is dispatched, and its power read back on an
     :class:`~blit_torch.outplane.OutputRotation` (depth 2) thread while
@@ -181,8 +311,12 @@ def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
     ``device`` (the readback thread's wait on a window's event) and
     ``readback`` (device → host, bytes)."""
     tl = timeline if timeline is not None else Timeline()
-    dev = resolve_device(device)
-    weights = _device_weights(weights, dev)
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    weights = _stream_weights(weights, device, mesh, axis, layout)
+    kw = dict(mesh=mesh, axis=axis) if mesh is not None else dict(device=device)
+    nbeam = weights[0].shape[1 if layout == "chan" else 0]
+    axis_size = mesh.shape[axis] if mesh is not None else 1
     rot = OutputRotation(depth=2, timeline=tl, reuse=False,
                          name="blit-bf-readback", stall_timeout_s=stall_timeout_s)
     try:
@@ -192,10 +326,17 @@ def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
                     f"window {win.index} holds {win.ntime} samples, not a whole "
                     f"number of nint={nint} integrations; choose window_samples "
                     "(and span) divisible by nint")
+            if getattr(win, "masked", ()):
+                tl.count("masked_antennas", len(win.masked))
             with tl.stage("dispatch", byte_free=True):
                 out = beamform(win.arrays, weights, nint=nint, detect=True,
-                               layout=layout, device=dev)
+                               layout=layout, **kw)
                 ev = record_event(out)
+            if axis_size > 1:
+                from blit_torch.parallel.mesh import psum_ici_bytes, record_ici
+
+                record_ici(tl, "psum", psum_ici_bytes(
+                    _psum_bytes(win, layout, nbeam), axis_size))
             slabs = rot.put(out, event=ev, on_consumed=win.release)
             del out
             for slab in slabs:
@@ -209,27 +350,54 @@ def beamform_stream(feed: Iterable, weights: ComplexOrPlanar, *,
 def beamform_accumulate(feed: Iterable, weights: ComplexOrPlanar, *,
                         layout: str = "antenna",
                         timeline: Optional[Timeline] = None,
-                        device=None) -> torch.Tensor:
+                        device=None, mesh=None,
+                        axis: str = ANT_AXIS_DEFAULT) -> torch.Tensor:
     """Total beam power over a whole windowed feed, accumulated on the
     device: each window's power, integrated over the window, adds into
     an f32 accumulator (the first window's power is the accumulator, not
     added to zeros).  Returns ``(nbeam, nchan, 1, npol)`` (antenna
     layout) or ``(nchan, nbeam, npol, 1)`` (chan layout) on the device,
     complete.  Window ``w-1``'s fold is waited on (stage ``device``) and
-    its slot released only before window ``w``'s dispatch."""
+    its slot released only before window ``w``'s dispatch.  With
+    ``mesh`` the accumulator carries its partition rule
+    (:class:`~blit_torch.parallel.mesh.ShardedAccumulator`,
+    ``"beamform_acc"``: the power after its psum, whole)."""
     tl = timeline if timeline is not None else Timeline()
-    dev = resolve_device(device)
-    weights = _device_weights(weights, dev)
-    flight = FoldInFlight(tl, depth=1)
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    weights = _stream_weights(weights, device, mesh, axis, layout)
+    kw = dict(mesh=mesh, axis=axis) if mesh is not None else dict(device=device)
     acc = None
+    if mesh is not None:
+        from blit_torch.parallel.mesh import MeshArray, ShardedAccumulator
+
+        acc = ShardedAccumulator(mesh, "beamform_acc")
+
+        def add(value, p):
+            value.shards = {q: t.add_(p) for q, t in value.shards.items()}
+            return value
+    flight = FoldInFlight(tl, depth=1)
+    total = None
     for win in feed:
+        if getattr(win, "masked", ()):
+            tl.count("masked_antennas", len(win.masked))
         flight.make_room()
         with tl.stage("dispatch", byte_free=True):
             p = beamform(win.arrays, weights, nint=win.ntime, detect=True,
-                         layout=layout, device=dev)
-            acc = p if acc is None else acc.add_(p)
-        flight.admit(win, record_event(acc))
+                         layout=layout, **kw)
+            if acc is None:
+                total = p if total is None else total.add_(p)
+            elif acc.value is None:
+                first = min(mesh.local_players())
+                acc.init(MeshArray(mesh, "beamform_acc", tuple(p.shape),
+                                   {first: p}))
+            else:
+                acc.fold(add, p)
+            done = total if acc is None else next(iter(acc.value.shards.values()))
+        flight.admit(win, record_event(done))
     flight.drain()
-    if acc is None:
+    if acc is not None:
+        total = None if acc.value is None else next(iter(acc.value.shards.values()))
+    if total is None:
         raise ValueError("beamform_accumulate: feed yielded no windows")
-    return acc
+    return total

@@ -1,8 +1,7 @@
 """``blit_torch.stream``: the live plane, reducing while the telescope
 records.
 
-Counterpart of ``blit/stream``, with ``blit``'s ``__all__`` except
-``SessionSupervisor`` (ROADMAP.md, Queue 1 item 7).  The same reducers
+Counterpart of ``blit/stream``, with ``blit``'s ``__all__``.  The same reducers
 are fed from sources still being written (a growing file, a paced
 replay, a packet stream, an in-memory queue) through a watermark
 assembler that repairs late, duplicate and missing chunks (missing ones
@@ -21,7 +20,7 @@ from blit_torch.stream.packet import (
     packets_of,
 )
 from blit_torch.stream.plane import LiveRawStream, stream_reduce, stream_search
-from blit_torch.stream.session import source_from_spec
+from blit_torch.stream.session import SessionSupervisor, source_from_spec
 from blit_torch.stream.source import (
     ChunkSource,
     FileTailSource,
@@ -41,6 +40,7 @@ __all__ = [
     "PacketSource",
     "QueueSource",
     "ReplaySource",
+    "SessionSupervisor",
     "StreamChunk",
     "StreamCursor",
     "chunks_of",

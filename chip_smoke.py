@@ -14,7 +14,10 @@ reference's own API (inventory, the reduce_raw fan-out over a worker
 pool, load_scan, get_data / get_kurtosis, remote agents) over one band
 of eight banks, drives the live plane (streams from a replay, a growing
 file and packets, a rejoin, the metrics publisher) and the command
-line, and checks the results.
+line, drives the (band, bank) mesh (the sharded plane, pods of
+processes, the array plane over players) and the recovery plane (kill
+and hang drills, a supervised live consumer, a session), and checks the
+results.
 
     python3 chip_smoke.py
 
@@ -255,6 +258,44 @@ Phases, in order; any failure exits non-zero:
       --product 0002 (the profile's key in the provenance, the card's
       name in its rig identity), stream --replay-rate (the same bytes as
       reduce) and info.
+  (r) the (band, bank) mesh and the recovery plane, in three places:
+      after (q), on (d)'s recording: (r2) 0000 on a (1, 2) mesh (both
+      players on the card), bank 0 (d)'s recording and bank 1 a second
+      of the same length, contiguous below it, with its tone in another
+      coarse channel: reduce_scan_sharded_to_files byte-identical to
+      reduce_scan_pool_to_files (pfb_dft1 + tail2_detect counted as the
+      path "mesh 0000"); (r6) StreamSupervisor on an unthrottled 0002
+      replay of the recording, its child killed after the second chunk,
+      rejoined, byte-identical to (d)'s 0002.  After (n)'s array runs,
+      on (k)'s and (l)'s recordings: (r4) beamform with the antenna axis
+      over 8 players of a (1, 8) mesh (the matmul route, then the psum)
+      and over 1 (the fused kernel, bitwise the one-card call), both
+      against the one-card port (rtol 1e-4, atol 1e-3 of the peak);
+      correlate on a (2, 4) mesh, packed (the X-engine kernel on each of
+      8 players), against the plain route summed over the two band
+      segments (atol 1e-4 of the peak); an AntennaStream over the mesh
+      with on_antenna_error="mask" and one antenna's file cut after it
+      opened: the power finite, the antenna in the header's
+      _masked_antennas from the first short window on.  Last, over
+      (p)'s band tree written anew: (r1) a single-process (1, 8) mesh,
+      8 players on the card, windows of MESH_WINDOW_FRAMES frames, each
+      a probe: the sharded plane, the pool path and the mesh loop
+      byte-identical, mesh.gather_s p50/p99 and mesh.gather_ici_bytes
+      printed; load_scan_mesh (despiked) equal to gbt.load_scan over
+      serial products of the same dispatch shape; (r3)
+      search_scan_sharded_to_files, every player's .hits equal to a
+      direct DedopplerReducer search; (r5) three pods at once, children
+      `python -m blit_torch.recover` on cuda:0: banks 0-3 and 4-7 as a
+      (2, 4) grid over 2 gloo processes, the (1, 8) grid over 2 gloo
+      processes with the band row split (the stitch through pinned host
+      memory), and the (1, 8) grid as a 1-process NCCL pod, each
+      byte-identical to the pool oracle; (r6) ScanSupervisor on the
+      (2, 4) grid with mesh.window:kill:after=1 in process 1 (re-planned
+      onto a 1-process pod that resumes the cursors), then a hang in
+      process 0 (detected by the lease, re-planned onto the pool path),
+      recover.detect_s / resume_s printed, products byte-identical; and
+      python -m blit_torch scan (--sharded), chaos --workload scan and
+      session (2 replay seats, one killed) as subprocesses at once.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -893,6 +934,11 @@ EXPECTED = {
                           ("dft_last",)),
     "route (d) direct": (_plan("torch", "torch", fft_method="direct"), ()),
     "gbt": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
+    "mesh (1,8)": (_plan("pallas", "dft_last"), ("pfb_dequant", "dft_last")),
+    "mesh search": (_plan("pallas", "dft_last"),
+                    ("pfb_dequant", "dft_last", "taylor_tree")),
+    "mesh 0000": (_plan("fused1", "tail2_detect", "tail2_detect"),
+                  ("pfb_dft1", "tail2_detect")),
     "gbt search": (_plan("pallas", "dft_last"),
                    ("pfb_dequant", "dft_last", "taylor_tree")),
 }
@@ -3066,7 +3112,7 @@ def gbt_tone_chan(hdr, raw_hdr, k):
     return int(round((f_tone - hdr["fch1"]) / hdr["foff"]))
 
 
-def phase_gbt(torch, dev, smi):
+def phase_gbt(torch, dev, smi, keep=None):
     """(p): the reference's own API on the card.  Inventory over a thread
     pool of 8 workers (blc00..blc07), the reduce_raw fan-out (each bank's
     sequence on its own worker) byte-identical to serial RawReducer runs
@@ -3075,7 +3121,9 @@ def phase_gbt(torch, dev, smi):
     get_kurtosis(device=True) fan-outs against the host, search_raw
     through the pool against a direct search, and 2 remote agents (python
     -m blit_torch.agent) reducing banks 0 and 1 on the card.  Returns the
-    launch counts of the gbt path (fan-out and search)."""
+    launch counts of the gbt path (fan-out and search); with ``keep`` (a
+    dict) it keeps the band tree for (r) and names it there (``root``,
+    ``seqs``)."""
     import filecmp
 
     import numpy as np
@@ -3299,10 +3347,583 @@ def phase_gbt(torch, dev, smi):
         if [[t[:2] for t in ts] for ts in tree] != [[(k, k)] for k in range(1, GBT_AGENTS + 1)]:
             raise AssertionError(f"gbt: the agents' spans do not parent onto the "
                                  f"pool's: {agent_spans}")
+        if keep is not None:  # (r) reuses the band tree; its caller deletes it
+            keep.update(root=root, seqs=seqs)
         return launches
     finally:
         reset_pool()
+        if keep is None or keep.get("root") != root:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+# (r) the (band, bank) mesh and the recovery plane.  (r1)-(r3) and
+# (r5)-(r6) run over (p)'s band tree (8 banks of 2^19 samples x 64
+# channels, nfft 1024, nint 16 for the products, nint 1 for the search)
+# in windows of MESH_WINDOW_FRAMES frames; (r2) is 0000 on (d)'s
+# recording and a second one of the same length; (r4) runs at (k)'s and
+# (l)'s shapes.  Subprocesses (the pods, the drills, the command line)
+# seat their players on MESH_CHILD_DEVICE.
+MESH_WINDOW_FRAMES = 64
+MESH_TONE_CHAN = 20            # (r2): bank 1's tone, so a swapped bank shows
+MESH_LEASE_TTL = 5.0           # (r6): the drills' lease TTL, seconds
+MESH_MASK_ANTENNA = 5          # (r4): the antenna whose file is cut
+MESH_CHILD_DEVICE = "cuda:0"
+MESH_ONE_BACKEND = "nccl"      # (r5): the one-process pod's backend
+MESH_CHILD_TIMEOUT = 300
+MESH_CHAOS_WINDOWS = 4         # (r6): windows in each chaos bank's recording
+MESH_SESSION_BLOCKS = 4        # (r6): each session seat's recording, in
+MESH_SESSION_NTIME = 1 << 15   # blocks of this many samples
+
+
+def mesh_summary(tl, wall, nbytes, **extra) -> dict:
+    """Wall, RAW GB/s over it, the gather's p50/p99 and bytes."""
+    g = tl.hists.get("mesh.gather_s")
+    gb = tl.hists.get("mesh.gather_ici_bytes")
+    out = {"wall_s": round(wall, 3), "raw_gbps": round(nbytes / wall / 1e9, 3)}
+    if g is not None and g.n:
+        out.update(gather_n=g.n, gather_p50_ms=round(g.percentile(50) * 1e3, 4),
+                   gather_p99_ms=round(g.percentile(99) * 1e3, 4))
+    if gb is not None and gb.n:
+        out.update(gather_ici_bytes=int(gb.total), gather_windows=gb.n)
+    out.update(extra)
+    return out
+
+
+def _files_equal(pairs) -> list:
+    import filecmp
+
+    return [filecmp.cmp(a, b, shallow=False) for a, b in pairs]
+
+
+def phase_mesh_recording(torch, dev, raw_path, tmp, smi):
+    """(r2) 0000 on a (1, 2) mesh, bank 0 (d)'s recording and bank 1 a
+    second of the same length with its tone in MESH_TONE_CHAN: the
+    sharded plane's bytes equal the pool path's; then (r6) a supervised
+    0002 stream of (d)'s recording killed after its second chunk rejoins
+    and writes (d)'s bytes.  Returns the launch counts of the path."""
+    from blit_torch.observability import Timeline
+    from blit_torch.ops import channelize as tch
+    from blit_torch.parallel.mesh import make_mesh
+    from blit_torch.parallel.scan import reduce_scan_pool_to_files
+    from blit_torch.parallel.sharded import reduce_scan_sharded_to_files
+    from blit_torch.recover import StreamSupervisor
+    from blit_torch.testing import synth_raw_blocks
+
+    import numpy as np
+
+    from blit_torch.io.guppi import GuppiRaw, write_raw
+
+    t0 = time.perf_counter()
+    raw2 = os.path.join(tmp, "smoke_bank1.raw")
+    # The next bank down the band, contiguous with (d)'s recording: its
+    # blocks with the channels rolled, so the tone sits in MESH_TONE_CHAN
+    # (a swapped bank shows) at the cost of a copy, not a synthesis.
+    r = GuppiRaw(raw_path)
+    h0 = dict(r.header(0))
+    h0["OBSFREQ"] = h0["OBSFREQ"] + h0["OBSBW"]
+    write_raw(raw2, h0, (np.roll(r.read_block(i), MESH_TONE_CHAN - TONE_CHAN, axis=0)
+                         for i in range(r.nblocks)))
+    r.close()
+    log(f"mesh 0000: wrote bank 1, {os.path.getsize(raw2) / 1e9:.3f} GB, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    grid = [[raw_path, raw2]]
+    raw_bytes = os.path.getsize(raw_path) + os.path.getsize(raw2)
+    mesh = make_mesh(1, 2, devices=[dev, dev])
+    d_sh, d_pool = os.path.join(tmp, "mesh_sh"), os.path.join(tmp, "mesh_pool")
+    os.makedirs(d_sh), os.makedirs(d_pool)
+    tl = Timeline()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sh = reduce_scan_sharded_to_files(grid, out_dir=d_sh, nfft=NFFT, nint=1,
+                                      window_frames=CHUNK_FRAMES, mesh=mesh,
+                                      timeline=tl, probe_windows=2)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_plan("mesh 0000", tch.last_kernel_plan(), launches)
+    t0 = time.perf_counter()
+    pool = reduce_scan_pool_to_files(grid, out_dir=d_pool, nfft=NFFT, nint=1,
+                                     window_frames=CHUNK_FRAMES, device=dev)
+    pool_s = time.perf_counter() - t0
+    same = _files_equal([(sh[0][0], pool[0][0])])
+    log(f"mesh 0000 (r2): {json.dumps(mesh_summary(tl, wall, raw_bytes, pool_s=round(pool_s, 3), nsamps=sh[0][1]['nsamps'], byte_identical_to_pool=same[0], launches={k: launches[k] for k in ('pfb_dft1', 'tail2_detect')}))}; card: {smi}")
+    if not all(same) or sh[0][1]["nsamps"] != pool[0][1]["nsamps"]:
+        raise AssertionError("mesh 0000: the sharded product differs from the pool's")
+    for d in (d_sh, d_pool):
+        shutil.rmtree(d)
+    os.unlink(raw2)
+
+    # (r6) the live drill: a supervised 0002 replay killed mid-stream.
+    out = os.path.join(tmp, "mesh_stream.0002.fil")
+    tl = Timeline()
+    t0 = time.perf_counter()
+    rep = StreamSupervisor(
+        raw_path, out, kind="reduce",
+        knobs=dict(nfft=1 << 10, nint=1 << 11, tune_online=False),
+        replay_rate=1e6, faults="stream.chunk:kill:after=2",
+        lease_ttl_s=MESH_LEASE_TTL, poll_s=0.05, max_attempts=3,
+        timeline=tl, device=MESH_CHILD_DEVICE).run()
+    wall = time.perf_counter() - t0
+    same = _files_equal([(out, os.path.join(tmp, "smoke.0002.fil"))])
+    hists = tl.report().get("hists", {})
+    log(f"mesh stream drill (r6): {json.dumps({'wall_s': round(wall, 3), 'recovered': rep['recovered'], 'attempts': rep['attempts'], 'detect_s': hists.get('recover.detect_s', {}), 'resume_s': hists.get('recover.resume_s', {}), 'byte_identical_to_batch': same[0]})}; card: {smi}")
+    if not rep["recovered"] or not all(same):
+        raise AssertionError("mesh stream drill: not recovered with identical bytes")
+    os.unlink(out)
+    return {"mesh 0000": launches}
+
+
+def _run_pod(spec, nprocs, work, tag):
+    """A pod of ``nprocs`` children ``python -m blit_torch.recover`` (the
+    supervised scan's own child) with ``spec``; returns the Popen list."""
+    from blit_torch.recover import _free_port, _spawn_child
+
+    port = _free_port()
+    procs = []
+    for proc in range(nprocs):
+        s = dict(spec, nprocs=nprocs, port=port, proc=proc,
+                 result=os.path.join(work, f"{tag}p{proc}.result.json"))
+        procs.append(_spawn_child(s, os.path.join(work, f"{tag}p{proc}.spec.json"),
+                                  dict(os.environ), os.path.join(work, f"{tag}p{proc}")))
+    return procs
+
+
+def _wait_all(procs, what, timeout=MESH_CHILD_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc != 0:
+                raise AssertionError(f"{what}: a child exited {rc}: {p.args}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+
+
+def _pod_results(work, tag, nprocs) -> dict:
+    out = {}
+    for proc in range(nprocs):
+        with open(os.path.join(work, f"{tag}p{proc}.result.json")) as f:
+            out.update(json.load(f))
+    return out
+
+
+def phase_mesh(torch, dev, smi, tree=None):
+    """(r1), (r3), (r5), (r6) over (p)'s band tree: the sharded plane,
+    the mesh loop and the pool path byte-identical; load_scan_mesh equal
+    to gbt.load_scan; each player's .hits equal to a direct search; pods
+    of two processes (gloo, pinned host staging) and of one (NCCL) writing
+    the pool's bytes; kill and hang drills recovering with identical
+    bytes; the scan, chaos and session commands.  Returns the launch
+    counts of the in-process paths."""
+    import numpy as np
+
+    from blit_torch import gbt
+    from blit_torch.io.sigproc import read_fil
+    from blit_torch.observability import Timeline
+    from blit_torch.ops import channelize as tch
+    from blit_torch.parallel.mesh import make_mesh
+    from blit_torch.parallel.pool import reset_pool
+    from blit_torch.parallel.scan import (
+        load_scan_mesh,
+        reduce_scan_mesh_to_files,
+        reduce_scan_pool_to_files,
+    )
+    from blit_torch.parallel.sharded import (
+        reduce_scan_sharded_to_files,
+        search_scan_sharded_to_files,
+    )
+    from blit_torch.pipeline import RawReducer
+    from blit_torch.recover import RECOVER_HISTS, ScanSupervisor
+    from blit_torch.search import DedopplerReducer
+
+    counts = {}
+    t_phase = time.perf_counter()
+    if tree and tree.get("root"):
+        root, seqs = tree["root"], tree["seqs"]
+    else:
+        root = tempfile.mkdtemp(prefix="blit-smoke-mesh-")
+        seqs = None
+    try:
+        t0 = time.perf_counter()
+        if seqs is None:
+            seqs = write_gbt_tree(root)
+        grid = [[seqs[k] for k in range(GBT_BANKS)]]
+        raw_bytes = sum(os.path.getsize(p) for ps in seqs.values() for p in ps)
+        log(f"mesh: the band tree, {raw_bytes / 1e9:.3f} GB, ready in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mesh = make_mesh(1, GBT_BANKS, devices=[dev] * GBT_BANKS)
+        kw = dict(nfft=GBT_NFFT, nint=GBT_NINT, window_frames=MESH_WINDOW_FRAMES)
+        dirs = {t: os.path.join(root, "mesh", t) for t in ("sh", "pool", "loop", "pod24",
+                                                   "pod18", "nccl", "kill", "hang",
+                                                   "cli", "work")}
+        for d in dirs.values():
+            os.makedirs(d)
+
+        # (r1) the sharded plane (every window a probe), the pool path, the
+        # mesh loop.
+        frames = tch.usable_frames(GBT_MEMBERS * GBT_MEMBER_BLOCKS * GBT_BLOCK_NTIME,
+                                   GBT_NFFT, NTAP, GBT_NINT)
+        nwin = -(-frames // MESH_WINDOW_FRAMES)
+        tl = Timeline()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        sh = reduce_scan_sharded_to_files(grid, out_dir=dirs["sh"], mesh=mesh,
+                                          timeline=tl, probe_windows=nwin, **kw)
+        wall = time.perf_counter() - t0
+        counts["mesh (1,8)"] = read_launches()
+        check_plan("mesh (1,8)", tch.last_kernel_plan(), counts["mesh (1,8)"])
+        t0 = time.perf_counter()
+        pool = reduce_scan_pool_to_files(grid, out_dir=dirs["pool"], device=dev, **kw)
+        pool_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loop = reduce_scan_mesh_to_files(grid, out_dir=dirs["loop"], mesh=mesh, **kw)
+        loop_s = time.perf_counter() - t0
+        oracle18 = pool[0][0]
+        same = _files_equal([(sh[0][0], oracle18), (loop[0][0], oracle18)])
+        log(f"mesh (r1): {json.dumps(mesh_summary(tl, wall, raw_bytes, pool_s=round(pool_s, 3), loop_s=round(loop_s, 3), windows=nwin, nsamps=sh[0][1]['nsamps'], byte_identical=same))}; card: {smi}")
+        if not all(same):
+            raise AssertionError("mesh (r1): the sharded plane or the mesh loop "
+                                 "differs from the pool path")
+        if tl.hists["mesh.gather_s"].n != nwin:
+            raise AssertionError("mesh (r1): not every window timed its gather")
+
+        # load_scan_mesh (one window, despiked) against gbt.load_scan over
+        # serial products of the same shape.
+        t0 = time.perf_counter()
+        hdr, band = load_scan_mesh(grid, nfft=GBT_NFFT, nint=GBT_NINT, mesh=mesh,
+                                   despike=True)
+        band = band.numpy()
+        lsm_s = time.perf_counter() - t0
+        for k in range(GBT_BANKS):
+            stem = os.path.basename(seqs[k][0])[:-len(".0000.raw")]
+            RawReducer(nfft=GBT_NFFT, nint=GBT_NINT, chunk_frames=frames,
+                       tune_online=False, device=dev).reduce_to_file(
+                seqs[k], os.path.join(os.path.dirname(seqs[k][0]),
+                                      stem + ".rawspec.0002.fil"))
+        reset_pool()
+        gbt.setup_workers(hosts=[f"blc0{k}" for k in range(GBT_BANKS)],
+                          backend="thread")
+        try:
+            invs = gbt.get_inventories(r"0002\.fil$", root=root)
+            (bhdr, want), = gbt.load_scan(invs, GBT_SESSION, GBT_SCAN,
+                                          suffix="0002.fil").values()
+        finally:
+            reset_pool()
+        ok = (band.shape == (1,) + want.shape and np.array_equal(band[0], want)
+              and hdr["nchans"] == bhdr["nchans"] and hdr["fch1"] == bhdr["fch1"])
+        log(f"mesh load_scan_mesh (r1): {lsm_s:.3f} s, band {band.shape}, "
+            f"equal to gbt.load_scan: {ok}; card: {smi}")
+        if not ok:
+            raise AssertionError("mesh: load_scan_mesh differs from gbt.load_scan")
+        del band, want
+
+        # (r3) the sharded search, every player against a direct search.
+        T = DedopplerReducer(nfft=GBT_NFFT, device=dev).window_spectra
+        tl = Timeline()
+        reset_launches()
+        t0 = time.perf_counter()
+        hits = search_scan_sharded_to_files(grid, out_dir=dirs["sh"], nfft=GBT_NFFT,
+                                            window_frames=T, mesh=mesh, timeline=tl)
+        wall = time.perf_counter() - t0
+        counts["mesh search"] = read_launches()
+        search_plan = tch.last_kernel_plan()
+        pairs = []
+        for (b, k), (path, _) in sorted(hits.items()):
+            direct = os.path.join(dirs["pool"], f"direct{k}.hits")
+            DedopplerReducer(nfft=GBT_NFFT, chunk_frames=T,
+                             device=dev).search_to_file(seqs[k], direct)
+            pairs.append((path, direct))
+        same = _files_equal(pairs)
+        nwin_s = hits[(0, 0)][1]["search_windows"]
+        log(f"mesh search (r3): {json.dumps(mesh_summary(tl, wall, raw_bytes, players=len(hits), windows=nwin_s, taylor_tree=counts['mesh search']['taylor_tree'], byte_identical=same))}; card: {smi}")
+        from blit_torch.ops import dedoppler as tpd
+
+        check_plan("mesh search", search_plan, counts["mesh search"],
+                   tree_launches=GBT_BANKS * nwin_s * tpd.kernel_route(T)[1])
+        if not all(same):
+            raise AssertionError("mesh search: a player's .hits differs from a "
+                                 "direct search")
+
+        # (r5) pods, in parallel: (2, 4) one band row a process and (1, 8)
+        # with the row split (both gloo, two processes on one card), and a
+        # one-process NCCL pod on (1, 8).
+        grid24 = [grid[0][:4], grid[0][4:]]
+        base = dict(kind="reduce", search={}, lease_dir=dirs["work"],
+                    window_frames=MESH_WINDOW_FRAMES, device=MESH_CHILD_DEVICE,
+                    knobs=dict(nfft=GBT_NFFT, ntap=NTAP, nint=GBT_NINT, stokes="I",
+                               fqav_by=1, window="hamming", despike=True,
+                               dtype="float32", max_frames=None, compression=None))
+        pods = [("pod24", grid24, [2, 4], 2, 4, "gloo"),
+                ("pod18", grid, [1, 8], 2, 4, "gloo"),
+                ("nccl", grid, [1, 8], 1, 8, MESH_ONE_BACKEND)]
+        t0 = time.perf_counter()
+        running = []
+        for tag, g, shape, nprocs, dpp, backend in pods:
+            outp = [os.path.join(dirs[tag], f"band{b}.fil") for b in range(shape[0])]
+            running += _run_pod(dict(base, grid=g, out_paths=outp, mesh_shape=shape,
+                                     devices_per_proc=dpp, backend=backend),
+                                nprocs, dirs["work"], tag)
+        _wait_all(running, "mesh pods")
+        pods_s = time.perf_counter() - t0
+        os.makedirs(dirs["pool"] + "24")
+        oracle24 = reduce_scan_pool_to_files(grid24, out_dir=dirs["pool"] + "24",
+                                             device=dev, **kw)
+        res = {tag: _pod_results(dirs["work"], tag, n) for tag, _, _, n, _, _ in pods}
+        same = _files_equal(
+            [(os.path.join(dirs["pod24"], f"band{b}.fil"), oracle24[b][0])
+             for b in (0, 1)]
+            + [(os.path.join(dirs["pod18"], "band0.fil"), oracle18),
+               (os.path.join(dirs["nccl"], "band0.fil"), oracle18)])
+        split = [res["pod18"][f"proc{p}"] for p in (0, 1)]
+        log(f"mesh pods (r5): {json.dumps({'wall_s': round(pods_s, 3), 'byte_identical': same, 'backends': {t: r['proc0']['backend'] for t, r in res.items()}, 'split_row_host_stage_bytes': [x['host_stage_bytes'] for x in split], 'split_row_gather': [x['hists'].get('mesh.gather_ici_bytes', {}) for x in split], 'split_row_gather_s': [x['hists'].get('mesh.gather_s', {}) for x in split]})}; card: {smi}")
+        if (not all(same) or res["nccl"]["proc0"]["backend"] != MESH_ONE_BACKEND
+                or (MESH_CHILD_DEVICE.startswith("cuda")  # gloo stages CUDA
+                    and min(x["host_stage_bytes"] for x in split) <= 0)):
+            raise AssertionError("mesh pods: a pod's product differs from the pool "
+                                 "oracle, or a collective did not run as planned")
+
+        # (r6) the command line as subprocesses (scan over the tree, chaos
+        # --workload scan, a session of two seats), started first, then the
+        # kill and hang drills on the (2, 4) grid at once, each supervisor
+        # on a thread of its own.
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        sess = []
+        for i in range(2):
+            raw = os.path.join(dirs["cli"], f"seat{i}.raw")
+            synth_raw_seat(raw, i)
+            oracle = os.path.join(dirs["cli"], f"seat{i}.oracle.fil")
+            RawReducer(nfft=GBT_NFFT, nint=GBT_NINT, tune_online=False,
+                       device=dev).reduce_to_file(raw, oracle)
+            seat = {"name": f"blc0{i}", "out": os.path.join(dirs["cli"], f"seat{i}.fil"),
+                    "source": {"kind": "replay", "raw": raw, "rate": 1e6},
+                    "knobs": {"nfft": GBT_NFFT, "nint": GBT_NINT, "tune_online": False}}
+            if i == 1:
+                seat["faults"] = "stream.chunk:kill:after=1"
+            sess.append((seat, oracle))
+        spec = os.path.join(dirs["cli"], "session.json")
+        with open(spec, "w") as f:
+            json.dump({"seats": [s for s, _ in sess], "lease_ttl_s": MESH_LEASE_TTL,
+                       "poll_s": 0.05}, f)
+        cmds = {
+            "scan": ["scan", root, GBT_SESSION, GBT_SCAN, "-o", dirs["cli"],
+                     "--nfft", str(GBT_NFFT), "--nint", str(GBT_NINT),
+                     "--window-frames", str(MESH_WINDOW_FRAMES), "--sharded"],
+            # chaos at the band tree's widths (64 channels a bank, nfft
+            # 1024, nint 16, windows of 64 frames) on its own 2 x 2 grid
+            # of 4 windows a bank, so its detection latency is a real
+            # window's.
+            "chaos": ["chaos", "--workload", "scan", "--nchan", str(NCHAN),
+                      "--nfft", str(GBT_NFFT), "--nint", str(GBT_NINT),
+                      "--window-frames", str(MESH_WINDOW_FRAMES), "--chunks",
+                      str(MESH_CHAOS_WINDOWS), "--lease-ttl", str(MESH_LEASE_TTL),
+                      "--poll", "0.05",
+                      "--work-dir", os.path.join(dirs["cli"], "chaos")],
+            "session": ["session", spec, "--work-dir", os.path.join(dirs["cli"], "sw")],
+        }
+        t_cli = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "blit_torch", *args, "--device", MESH_CHILD_DEVICE],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, args in cmds.items()}
+        try:
+            drills = {}
+
+            def drill(tag, fault, dpp):
+                tl = Timeline()
+                t0 = time.perf_counter()
+                try:
+                    rep = ScanSupervisor(
+                        grid24, out_dir=dirs[tag], nfft=GBT_NFFT, nint=GBT_NINT,
+                        window_frames=MESH_WINDOW_FRAMES, nprocs=2,
+                        devices_per_proc=dpp, lease_ttl_s=MESH_LEASE_TTL,
+                        poll_s=0.05, max_attempts=3, faults=fault, timeline=tl,
+                        device=MESH_CHILD_DEVICE).run()
+                except Exception as e:  # noqa: BLE001 — reported below
+                    rep = {"recovered": False, "error": repr(e), "attempts": []}
+                drills[tag] = (rep, tl, time.perf_counter() - t0)
+
+            threads = [threading.Thread(target=drill, args=a) for a in (
+                ("kill", {1: "mesh.window:kill:after=1"}, 8),
+                ("hang", {0: "mesh.window:hang:after=3:hang=120"}, 4))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=MESH_CHILD_TIMEOUT)
+            for tag in ("kill", "hang"):
+                rep, tl, wall = drills.get(tag, ({"recovered": False, "attempts": []},
+                                                 Timeline(), 0.0))
+                same = _files_equal([(os.path.join(dirs[tag], f"band{b}.fil"),
+                                      oracle24[b][0]) for b in (0, 1)]
+                                    ) if rep["recovered"] else [False]
+                hists = tl.report().get("hists", {})
+                plans = [(a["plan"], a["nprocs"], a.get("failure", {}).get("why"))
+                         for a in rep["attempts"]]
+                log(f"mesh {tag} drill (r6): {json.dumps({'wall_s': round(wall, 3), 'recovered': rep['recovered'], 'error': rep.get('error'), 'plans': plans, 'windows_recomputed': sum(a.get('windows_recomputed', 0) for a in rep['attempts']), **{h: hists.get(h, {}) for h in RECOVER_HISTS}, 'byte_identical': same})}; card: {smi}")
+                want_why = "died" if tag == "kill" else "hung"
+                if (not rep["recovered"] or not all(same)
+                        or rep["attempts"][0]["failure"]["why"] != want_why):
+                    raise AssertionError(f"mesh {tag} drill: not recovered with "
+                                         "identical bytes")
+            outs = {}
+            for name, p in procs.items():
+                out, err = p.communicate(timeout=MESH_CHILD_TIMEOUT)
+                outs[name] = (p.returncode, out.strip().splitlines()[-1:], err[-2000:])
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+        cli_s = time.perf_counter() - t_cli
+        chaos = json.loads(outs["chaos"][1][0]) if outs["chaos"][1] else {}
+        session = json.loads(outs["session"][1][0]) if outs["session"][1] else {}
+        same = _files_equal([(os.path.join(dirs["cli"], "band0.fil"), oracle18)]
+                            + [(s["out"], o) for s, o in sess])
+        log(f"mesh command line and drills (r6): {json.dumps({'wall_s': round(cli_s, 3), 'rc': {k: v[0] for k, v in outs.items()}, 'chaos': {k: chaos.get(k) for k in ('recovered', 'byte_identical', 'recover')}, 'session': {'ok': session.get('ok'), 'recovered_seats': session.get('recovered_seats')}, 'byte_identical': same})}; card: {smi}")
+        if any(v[0] != 0 for v in outs.values()) or not all(same):
+            raise AssertionError(f"mesh command line: {outs}")
+    finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"mesh: phase (r) over the band tree took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def synth_raw_seat(path, i):
+    """(r6)'s session seat i: a small 64-channel recording."""
+    from blit_torch.testing import synth_raw_blocks
+
+    synth_raw_blocks(path, nblocks=MESH_SESSION_BLOCKS, obsnchan=NCHAN,
+                     ntime_per_block=MESH_SESSION_NTIME, seed=SEED + 40 + i,
+                     tone_chan=i, tone_freq=TONE_FREQ)
+
+
+def check_mesh_xengine(plan, launches):
+    """(r4)'s correlate took the X-engine kernel on each of 8 players and
+    the F-engine's dft_last on each."""
+    if (plan != {"layout": "packed", "engine": "cuda", "impl": "cuda"}
+            or launches["xengine_packed"] != 8 or launches["dft_last"] < 8):
+        raise AssertionError(f"mesh correlate: plan {plan}, launches {launches}")
+
+
+def phase_mesh_array(torch, dev, tmp, smi):
+    """(r4) on (k)'s and (l)'s recordings: beamform with the antennas over
+    8 players (the matmul route and the psum) and over 1 (the fused
+    kernel), both against the one-card port; correlate on a (2, 4) mesh
+    with packed visibilities against its plain version, segment by
+    segment; an AntennaStream with on_antenna_error="mask" and one
+    antenna's file cut after it opened.  Returns (launch counts, [])."""
+    import numpy as np
+
+    from blit_torch.ops import beamform as tbf
+    from blit_torch.ops import channelize as tch
+    from blit_torch.parallel import antenna as A
+    from blit_torch.parallel import beamform as B
+    from blit_torch.parallel import correlator as C
+    from blit_torch.parallel.mesh import make_mesh
+
+    counts = {}
+    bf = [os.path.join(tmp, f"bf{a}.raw") for a in range(ARRAY_NANT)]
+    fx = [os.path.join(tmp, f"fx{a}.raw") for a in range(ARRAY_NANT)]
+    rng = np.random.default_rng(SEED)
+    w = tbf.pack_weights(*B.delay_weights_planar(
+        rng.uniform(0, 1e-9, (BF_NBEAM, ARRAY_NANT)),
+        np.linspace(1e9, 1.1e9, BF_NCHAN), device=dev))
+    _, v1 = A.load_antennas(bf, max_samples=BF_SAMPLES, layout="chan", device=dev)
+    ref = B.beamform(v1, w, nint=BF_NINT, layout="chan", device=dev)
+    del v1
+    rows = {}
+    for nplayers in (8, 1):
+        m = make_mesh(1, nplayers, devices=[dev] * nplayers)
+        _, v = A.load_antennas_mesh(bf, mesh=m, max_samples=BF_SAMPLES, layout="chan")
+        torch.cuda.synchronize()
+        reset_launches()
+        got = B.beamform(v, w, nint=BF_NINT, layout="chan", mesh=m)
+        torch.cuda.synchronize()
+        path = f"mesh beamform {nplayers}"
+        counts[path] = read_launches()
+        plan = B.last_beamform_plan()
+        fused = nplayers == 1
+        check_array(path, plan, {"layout": "chan", "fused": fused, "impl": "cuda",
+                                 "mesh_axis_size": nplayers},
+                    counts[path], {"fused_beamform_detect": 1 if fused else 0})
+        err, ok = check_close(torch, got, ref, 1e-4, 1e-3 * float(ref.abs().max()))
+        ms = median_ms(torch, lambda: B.beamform(v, w, nint=BF_NINT, layout="chan",
+                                                 mesh=m))
+        rows[nplayers] = {"max_abs_err": err, "bitwise": bool(torch.equal(got, ref)),
+                          "ms": round(ms, 4)}
+        if not ok or (fused and not torch.equal(got, ref)):
+            raise AssertionError(f"{path}: differs from the one-card beamform")
+        del v, got
+    log(f"mesh beamform (r4): antennas over 8 players (matmul + psum) and 1 "
+        f"(fused) against the one-card port: {json.dumps(rows)}; card: {smi}")
+
+    # Correlate on (2, 4): each band row F-engines its own segment.
+    m24 = make_mesh(2, 4, devices=[dev] * 8)
+    h = torch.from_numpy(tch.pfb_coeffs(NTAP, FX_NFFT)).to(dev)
+    _, v = A.load_correlator_mesh(fx, mesh=m24, nfft=FX_NFFT, ntap=NTAP)
+    torch.cuda.synchronize()
+    reset_launches()
+    visr, visi = C.correlate(v, h, nfft=FX_NFFT, ntap=NTAP, vis_layout="packed",
+                             mesh=m24)
+    torch.cuda.synchronize()
+    counts["mesh correlate"] = launches = read_launches()
+    check_mesh_xengine(C.last_xengine_plan(), launches)
+    seg = (FX_SAMPLES // 2) // FX_NFFT * FX_NFFT
+    wr = wi = None
+    for b in range(2):
+        _, vb = A.load_correlator(fx, nfft=FX_NFFT, ntap=NTAP, start_sample=b * seg,
+                                  max_samples=seg, device=dev)
+        pr, pi = correlate_plain(torch, vb, h)
+        wr, wi = (pr, pi) if wr is None else (wr + pr, wi + pi)
+        del vb
+    scale = float(wr.abs().max())
+    err_r, ok_r = check_close(torch, visr, wr, 1e-4, 1e-4 * scale)
+    err_i, ok_i = check_close(torch, visi, wi, 1e-4, 1e-4 * scale)
+    log(f"mesh correlate (r4): (2, 4) mesh, packed, {ARRAY_NANT} antennas x "
+        f"{FX_NCHAN} channels, nfft {FX_NFFT}, two segments of {seg} samples: "
+        f"launches {json.dumps({k: launches[k] for k in ('xengine_packed', 'dft_last')})}, "
+        f"max |err| {max(err_r, err_i):.3e} against the plain route (atol "
+        f"{1e-4 * scale:.3e}); card: {smi}")
+    if not (ok_r and ok_i):
+        raise AssertionError("mesh correlate: differs from its plain version")
+    del v, visr, visi, wr, wi
+
+    # The degraded continuation: one antenna's file cut after it opened.
+    cut = os.path.join(tmp, "bf_cut.raw")
+    shutil.copyfile(bf[MESH_MASK_ANTENNA], cut)
+    paths = list(bf)
+    paths[MESH_MASK_ANTENNA] = cut
+    m8 = make_mesh(1, 8, devices=[dev] * 8)
+    feed = A.AntennaStream(paths, mesh=m8, window_samples=BF_SAMPLES, layout="chan",
+                           on_antenna_error="mask")
+    # The second of the file's two blocks loses its last half: windows
+    # 0 and 1 read whole, the reads of windows 2 and 3 come back short.
+    os.truncate(cut, os.path.getsize(cut) - os.path.getsize(cut) // 4)
+    masked = []
+
+    def spy(f):
+        for win in f:
+            masked.append(win.masked)
+            yield win
+
+    slabs = list(B.beamform_stream(spy(feed), w, nint=BF_NINT, layout="chan",
+                                   mesh=m8))
+    power = torch.cat(slabs, dim=-1)
+    finite = bool(torch.isfinite(power).all())
+    log(f"mesh masked stream (r4): antenna {MESH_MASK_ANTENNA}'s file cut: "
+        f"masked by window {masked}, header _masked_antennas "
+        f"{feed.header.get('_masked_antennas')}, power {tuple(power.shape)} "
+        f"finite: {finite}; card: {smi}")
+    if (not finite or feed.header.get("_masked_antennas") != [MESH_MASK_ANTENNA]
+            or not masked[-1] or masked[0]):
+        raise AssertionError("mesh masked stream: the cut antenna was not masked")
+    os.unlink(cut)
+    return counts, []
 
 
 def main() -> int:
@@ -3362,6 +3983,10 @@ def main() -> int:
         t0 = time.perf_counter()
         launches.update(phase_live(torch, dev, raw_path, tmp, launches, smi))
         log(f"live: phase (q) took {time.perf_counter() - t0:.1f} s")
+        # (r2) 0000 on a (1, 2) mesh, (r6) the supervised live drill
+        t_mesh = time.perf_counter()
+        launches.update(phase_mesh_recording(torch, dev, raw_path, tmp, smi))
+        mesh_s = time.perf_counter() - t_mesh
         # (o) resume, the scan, the native reader, .h5 products
         launches.update(phase_resume(torch, dev, raw_path, tmp))
         os.unlink(raw_path)
@@ -3387,12 +4012,25 @@ def main() -> int:
             launches.update(counts)
             records.extend(recs)
         plane_rows += phase_plane_array(torch, dev, tmp)
+        # (r4) the array plane over the mesh
+        t_mesh = time.perf_counter()
+        counts, _ = phase_mesh_array(torch, dev, tmp, smi)
+        launches.update(counts)
+        mesh_s += time.perf_counter() - t_mesh
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # (p) the reference's own API: inventory, the reduce_raw fan-out,
     # load_scan, get_data / get_kurtosis, search_raw, remote agents
-    launches["gbt"] = phase_gbt(torch, dev, smi)
+    band_tree = {}
+    launches["gbt"] = phase_gbt(torch, dev, smi, band_tree)
+
+    # (r1), (r3), (r5), (r6): the mesh over (p)'s band tree, the pods, the
+    # drills and the command line
+    t_mesh = time.perf_counter()
+    launches.update(phase_mesh(torch, dev, smi, band_tree))
+    mesh_s += time.perf_counter() - t_mesh
+    log(f"mesh: phase (r) took {mesh_s:.1f} s in all")
 
     from blit_torch import hostmem
 

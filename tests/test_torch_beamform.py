@@ -386,12 +386,21 @@ class TestFeeds:
         with pytest.raises(ValueError, match="disagree"):
             TA.load_antennas(ant_files + [other], device=CPU)
 
-    # prefetch_depth > 1 and stall_timeout_s are ported (the producer
-    # thread and its watchdog); the degraded continuation is not, alone
-    # or beside them.
+    # The degraded continuation is ported with the mesh, alone or beside
+    # the producer thread and its watchdog: with no failure the masked
+    # feed's windows equal the raising feed's bitwise and mask nothing.
     @pytest.mark.parametrize("kw", [{"on_antenna_error": "mask", "prefetch_depth": 2},
                                     {"on_antenna_error": "mask", "stall_timeout_s": 5.0},
                                     {"on_antenna_error": "mask"}])
     def test_unported_options_name_their_roadmap_item(self, ant_files, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            TA.AntennaStream(ant_files, window_samples=W, device=CPU, **kw)
+        feed = TA.AntennaStream(ant_files, window_samples=W, device=CPU, **kw)
+        plain = TA.AntennaStream(ant_files, window_samples=W, device=CPU)
+        for a, b in zip(feed, plain):
+            assert a.masked == () and torch.equal(a.arrays[0], b.arrays[0])
+            assert torch.equal(a.arrays[1], b.arrays[1])
+            a.release(), b.release()
+        assert feed.masked_antennas == set()
+        assert "_masked_antennas" not in feed.header
+        with pytest.raises(ValueError, match="on_antenna_error"):
+            TA.AntennaStream(ant_files, window_samples=W, device=CPU,
+                             on_antenna_error="skip")

@@ -344,16 +344,22 @@ class TestStreams:
         with pytest.raises(ValueError, match="start_sample"):
             TA.load_correlator(ant_files, nfft=NFFT, start_sample=-1, device=CPU)
 
-    # prefetch_depth > 1 and stall_timeout_s are ported (the producer
-    # thread and its watchdog); the degraded continuation is not, alone
-    # or beside them.
+    # The degraded continuation is ported with the mesh, alone or beside
+    # the producer thread and its watchdog: with no failure the masked
+    # feed's visibilities equal the raising feed's bitwise.
     @pytest.mark.parametrize("kw", [{"on_antenna_error": "mask", "prefetch_depth": 2},
                                     {"on_antenna_error": "mask", "stall_timeout_s": 5.0},
                                     {"on_antenna_error": "mask"}])
     def test_unported_options_name_their_roadmap_item(self, ant_files, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            TA.CorrelatorStream(ant_files, nfft=NFFT, window_frames=WF,
-                                device=CPU, **kw)
+        coeffs = pfb_coeffs(NTAP, NFFT)
+        feed = TA.CorrelatorStream(ant_files, nfft=NFFT, window_frames=WF,
+                                   device=CPU, **kw)
+        got = TC.correlate_stream(feed, coeffs, nfft=NFFT, ntap=NTAP, device=CPU)
+        want = TC.correlate_stream(
+            TA.CorrelatorStream(ant_files, nfft=NFFT, window_frames=WF, device=CPU),
+            coeffs, nfft=NFFT, ntap=NTAP, device=CPU)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert feed.masked_antennas == set()
         with pytest.raises(ValueError, match="on_antenna_error"):
             TA.CorrelatorStream(ant_files, nfft=NFFT, window_frames=WF,
                                 on_antenna_error="skip", device=CPU)

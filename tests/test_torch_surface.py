@@ -49,7 +49,9 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.__main__", "blit_torch.stream",
             "blit_torch.stream.source", "blit_torch.stream.packet",
             "blit_torch.stream.cursor", "blit_torch.stream.plane",
-            "blit_torch.stream.session"} <= set(mods)
+            "blit_torch.stream.session", "blit_torch.parallel.mesh",
+            "blit_torch.parallel.multihost", "blit_torch.parallel.scan",
+            "blit_torch.parallel.sharded", "blit_torch.recover"} <= set(mods)
     # h5py loads only when an .h5 file is opened: no module imports it,
     # blit_torch.io.fbh5 included.
     plain = mods
@@ -140,6 +142,53 @@ def test_live_plane_modules_import_no_jax_blit_triton_or_cpp_extension():
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
         assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False], mod
+
+
+@pytest.mark.parametrize("mod", ["blit_torch.parallel.mesh",
+                                 "blit_torch.parallel.multihost",
+                                 "blit_torch.parallel.scan",
+                                 "blit_torch.parallel.sharded",
+                                 "blit_torch.recover",
+                                 "blit_torch.stream.session"])
+def test_mesh_and_recovery_modules_import_alone_and_start_no_group(mod):
+    # Each imported alone in a fresh process: no jax, no blit, no
+    # triton, no cpp_extension, no process group, CUDA untouched.
+    code = (
+        "import importlib, json, sys, torch\n"
+        "import torch.distributed as dist\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'triton')) or m == 'blit' or "
+        "m.startswith('blit.') or m.startswith('torch.utils.cpp_extension'))\n"
+        "print(json.dumps([bad, dist.is_available() and dist.is_initialized(), "
+        "torch.cuda.is_initialized()]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False, False]
+
+
+def test_mesh_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    from blit_torch.parallel import multihost, scan
+    from blit_torch.parallel.mesh import make_mesh
+    from blit_torch.recover import ScanSupervisor
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scan.load_scan_mesh([["a.raw"]], nfft=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.local_devices()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.init_multihost("127.0.0.1:1", num_processes=1, process_id=0)
+    assert not multihost.in_pod()
+    assert make_mesh(1, 2, devices=["cpu", "cpu"]).nprocs() == 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScanSupervisor([["a.raw"]], out_dir=str(tmp_path), nfft=64)
 
 
 def test_default_device_without_gpu_raises_clear_error():
