@@ -28,6 +28,16 @@ has, each with ``blit``'s flags and its one JSON line on stdout:
              (``--workload scan`` / ``scan-search``) or a live consumer
              (``stream``) and check recovery with identical bytes (exit
              0 only then).
+  fleet-peer One serving peer of the fleet: a ``ProductService`` on
+             ``--device`` behind the HTTP wire, beating a heartbeat
+             lease; SIGTERM drains it.
+  fsck       Verify a tree's product manifests and serve-cache entries,
+             quarantine what fails (exit 1), ``--repair`` re-derives
+             quarantined cache entries on ``--device``.
+  backfill   Derive and publish every product of an archive tree into a
+             hot (and cold) cache, resumable through a ledger.
+  requests   Tail, filter and aggregate a per-request access-record
+             spool.
 
 One flag is the port's own: ``--device`` (default ``cuda``) on the
 commands that compute; ``--device cpu`` runs the plain PyTorch path.
@@ -670,6 +680,312 @@ def _cmd_chaos(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def _cmd_fleet_peer(args: argparse.Namespace) -> int:
+    """``fleet-peer``: one serving peer of the fleet — a ProductService
+    on ``--device`` (the card by default) behind the HTTP wire (``/product``, ``/warm``,
+    ``/stats``, ``/healthz``, ``/metrics``, ``/drain``), beating a
+    heartbeat lease the front door watches.  SIGTERM/SIGINT drain
+    gracefully: refuse new work, finish in-flight (releasing live
+    capacity holds), then exit.  ``--port 0`` binds an ephemeral port,
+    published via ``--port-file`` (atomic write) for the spawner."""
+    import os
+    import threading
+
+    from blit_torch.config import DEFAULT
+    from blit_torch.observability import Timeline
+    from blit_torch.serve import ProductCache, ProductService, Scheduler
+    from blit_torch.serve.http import PeerServer, install_drain_handler
+
+    tl = Timeline()
+    # Archive plane: --catalog-root arms the peer's catalog
+    # (kind="catalog" asks + local session=/scan= resolution);
+    # --cold-dir/--disk-bytes arm the tiered store behind the hot disk
+    # cache.  Flags override the env/config defaults.
+    config = DEFAULT
+    if args.catalog_root:
+        config = config.with_(catalog_root=args.catalog_root)
+    if args.cold_dir:
+        config = config.with_(cache_cold_dir=args.cold_dir)
+    from blit_torch.config import archive_defaults
+
+    service = ProductService(
+        cache=ProductCache(args.cache_dir, ram_bytes=args.ram_bytes,
+                           disk_bytes=args.disk_bytes,
+                           cold_dir=archive_defaults(config)["cold_dir"],
+                           timeline=tl),
+        scheduler=Scheduler(max_concurrency=args.concurrency,
+                            queue_depth=args.queue_depth, timeline=tl,
+                            retry_seed=args.retry_seed),
+        timeline=tl,
+        config=config,
+        device=args.device,
+    )
+    server = PeerServer(service, name=args.name, port=args.port,
+                        host=args.host,
+                        lease_dir=args.lease_dir, proc=args.proc,
+                        beat_interval_s=args.beat_interval).start()
+    stop = threading.Event()
+
+    def _drain():
+        server.drain(timeout=args.drain_timeout)
+        stop.set()
+
+    uninstall = install_drain_handler(_drain, exit_after=False)
+    if args.port_file:
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(server.port))
+        os.replace(tmp, args.port_file)
+    # --standby: the peer itself serves identically — it is
+    # the FRONT DOOR that keeps a standby out of the ring until the
+    # elastic controller admits it.  The flag rides the bring-up line
+    # so spawners and operators see the role the process was given.
+    print(json.dumps({"name": args.name, "url": server.url,
+                      "pid": os.getpid(), "lease_dir": args.lease_dir,
+                      "proc": args.proc,
+                      "standby": bool(args.standby)}), flush=True)
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        service.drain(timeout=args.drain_timeout)
+    uninstall()
+    server.close()
+    service.close()
+    return 0
+
+
+def _cmd_fsck(args: argparse.Namespace) -> int:
+    """``fsck``: verify an archive tree's manifests and cache-entry
+    content digests, quarantine what fails, optionally repair (the
+    re-derivations run on ``--device``).  Exit 0 = clean tree; 1 = corruption found (the report
+    names every artifact, and everything bad is already quarantined
+    unless ``--no-quarantine``)."""
+    from blit_torch import integrity
+
+    rep = integrity.fsck(args.root, repair=args.repair,
+                         quarantine=not args.no_quarantine,
+                         device=args.device)
+    cold = getattr(args, "cold_dir", None)
+    if cold:
+        # The cold tier shares the hot tier's sidecar
+        # convention, so the SAME walk verifies/quarantines/repairs it
+        # — one merged report, one exit verdict.
+        crep = integrity.fsck(cold, repair=args.repair,
+                              quarantine=not args.no_quarantine,
+                              device=args.device)
+        rep = {
+            "root": rep["root"], "cold_root": crep["root"],
+            "checked": rep["checked"] + crep["checked"],
+            "ok": rep["ok"] + crep["ok"],
+            "unmanifested": (rep["unmanifested"]
+                             + crep["unmanifested"]),
+            "in_progress": rep["in_progress"] + crep["in_progress"],
+            "bad": rep["bad"] + crep["bad"],
+            "quarantined": rep["quarantined"] + crep["quarantined"],
+            "repaired": rep["repaired"] + crep["repaired"],
+            "repair_failed": (rep["repair_failed"]
+                              + crep["repair_failed"]),
+            "clean": rep["clean"] and crep["clean"],
+        }
+    body = json.dumps(rep)
+    print(body)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(body)
+    return 0 if rep["clean"] else 1
+
+
+def _cmd_backfill(args: argparse.Namespace) -> int:
+    """``backfill``: walk an archive root
+    through the catalog crawl, derive + publish EVERY (session, scan,
+    player) product into a hot(+cold) cache — the fleet then serves the
+    archive day from warm tiers instead of recompute storms.
+
+    Resumable by construction: a product's completion is recorded in an
+    append-only fsync-per-line LEDGER only AFTER its cache publish
+    lands, so a kill mid-derive leaves no entry and the product simply
+    re-derives on resume, while completed products are never re-derived
+    (the acceptance kill-drill).  Products are content-addressed, so an
+    interrupted+resumed backfill finishes byte-identical to an
+    uninterrupted one.
+
+    Paced like the Scrubber: after each product the walker sleeps
+    off the debt ``max(0, input_bytes / bytes_per_s - elapsed)`` so a
+    backfill sharing a host with foreground serving never starves it."""
+    import os
+    import time as _time
+
+    from blit_torch.config import DEFAULT, archive_defaults
+    from blit_torch.observability import Timeline
+    from blit_torch.serve.cache import ProductCache
+    from blit_torch.serve.catalog import CatalogIndex
+    from blit_torch.serve.service import ProductRequest
+
+    config = DEFAULT
+    if args.cold_dir:
+        config = config.with_(cache_cold_dir=args.cold_dir)
+    if args.bytes_per_s is not None:
+        config = config.with_(backfill_bytes_per_s=args.bytes_per_s
+                              if args.bytes_per_s > 0 else None)
+    bps = archive_defaults(config)["backfill_bytes_per_s"]
+    tl = Timeline()
+    cache = ProductCache(args.cache_dir, ram_bytes=args.ram_bytes,
+                         disk_bytes=args.disk_bytes,
+                         cold_dir=archive_defaults(config)["cold_dir"],
+                         timeline=tl)
+    catalog = CatalogIndex(args.root, config=config, rescan_s=0.0,
+                           timeline=tl)
+    catalog.refresh(force=True)
+    ledger_path = args.ledger or os.path.join(args.cache_dir,
+                                              "backfill.ledger.jsonl")
+    done: set = set()
+    if os.path.exists(ledger_path):
+        with open(ledger_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    done.add(json.loads(line)["fp"])
+                except (ValueError, KeyError):
+                    # A torn tail line (the crash wrote half a record):
+                    # treat as not-completed — the product re-derives.
+                    continue
+    os.makedirs(os.path.dirname(os.path.abspath(ledger_path)),
+                exist_ok=True)
+    ledger = open(ledger_path, "a")
+    if ledger.tell() > 0:
+        with open(ledger_path, "rb") as f:
+            f.seek(-1, os.SEEK_END)
+            torn_tail = f.read(1) != b"\n"
+        if torn_tail:
+            # Terminate the crash's half-record so the claims appended
+            # below never concatenate onto it (both would be lost on
+            # the NEXT resume).
+            ledger.write("\n")
+            ledger.flush()
+
+    def _claim(fp: str, session: str, scan: str, player: str) -> None:
+        """fsync-before-claim: the ledger line is durable BEFORE the
+        product counts as completed — a crash can lose work, never
+        fake it."""
+        ledger.write(json.dumps({"fp": fp, "session": session,
+                                 "scan": scan, "player": player,
+                                 "t": round(_time.time(), 3)}) + "\n")
+        ledger.flush()
+        os.fsync(ledger.fileno())
+        done.add(fp)
+
+    report = {"backfill": True, "root": os.path.abspath(args.root),
+              "cache_dir": args.cache_dir,
+              "cold_dir": archive_defaults(config)["cold_dir"],
+              "ledger": ledger_path, "bytes_per_s": bps,
+              "products_total": 0, "derived": 0, "skipped_ledger": 0,
+              "skipped_cached": 0, "errors": []}
+    t_start = _time.perf_counter()
+    bytes_read = 0
+    debt_s = 0.0
+    stop = False
+    try:
+        with catalog._lock:
+            sessions = {s: dict(e["scans"])
+                        for s, e in catalog._sessions.items()}
+        for session in sorted(sessions):
+            if stop:
+                break
+            for scan in sorted(sessions[session]):
+                if stop:
+                    break
+                seqs = sessions[session][scan]["sequences"]
+                for (band, bank), members in sorted(seqs.items()):
+                    if args.limit and report["products_total"] >= args.limit:
+                        stop = True
+                        break
+                    report["products_total"] += 1
+                    player = f"BLP{band}{bank}"
+                    req = (ProductRequest(raw=tuple(members),
+                                          product=args.product)
+                           if args.product else
+                           ProductRequest(raw=tuple(members),
+                                          nfft=args.nfft,
+                                          nint=args.nint))
+                    fp = req.fingerprint()
+                    if fp in done:
+                        report["skipped_ledger"] += 1
+                        continue
+                    if cache.contains(fp):
+                        # Published but the claim never landed (killed
+                        # in the publish→claim window) — or a foreground
+                        # serve beat us to it.  Completed either way.
+                        _claim(fp, session, scan, player)
+                        report["skipped_cached"] += 1
+                        continue
+                    t0 = _time.perf_counter()
+                    nbytes = sum(os.path.getsize(m) for m in members)
+                    try:
+                        header, data = req.reducer(args.device).reduce(
+                            req.raw_source)
+                        cache.put(fp, header, data, recipe=req.recipe())
+                        cache.note_derive()
+                    except Exception as e:  # noqa: BLE001 — reported
+                        report["errors"].append(
+                            f"{session}/{scan}/{player}: {e!r}")
+                        continue
+                    _claim(fp, session, scan, player)
+                    report["derived"] += 1
+                    bytes_read += nbytes
+                    # The Scrubber debt discipline: pay for the bytes
+                    # just read before touching the next product.
+                    if bps:
+                        dt = _time.perf_counter() - t0
+                        debt_s = max(0.0, nbytes / bps - dt)
+                        if debt_s > 0:
+                            _time.sleep(debt_s)
+    finally:
+        ledger.close()
+    report["wall_s"] = round(_time.perf_counter() - t_start, 3)
+    report["bytes_read"] = bytes_read
+    report["cache"] = cache.stats()
+    body = json.dumps(report)
+    print(body)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(body)
+    return 1 if report["errors"] else 0
+
+
+def _cmd_requests(args: argparse.Namespace) -> int:
+    """``requests``: tail, filter and
+    aggregate a per-request access-record spool — the operator's "which
+    requests were slow, and whose trace do I open" surface."""
+    from blit_torch import monitor
+
+    since = until = None
+    if args.since or args.until:
+        import time
+
+        from blit_torch.history import parse_when
+
+        now = time.time()
+        since = parse_when(args.since, now) if args.since else None
+        until = parse_when(args.until, now) if args.until else None
+    records = monitor.read_requests(args.spool, tail=args.tail)
+    records = monitor.filter_requests(
+        records, slow_ms=args.slow_ms, status=args.status,
+        client=args.client, role=args.role, since=since, until=until)
+    if args.aggregate:
+        agg = monitor.aggregate_requests(records)
+        print(json.dumps(agg) if args.json
+              else json.dumps(agg, indent=2))
+        return 0
+    if args.json:
+        for r in records:
+            print(json.dumps(r))
+    else:
+        print(monitor.render_requests(records))
+    return 0
+
+
 def _add_device(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to compute on (default cuda; "
@@ -968,6 +1284,155 @@ def main(argv: Optional[List[str]] = None) -> int:
     pc.add_argument("--json-out", default=None)
     _add_device(pc)
     pc.set_defaults(fn=_cmd_chaos)
+
+    pfp = sub.add_parser(
+        "fleet-peer",
+        help="run ONE serving peer of the fleet: a ProductService "
+             "over HTTP with lease heartbeats; SIGTERM drains "
+             "gracefully",
+    )
+    pfp.add_argument("--name", default="peer")
+    pfp.add_argument("--port", type=int, default=0,
+                     help="bind port (0 = ephemeral; see --port-file)")
+    pfp.add_argument("--host", default="127.0.0.1",
+                     help="bind address (default loopback; a multi-host "
+                          "fleet binds 0.0.0.0, or this host's fabric "
+                          "address, which is then advertised in .url)")
+    pfp.add_argument("--port-file", default=None,
+                     help="publish the bound port here (atomic write) "
+                          "so a spawner can find an ephemeral bind")
+    pfp.add_argument("--cache-dir", default=None,
+                     help="disk cache tier root (None = RAM-only)")
+    pfp.add_argument("--lease-dir", default=None,
+                     help="shared heartbeat-lease dir the front door "
+                          "watches")
+    pfp.add_argument("--proc", type=int, default=0,
+                     help="this peer's lease proc index")
+    pfp.add_argument("--ram-bytes", type=int, default=256 << 20)
+    pfp.add_argument("--concurrency", type=int, default=2)
+    pfp.add_argument("--queue-depth", type=int, default=64)
+    pfp.add_argument("--retry-seed", type=int, default=None,
+                     help="seed the jittered Retry-After spread")
+    pfp.add_argument("--beat-interval", type=float, default=0.5,
+                     help="lease heartbeat cadence (keep well under "
+                          "the fleet's peer TTL)")
+    pfp.add_argument("--drain-timeout", type=float, default=30.0)
+    pfp.add_argument("--catalog-root", default=None,
+                     help="archive tree to catalog: serves "
+                          "kind='catalog' asks and resolves "
+                          "session=/scan= logical addressing locally")
+    pfp.add_argument("--cold-dir", default=None,
+                     help="cold storage tier root: disk evictees "
+                          "demote here; cold hits are CRC-verified and "
+                          "promoted back")
+    pfp.add_argument("--disk-bytes", type=int, default=None,
+                     help="hot disk tier capacity (None = unbounded; "
+                          "a bound is what forces demotion)")
+    pfp.add_argument("--standby", action="store_true",
+                     help="run as an elastic STANDBY: process up and "
+                          "lease beating but NOT in the ring — the "
+                          "front door's controller admits it after a "
+                          "warm handoff when the SLO pages")
+    _add_device(pfp)
+    pfp.set_defaults(fn=_cmd_fleet_peer)
+
+    pk = sub.add_parser(
+        "fsck",
+        help="verify an archive tree (manifests + cache content "
+             "digests), quarantining corruption; exit 1 when any is "
+             "found",
+    )
+    pk.add_argument("root", help="tree to walk: product dirs and/or a "
+                                 "serve disk-cache dir")
+    pk.add_argument("--repair", action="store_true",
+                    help="re-derive quarantined cache entries from "
+                         "their recorded recipes (the serve layer's "
+                         "miss path, on --device) and retire "
+                         "quarantined corpses superseded by a verified "
+                         "replacement")
+    pk.add_argument("--no-quarantine", action="store_true",
+                    help="report only; leave corrupt artifacts in "
+                         "place (default: move them to a .quarantine/ "
+                         "sibling so they stop being served/resumed)")
+    pk.add_argument("--cold-dir", default=None,
+                    help="ALSO walk this cold storage tier: cold "
+                         "entries share the hot tier's sidecar "
+                         "convention, so quarantine and --repair "
+                         "re-derivation apply unchanged")
+    pk.add_argument("--json-out", default=None,
+                    help="also write the fsck report JSON here")
+    _add_device(pk)
+    pk.set_defaults(fn=_cmd_fsck)
+
+    pbf = sub.add_parser(
+        "backfill",
+        help="derive+publish every product of an archive root into a "
+             "hot(+cold) cache — resumable (fsync-per-line ledger), "
+             "budget-paced",
+    )
+    pbf.add_argument("root", help="archive tree to walk (the catalog "
+                                  "crawl's session/GUPPI layout)")
+    pbf.add_argument("--cache-dir", required=True,
+                     help="hot disk cache tier to publish into")
+    pbf.add_argument("--cold-dir", default=None,
+                     help="cold tier behind the hot cache (evictees "
+                          "demote here)")
+    pbf.add_argument("--ledger", default=None,
+                     help="completion ledger path (default: "
+                          "<cache-dir>/backfill.ledger.jsonl)")
+    pbf.add_argument("--product", default=None,
+                     help="rawspec preset (0000/0001/0002); otherwise "
+                          "--nfft/--nint configure the reduction")
+    pbf.add_argument("--nfft", type=int, default=1024)
+    pbf.add_argument("--nint", type=int, default=1)
+    pbf.add_argument("--ram-bytes", type=int, default=64 << 20)
+    pbf.add_argument("--disk-bytes", type=int, default=None,
+                     help="hot tier capacity (a bound forces demotion "
+                          "into --cold-dir)")
+    pbf.add_argument("--bytes-per-s", type=float, default=None,
+                     help="pacing budget over input bytes (the "
+                          "Scrubber debt discipline; 0 = unpaced; "
+                          "default SiteConfig.backfill_bytes_per_s)")
+    pbf.add_argument("--limit", type=int, default=None,
+                     help="stop after this many products (CI drills)")
+    pbf.add_argument("--json-out", default=None,
+                     help="also write the backfill report JSON here")
+    _add_device(pbf)
+    pbf.set_defaults(fn=_cmd_backfill)
+
+    pq = sub.add_parser(
+        "requests",
+        help="tail / filter / aggregate a per-request access-record "
+             "spool (BLIT_REQUEST_LOG)",
+    )
+    pq.add_argument("spool",
+                    help="request-log spool dir (requests-*.jsonl) or "
+                         "one log file")
+    pq.add_argument("--tail", type=int, default=None,
+                    help="keep only the newest N records")
+    pq.add_argument("--slow-ms", type=float, default=None,
+                    help="keep records at least this slow")
+    pq.add_argument("--status", default=None,
+                    help="keep one status (ok/overloaded/deadline/"
+                         "timeout/error, or an HTTP code like 503)")
+    pq.add_argument("--client", default=None,
+                    help="keep one client's records")
+    pq.add_argument("--role", default=None,
+                    choices=["door", "peer", "serve"],
+                    help="keep one component role's records")
+    pq.add_argument("--since", default=None, metavar="WHEN",
+                    help="keep records at/after WHEN — an epoch, "
+                         "'15m'/'2h'/'1d'-style ago-windows, or 'now'")
+    pq.add_argument("--until", default=None, metavar="WHEN",
+                    help="keep records at/before WHEN (same grammar)")
+    pq.add_argument("--aggregate", action="store_true",
+                    help="print one summary (counts by status/tier, "
+                         "p50/p99, slowest records w/ trace ids) "
+                         "instead of the record table")
+    pq.add_argument("--json", action="store_true",
+                    help="machine output: one JSON record per line "
+                         "(or the compact aggregate)")
+    pq.set_defaults(fn=_cmd_requests)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -14,8 +14,14 @@ switches the publisher refuses) with :func:`stream_defaults`,
 :func:`packet_defaults`, :func:`monitor_defaults`, :func:`slo_defaults`,
 :func:`history_defaults` and :func:`default_window_frames`, under the
 same ``BLIT_STREAM_*`` / ``BLIT_PACKET_*`` / ``BLIT_MONITOR_*`` /
-``BLIT_SLO_*`` / ``BLIT_HISTORY_DIR`` / ``BLIT_INCIDENT_DIR`` overrides.
-``blit``'s serving and mesh fields come with the planes that read them.
+``BLIT_SLO_*`` / ``BLIT_HISTORY_DIR`` / ``BLIT_INCIDENT_DIR`` overrides;
+the mesh and recovery fields with :func:`mesh_defaults` and
+:func:`recover_defaults`; and the serve plane's fields (``cache_*``,
+``serve_*``, ``scrub_*``, ``fleet_*``, ``elastic_*``, ``request_log_*``,
+``exemplars``, ``catalog_*``, ``backfill_bytes_per_s``) with
+:func:`scrub_defaults`, :func:`fleet_defaults`, :func:`elastic_defaults`,
+:func:`request_log_defaults`, :func:`catalog_defaults` and
+:func:`archive_defaults`, under ``blit``'s ``BLIT_*`` overrides.
 """
 
 from __future__ import annotations
@@ -162,6 +168,66 @@ class SiteConfig:
     recover_poll_s: float = 0.2
     recover_max_attempts: int = 3
     recover_grace_s: float = 120.0
+    # The product service (blit_torch.serve): cache_ram_bytes bounds the
+    # RAM tier of the content-addressed product cache; cache_dir, when
+    # set, enables the disk tier and cache_cold_dir the cold tier behind
+    # it.  serve_max_concurrency is the scheduler's concurrency budget,
+    # serve_queue_depth bounds each priority's queue (excess asks are
+    # refused with Overloaded).
+    cache_ram_bytes: int = 1 << 30
+    cache_dir: Optional[str] = None
+    cache_cold_dir: Optional[str] = None
+    serve_max_concurrency: int = 4
+    serve_queue_depth: int = 64
+    # The background scrubber (see scrub_defaults): off unless an
+    # interval is set; it verifies one disk-tier entry per interval and
+    # keeps verified bytes/s under scrub_bytes_per_s.
+    scrub_interval_s: Optional[float] = None
+    scrub_bytes_per_s: float = 64e6
+    # The fleet (see fleet_defaults): owners per fingerprint on the ring,
+    # virtual nodes per peer, the peers' lease TTL and the door's watch
+    # and health cadences, the hedge floor until a peer has
+    # fleet_hedge_min_n latency samples, the hit count that warms the
+    # replicas, and the door -> peer wire ("binary" or "json"), its
+    # per-peer keep-alive pool and optional whole-frame deflate.
+    fleet_replicas: int = 2
+    fleet_vnodes: int = 128
+    fleet_peer_ttl_s: float = 3.0
+    fleet_poll_s: float = 0.25
+    fleet_health_poll_s: float = 1.0
+    fleet_hedge_floor_s: float = 0.05
+    fleet_hedge_min_n: int = 16
+    fleet_hot_hits: int = 3
+    fleet_wire: str = "binary"
+    fleet_pool_conns: int = 4
+    fleet_wire_deflate: bool = False
+    # The elastic controller (see elastic_defaults): scale out on a page,
+    # scale in after elastic_idle_windows ticks under elastic_idle_rps,
+    # never below elastic_min_peers, no second resize within
+    # elastic_hysteresis_s; the warm handoff and the drain are bounded.
+    elastic_idle_rps: float = 0.1
+    elastic_idle_windows: int = 6
+    elastic_hysteresis_s: float = 60.0
+    elastic_warm_timeout_s: float = 30.0
+    elastic_warm_hints: int = 32
+    elastic_min_peers: int = 1
+    elastic_poll_s: float = 1.0
+    elastic_drain_timeout_s: float = 30.0
+    # Per-request access records (see request_log_defaults): off unless
+    # a directory is set, size-rotated; exemplars keeps the newest trace
+    # id of every histogram bucket.
+    request_log_dir: Optional[str] = None
+    request_log_max_bytes: int = 8 << 20
+    request_log_files: int = 4
+    exemplars: bool = True
+    # The archive catalog (see catalog_defaults): on when catalog_root is
+    # set; how often a lookup may rescan, and the negative-lookup cache.
+    # backfill_bytes_per_s paces the backfill command (archive_defaults).
+    catalog_root: Optional[str] = None
+    catalog_rescan_s: float = 2.0
+    catalog_negative_ttl_s: float = 30.0
+    catalog_negative_max: int = 4096
+    backfill_bytes_per_s: float = 256e6
 
     def io_retry_policy(self):
         """The :class:`blit_torch.faults.RetryPolicy` of worker-side file
@@ -395,3 +461,133 @@ def recover_defaults(config: SiteConfig = DEFAULT) -> Dict:
         "grace_s": float(os.environ.get(
             "BLIT_RECOVER_GRACE", config.recover_grace_s)),
     }
+
+
+def scrub_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The scrubber's knobs with ``BLIT_SCRUB_INTERVAL`` /
+    ``BLIT_SCRUB_BYTES_PER_S`` applied.  An empty, ``none``, zero or
+    negative interval disables it; ``enabled`` is derived."""
+    v = os.environ.get("BLIT_SCRUB_INTERVAL")
+    if v is None:
+        interval = config.scrub_interval_s
+    elif not v or v.lower() == "none" or float(v) <= 0:
+        interval = None
+    else:
+        interval = float(v)
+    return {
+        "interval_s": interval,
+        "bytes_per_s": float(os.environ.get(
+            "BLIT_SCRUB_BYTES_PER_S", config.scrub_bytes_per_s)),
+        "enabled": interval is not None,
+    }
+
+
+def fleet_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The fleet's knobs with the ``BLIT_FLEET_*`` overrides applied."""
+    return {
+        "replicas": int(os.environ.get(
+            "BLIT_FLEET_REPLICAS", config.fleet_replicas)),
+        "vnodes": int(os.environ.get(
+            "BLIT_FLEET_VNODES", config.fleet_vnodes)),
+        "peer_ttl_s": float(os.environ.get(
+            "BLIT_FLEET_PEER_TTL", config.fleet_peer_ttl_s)),
+        "poll_s": float(os.environ.get(
+            "BLIT_FLEET_POLL", config.fleet_poll_s)),
+        "health_poll_s": float(os.environ.get(
+            "BLIT_FLEET_HEALTH_POLL", config.fleet_health_poll_s)),
+        "hedge_floor_s": float(os.environ.get(
+            "BLIT_FLEET_HEDGE_FLOOR", config.fleet_hedge_floor_s)),
+        "hedge_min_n": int(os.environ.get(
+            "BLIT_FLEET_HEDGE_MIN_N", config.fleet_hedge_min_n)),
+        "hot_hits": int(os.environ.get(
+            "BLIT_FLEET_HOT_HITS", config.fleet_hot_hits)),
+        "wire": str(os.environ.get(
+            "BLIT_FLEET_WIRE", config.fleet_wire)).strip().lower(),
+        "pool_conns": int(os.environ.get(
+            "BLIT_FLEET_POOL_CONNS", config.fleet_pool_conns)),
+        "wire_deflate": str(os.environ.get(
+            "BLIT_FLEET_WIRE_DEFLATE",
+            config.fleet_wire_deflate)) not in (
+                "0", "false", "False"),
+    }
+
+
+def elastic_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The elastic controller's knobs with the ``BLIT_ELASTIC_*``
+    overrides applied."""
+    return {
+        "idle_rps": float(os.environ.get(
+            "BLIT_ELASTIC_IDLE_RPS", config.elastic_idle_rps)),
+        "idle_windows": int(os.environ.get(
+            "BLIT_ELASTIC_IDLE_WINDOWS", config.elastic_idle_windows)),
+        "hysteresis_s": float(os.environ.get(
+            "BLIT_ELASTIC_HYSTERESIS", config.elastic_hysteresis_s)),
+        "warm_timeout_s": float(os.environ.get(
+            "BLIT_ELASTIC_WARM_TIMEOUT", config.elastic_warm_timeout_s)),
+        "warm_hints": int(os.environ.get(
+            "BLIT_ELASTIC_WARM_HINTS", config.elastic_warm_hints)),
+        "min_peers": int(os.environ.get(
+            "BLIT_ELASTIC_MIN_PEERS", config.elastic_min_peers)),
+        "poll_s": float(os.environ.get(
+            "BLIT_ELASTIC_POLL", config.elastic_poll_s)),
+        "drain_timeout_s": float(os.environ.get(
+            "BLIT_ELASTIC_DRAIN_TIMEOUT",
+            config.elastic_drain_timeout_s)),
+    }
+
+
+def request_log_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The access-record knobs with ``BLIT_REQUEST_LOG`` /
+    ``BLIT_REQUEST_LOG_MAX_BYTES`` / ``BLIT_REQUEST_LOG_FILES`` /
+    ``BLIT_EXEMPLARS`` applied; ``dir`` is None when logging is off."""
+    d = os.environ.get("BLIT_REQUEST_LOG")
+    if d is None:
+        d = config.request_log_dir
+    elif not d:
+        d = None
+    ex = os.environ.get("BLIT_EXEMPLARS")
+    return {
+        "dir": d,
+        "max_bytes": int(os.environ.get(
+            "BLIT_REQUEST_LOG_MAX_BYTES", config.request_log_max_bytes)),
+        "files": int(os.environ.get(
+            "BLIT_REQUEST_LOG_FILES", config.request_log_files)),
+        "exemplars": (config.exemplars if ex is None
+                      else ex.lower() not in ("", "0", "false", "off")),
+    }
+
+
+def catalog_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The catalog's knobs with the ``BLIT_CATALOG_*`` overrides
+    applied; ``enabled`` is derived from the root."""
+    root = os.environ.get("BLIT_CATALOG_ROOT")
+    if root is None:
+        root = config.catalog_root
+    elif not root:
+        root = None
+    return {
+        "root": root,
+        "rescan_s": float(os.environ.get(
+            "BLIT_CATALOG_RESCAN", config.catalog_rescan_s)),
+        "negative_ttl_s": float(os.environ.get(
+            "BLIT_CATALOG_NEG_TTL", config.catalog_negative_ttl_s)),
+        "negative_max": int(os.environ.get(
+            "BLIT_CATALOG_NEG_MAX", config.catalog_negative_max)),
+        "enabled": root is not None,
+    }
+
+
+def archive_defaults(config: SiteConfig = DEFAULT) -> Dict:
+    """The cold tier's root and the backfill's pacing, with
+    ``BLIT_CACHE_COLD_DIR`` / ``BLIT_BACKFILL_BYTES_PER_S`` applied (a
+    budget of 0 or less: unpaced, None)."""
+    cold = os.environ.get("BLIT_CACHE_COLD_DIR")
+    if cold is None:
+        cold = config.cache_cold_dir
+    elif not cold:
+        cold = None
+    v = os.environ.get("BLIT_BACKFILL_BYTES_PER_S")
+    bps = float(v) if v else config.backfill_bytes_per_s
+    if bps is not None and bps <= 0:
+        bps = None
+    return {"cold_dir": cold, "backfill_bytes_per_s": bps}

@@ -19,10 +19,15 @@ digests are ``zlib.crc32`` (the threat is bit rot and torn writes):
   their cursor, and the whole-file CRC once complete.  Resume paths
   verify the claimed region against the ledger before trusting a cursor
   (:func:`verify_claim`); :func:`verify_product` verifies a product.
+- **Operator surface**: :func:`fsck` walks a tree verifying manifests
+  and serve-cache entries, quarantining what fails into a
+  ``.quarantine/`` sibling (``repair=True`` re-derives quarantined cache
+  entries from the recipe in their meta sidecar, on ``device``);
+  :class:`Scrubber` samples disk-tier entries in the background under a
+  bytes/s budget; ``/healthz`` reports ``degraded`` while a watched
+  quarantine is non-empty (:func:`quarantine_health`).
 
-``blit``'s operator half (``fsck``, quarantine, the ``Scrubber`` and the
-rederivation of cache entries) needs the serve cache and is not ported
-yet.  Imports: stdlib and numpy at module scope, the port's I/O lazily.
+Imports: stdlib and numpy at module scope, the port's I/O lazily.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import socket
 import threading
 import time
@@ -48,6 +54,8 @@ DIGESTS_KIND = "blit.digests"
 DIGESTS_VERSION = 1
 DIGESTS_SUFFIX = ".digests.json"
 
+QUARANTINE_DIR = ".quarantine"
+
 # Claim-ledger bound (as blit_torch.io.hits.CLAIM_LEDGER_MAX):
 # every resumable append re-serializes the manifest, so the ledger must
 # not grow with session length.  Claims older than the trimmed tail
@@ -56,6 +64,9 @@ LEDGER_MAX = 4096
 
 # Chunk size for streaming file CRCs (bounded memory over TB products).
 _CRC_CHUNK = 8 << 20
+
+# Product extensions fsck recognizes when counting unmanifested files.
+_PRODUCT_EXTS = (".fil", ".h5", ".hdf5", ".hits")
 
 
 class IntegrityError(ValueError):
@@ -155,6 +166,13 @@ def ingest_verify_enabled() -> bool:
 
 
 # -- RAW digest sidecars -----------------------------------------------------
+
+
+def cache_verify_enabled() -> bool:
+    """Content-verify serve disk-tier loads?  On by default;
+    ``BLIT_VERIFY_CACHE=0`` keeps only the structural probe."""
+    return os.environ.get("BLIT_VERIFY_CACHE", "1") not in (
+        "0", "false", "False")
 
 
 def raw_digests_path(member: str) -> str:
@@ -574,3 +592,444 @@ def verify_product(path: str, *, timeline=None
     if problems:
         incr("integrity.manifest.mismatch")
     return doc, problems
+
+
+# -- quarantine + health -----------------------------------------------------
+
+_WATCH_LOCK = threading.Lock()
+_WATCHED_QUARANTINES: set = set()
+
+
+def quarantine_health() -> Optional[Dict]:
+    """The ``/healthz`` contributor: degraded while
+    any watched ``.quarantine/`` holds entries — corruption was detected
+    and an operator has not yet triaged it."""
+    entries = 0
+    dirs: List[str] = []
+    with _WATCH_LOCK:
+        watched = list(_WATCHED_QUARANTINES)
+    for d in watched:
+        try:
+            names = [n for n in os.listdir(d) if not n.startswith(".")]
+        except OSError:
+            continue
+        if names:
+            entries += len(names)
+            dirs.append(d)
+    if entries:
+        return {"degraded": True,
+                "reason": f"quarantine-nonempty:{entries}",
+                "entries": entries, "dirs": sorted(dirs)}
+    return {}
+
+
+def watch_quarantine(qdir: str) -> None:
+    """Register a quarantine dir with the health surface (idempotent);
+    installs the ``integrity`` health hook on the monitor plane."""
+    with _WATCH_LOCK:
+        _WATCHED_QUARANTINES.add(os.path.abspath(qdir))
+    try:
+        from blit_torch import monitor
+
+        monitor.register_health_hook("integrity", quarantine_health)
+    except Exception:  # noqa: BLE001 — health wiring must not fail callers
+        pass
+
+
+def quarantine_move(paths: List[str], into_dir: str) -> List[str]:
+    """Move ``paths`` (those that exist) into ``into_dir``'s
+    ``.quarantine/``, suffixing on collision.  Returns the destinations.
+    The move is the containment action: a corrupt artifact must stop
+    being servable/resumable NOW, while staying inspectable."""
+    qdir = os.path.join(into_dir, QUARANTINE_DIR)
+    os.makedirs(qdir, exist_ok=True)
+    watch_quarantine(qdir)
+    moved = []
+    for p in paths:
+        if not os.path.exists(p):
+            continue
+        dest = os.path.join(qdir, os.path.basename(p))
+        n = 0
+        while os.path.exists(dest):
+            n += 1
+            dest = os.path.join(qdir, f"{os.path.basename(p)}.{n}")
+        shutil.move(p, dest)
+        moved.append(dest)
+    if moved:
+        incr("integrity.quarantine", len(moved))
+    return moved
+
+
+# -- fsck --------------------------------------------------------------------
+
+
+def _cache_meta(dirpath: str, fn: str, names) -> Optional[Dict]:
+    """Parse ``fn`` as a serve-cache meta sidecar (``<fp>.json`` with a
+    ``fingerprint`` and a ``<fp>.h5`` sibling); None when it is not one.
+    A meta that LOOKS like one but does not parse returns
+    ``{"_torn": True}`` — fail closed."""
+    if (not fn.endswith(".json") or fn.endswith(MANIFEST_SUFFIX)
+            or fn.endswith(DIGESTS_SUFFIX)):
+        return None
+    data_sibling = fn[:-5] + ".h5"
+    try:
+        with open(os.path.join(dirpath, fn)) as f:
+            doc = json.load(f)
+        if not isinstance(doc, dict) or "fingerprint" not in doc:
+            return None
+        return doc
+    except (OSError, ValueError):
+        return {"_torn": True} if data_sibling in names else None
+
+
+def fsck(root: str, *, repair: bool = False, quarantine: bool = True,
+         timeline=None, device=None) -> Dict:
+    """Walk ``root`` verifying every manifested product and every
+    serve-cache entry; quarantine what fails.  Returns the report dict
+    (the ``fsck`` command's body; ``bad`` empty == clean tree).
+
+    ``repair=True`` additionally re-derives quarantined CACHE entries
+    whose meta carries a recipe: the fingerprint is a content-addressed
+    recipe over (raw identity, reducer config), so the entry rebuilds
+    through the same reduce path the serve layer would take on a miss —
+    and only re-publishes when the recomputed fingerprint still matches
+    (an input that changed since is reported, not guessed at).  The
+    re-derivations run on ``device`` (None: the card); verification
+    alone needs no device."""
+    root = os.path.abspath(root)
+    report: Dict = {
+        "root": root, "checked": 0, "ok": 0, "unmanifested": 0,
+        "in_progress": 0, "bad": [], "quarantined": [],
+        "repaired": [], "repair_failed": [],
+    }
+
+    def _bad(dirpath: str, path: str, kind: str, problems: List[str],
+             extra_paths: List[str]) -> None:
+        entry = {"path": os.path.relpath(path, root), "kind": kind,
+                 "problems": problems}
+        if quarantine:
+            moved = quarantine_move([path] + extra_paths, dirpath)
+            entry["quarantined"] = [os.path.relpath(m, root)
+                                    for m in moved]
+            report["quarantined"].extend(entry["quarantined"])
+        report["bad"].append(entry)
+
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = sorted(d for d in dirnames if d != QUARANTINE_DIR)
+        names = set(filenames)
+        for fn in sorted(filenames):
+            full = os.path.join(dirpath, fn)
+            if fn.endswith(DIGESTS_SUFFIX):
+                member = os.path.join(dirpath, fn[:-len(DIGESTS_SUFFIX)])
+                report["checked"] += 1
+                if not os.path.exists(member):
+                    problems = ["RAW member missing (sidecar orphaned)"]
+                else:
+                    t0 = time.perf_counter()
+                    problems = verify_raw_member(member)
+                    observe_verify(time.perf_counter() - t0, timeline)
+                if problems:
+                    # Report-only: RAW members are the source of truth;
+                    # ingest masks their bad blocks, operators decide
+                    # whether to re-fetch from the recorder.
+                    report["bad"].append(
+                        {"path": os.path.relpath(member, root),
+                         "kind": "raw", "problems": problems,
+                         "quarantined": []})
+                else:
+                    report["ok"] += 1
+                continue
+            if fn.endswith(MANIFEST_SUFFIX):
+                product = os.path.join(dirpath, fn[:-len(MANIFEST_SUFFIX)])
+                report["checked"] += 1
+                doc, problems = verify_product(product, timeline=timeline)
+                if doc is None and problems:
+                    # Torn manifest: quarantine it WITH its product —
+                    # a product under an untrustworthy manifest is
+                    # unverifiable, which is the failure mode.
+                    _bad(dirpath, product, "product", problems, [full])
+                    continue
+                if doc is not None and not doc.get("complete"):
+                    report["in_progress"] += 1
+                if problems:
+                    _bad(dirpath, product, "product", problems,
+                         [full, product + ".cursor",
+                          product + ".stream-cursor"])
+                else:
+                    report["ok"] += 1
+                continue
+            meta = _cache_meta(dirpath, fn, names)
+            if meta is not None:
+                fp = fn[:-5]
+                data = os.path.join(dirpath, fp + ".h5")
+                report["checked"] += 1
+                problems = []
+                if meta.get("_torn"):
+                    problems.append("unreadable/torn cache meta")
+                elif not os.path.exists(data):
+                    problems.append("cache data file missing")
+                else:
+                    want = parse_crc(meta.get("crc32"))
+                    if want is None:
+                        # Pre-integrity entry: structural probe only.
+                        from blit_torch.io.fbh5 import resume_target_ok
+
+                        if not resume_target_ok(
+                                data, int(meta.get("nifs", -1)),
+                                int(meta.get("nchans", -1)),
+                                int(meta.get("nsamps", -1))):
+                            problems.append(
+                                "entry unreadable (no content digest "
+                                "recorded; structural probe failed)")
+                    else:
+                        t0 = time.perf_counter()
+                        got = crc32_file(data)
+                        observe_verify(time.perf_counter() - t0, timeline)
+                        if got != want:
+                            problems.append(
+                                f"cache entry content digest mismatch "
+                                f"({hex_crc(got)} != {meta['crc32']})")
+                if problems:
+                    incr("integrity.cache.corrupt")
+                    _bad(dirpath, data, "cache", problems, [full])
+                else:
+                    report["ok"] += 1
+                continue
+            if fn.endswith(_PRODUCT_EXTS):
+                if fn + MANIFEST_SUFFIX in names:
+                    continue  # verified via its manifest above
+                if fn.endswith(".h5") and fn[:-3] + ".json" in names:
+                    continue  # a cache data file, verified via its meta
+                report["unmanifested"] += 1
+    if repair:
+        _repair_quarantined(root, report, device)
+    report["clean"] = not report["bad"]
+    return report
+
+
+def _strip_collision(name: str) -> str:
+    """Undo the quarantine collision suffix (``x.fil.2`` → ``x.fil``)."""
+    stem, _, tail = name.rpartition(".")
+    return stem if stem and tail.isdigit() else name
+
+
+def _repair_quarantined(root: str, report: Dict, device=None) -> None:
+    """The ``fsck --repair`` pass: rebuild quarantined cache entries from
+    their recorded recipes (on ``device``), and retire any other
+    quarantined artifact whose original path now holds a VERIFIED
+    replacement (the operator re-reduced the product; the corpse is
+    superseded).  Anything that cannot be repaired stays quarantined —
+    and keeps ``/healthz`` degraded — for a human."""
+    for dirpath, dirnames, _files in os.walk(root):
+        if QUARANTINE_DIR not in dirnames:
+            continue
+        qdir = os.path.join(dirpath, QUARANTINE_DIR)
+        try:
+            qnames = sorted(os.listdir(qdir))
+        except OSError:
+            continue
+        handled: set = set()
+        for fn in qnames:
+            if fn in handled or fn.endswith(MANIFEST_SUFFIX):
+                continue
+            if not fn.endswith(".json"):
+                continue
+            qmeta = os.path.join(qdir, fn)
+            try:
+                with open(qmeta) as f:
+                    meta = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if not isinstance(meta, dict) or "fingerprint" not in meta:
+                continue
+            fp = meta.get("fingerprint")
+            recipe = meta.get("recipe")
+            rel = os.path.relpath(qmeta, root)
+            if not isinstance(recipe, dict):
+                report["repair_failed"].append(
+                    {"path": rel, "why": "no recipe recorded"})
+                continue
+            try:
+                got_fp = _rederive_cache_entry(dirpath, fp, recipe,
+                                               device=device)
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                report["repair_failed"].append(
+                    {"path": rel, "why": f"{type(e).__name__}: {e}"})
+                continue
+            if got_fp != fp:
+                report["repair_failed"].append(
+                    {"path": rel,
+                     "why": "raw input changed since the entry was "
+                            "published (fingerprint differs) — the old "
+                            "bytes are unrecoverable"})
+                continue
+            # The rebuilt entry is live again; the corpse can go.
+            for stale in (fn, fn[:-5] + ".h5"):
+                handled.add(stale)
+                try:
+                    os.unlink(os.path.join(qdir, stale))
+                except OSError:
+                    pass
+            report["repaired"].append(
+                {"fingerprint": fp, "cache_dir": os.path.relpath(
+                    dirpath, root) or "."})
+            incr("integrity.repair")
+        # Superseded-corpse retirement: a quarantined product (and its
+        # sidecars) whose original path now verifies clean again.
+        for fn in sorted(set(os.listdir(qdir)) - handled
+                         if os.path.isdir(qdir) else ()):
+            orig_name = _strip_collision(fn)
+            base = orig_name
+            for suffix in (MANIFEST_SUFFIX, ".cursor", ".stream-cursor"):
+                if base.endswith(suffix):
+                    base = base[:-len(suffix)]
+                    break
+            original = os.path.join(dirpath, base)
+            if not os.path.exists(original):
+                continue
+            doc, problems = verify_product(original)
+            if doc is None or problems:
+                # Only a replacement that POSITIVELY verified (manifest
+                # present, digests clean) supersedes a corpse — an
+                # unmanifested file at the path proves nothing, and the
+                # corpse is the only forensic copy.
+                continue
+            try:
+                os.unlink(os.path.join(qdir, fn))
+            except OSError:
+                continue
+            report["repaired"].append(
+                {"path": os.path.relpath(os.path.join(qdir, fn), root),
+                 "superseded_by": os.path.relpath(original, root)})
+            incr("integrity.repair")
+        try:
+            if os.path.isdir(qdir) and not os.listdir(qdir):
+                os.rmdir(qdir)
+        except OSError:
+            pass
+
+
+def _rederive_cache_entry(cache_dir: str, fp: str, recipe: Dict,
+                          device=None) -> str:
+    """Re-run the reduction a cache entry's recipe describes on
+    ``device`` (None: the card) and re-publish it — the serve layer's
+    miss path, driven by fsck.  Returns the recomputed fingerprint
+    (callers compare)."""
+    from blit_torch.serve.cache import ProductCache
+    from blit_torch.serve.service import ProductRequest
+
+    req = ProductRequest.from_recipe(recipe)
+    got_fp = req.fingerprint()
+    if got_fp != fp:
+        return got_fp
+    header, data = req.reducer(device).reduce(req.raw_source)
+    cache = ProductCache(cache_dir, ram_bytes=0)
+    cache.put(fp, header, data, recipe=recipe)
+    # put() downgrades a failed disk publish to RAM-only (serve-path
+    # semantics) — here the DISK entry is the whole point, and the
+    # caller is about to delete the only forensic copy: require the
+    # re-published entry to actually verify before reporting success.
+    if cache.verify_entry(fp) is not True:
+        raise RuntimeError(
+            "re-derived entry failed to publish/verify on disk; "
+            "keeping the quarantined copy")
+    return got_fp
+
+
+# -- the background scrubber -------------------------------------------------
+
+
+class Scrubber:
+    """Budget-bounded background verification of a disk cache tier:
+    one entry per tick, round-robin over the
+    index, with an inter-tick pause sized so verified bytes/s stays
+    under ``bytes_per_s`` — scrubbing samples the archive *between*
+    requests instead of competing with them.
+
+    Opt-in via ``BLIT_SCRUB_INTERVAL`` / SiteConfig
+    (:func:`blit_torch.config.scrub_defaults`);
+    :class:`blit_torch.serve.service.ProductService` starts one
+    automatically when enabled.  Counters (``integrity.scrub.ok`` /
+    ``integrity.scrub.corrupt``) and the ``integrity.verify_s``
+    histogram land on the timeline, so the monitor plane (``/metrics``,
+    the spool) shows scrub progress live; a corrupt entry is quarantined through the cache
+    (``evict.corrupt`` + ``.quarantine/`` + the degraded ``/healthz``).
+    ``tick()``/``scrub_once()`` are synchronous for tests and drills.
+    """
+
+    def __init__(self, cache, *, interval_s: float = 30.0,
+                 bytes_per_s: Optional[float] = None, timeline=None,
+                 quarantine: bool = True):
+        from blit_torch.observability import Timeline
+
+        self.cache = cache
+        self.interval_s = max(0.01, float(interval_s))
+        self.bytes_per_s = bytes_per_s
+        self.timeline = timeline if timeline is not None else Timeline()
+        self.quarantine = quarantine
+        self._cursor = 0
+        self._debt_s = 0.0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.scrubbed = 0
+        self.corrupt = 0
+
+    def scrub_once(self) -> Optional[Dict]:
+        """Verify the next disk-tier entry (None when the tier is
+        empty, or when the sampled entry vanished mid-tick — a routine
+        LRU-eviction race, NOT corruption).  Returns
+        ``{"fp", "ok", "bytes", "seconds"}``."""
+        fps = sorted(self.cache.index())
+        if not fps:
+            return None
+        fp = fps[self._cursor % len(fps)]
+        self._cursor += 1
+        try:
+            nbytes = os.path.getsize(self.cache.data_path(fp))
+        except OSError:
+            nbytes = 0
+        t0 = time.perf_counter()
+        ok = self.cache.verify_entry(fp, quarantine=self.quarantine)
+        dt = time.perf_counter() - t0
+        if ok is None:
+            return None  # evicted between index() and the verify
+        self.scrubbed += 1
+        if ok:
+            self.timeline.count("integrity.scrub.ok")
+        else:
+            self.corrupt += 1
+            self.timeline.count("integrity.scrub.corrupt")
+            incr("integrity.scrub.corrupt")
+        observe_verify(dt, self.timeline)
+        if self.bytes_per_s:
+            # Debt-based pacing: a big entry buys a longer pause.
+            self._debt_s = max(0.0, nbytes / self.bytes_per_s - dt)
+        return {"fp": fp, "ok": bool(ok), "bytes": nbytes,
+                "seconds": dt}
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s + self._debt_s):
+            self._debt_s = 0.0
+            try:
+                self.scrub_once()
+            except Exception:  # noqa: BLE001 — scrubbing must not die
+                log.warning("scrub tick failed", exc_info=True)
+
+    def start(self) -> "Scrubber":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="blit-scrubber", daemon=True)
+            self._thread.start()
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.close()

@@ -18,6 +18,10 @@
 - :func:`ensure_publisher` / :func:`install_publisher` /
   :func:`shutdown_publisher`, :func:`publishing` / :func:`published`,
   the ``/healthz`` hooks, and :func:`read_spool` / :func:`merge_spool`.
+- :func:`fold_health`, the fleet door's ``/healthz`` fold, and the
+  access-record readers of the ``requests`` command
+  (:func:`read_requests`, :func:`filter_requests`,
+  :func:`aggregate_requests`, :func:`render_requests`).
 
 Monitoring is off unless a spool dir or a port is configured
 (``BLIT_MONITOR_SPOOL`` / ``BLIT_MONITOR_PORT``), as in ``blit``.
@@ -165,8 +169,9 @@ class BurnRateEvaluator:
     ride the recorder's rate limit — an alert storm writes one incident
     file, not hundreds, and never blocks the hot path), and the
     registered shed hooks: while any objective is breached the hooks run
-    with ``shed_level`` (``blit``'s serving scheduler tightens its
-    admission there); when every burn clears they run with 0.0."""
+    with ``shed_level`` (tightening scheduler admission,
+    :meth:`blit_torch.serve.scheduler.Scheduler.shed`); when every burn
+    clears they run with 0.0."""
 
     def __init__(self, objectives: Iterable[SLObjective] = (), *,
                  fast_window: int = 5, slow_window: int = 30,
@@ -212,6 +217,15 @@ class BurnRateEvaluator:
     # -- shed hooks --------------------------------------------------------
     def add_shed_hook(self, hook: Callable[[float], None]) -> None:
         self._shed_hooks.append(hook)
+
+    def attach_scheduler(self, scheduler) -> None:
+        """Register ``scheduler.shed`` as a breach action
+        (:meth:`blit_torch.serve.scheduler.Scheduler.shed`)."""
+        self.add_shed_hook(scheduler.shed)
+
+    def detach_scheduler(self, scheduler) -> None:
+        with contextlib.suppress(ValueError):
+            self._shed_hooks.remove(scheduler.shed)
 
     # -- evaluation --------------------------------------------------------
     def burn(self, name: str, window: int) -> float:
@@ -696,6 +710,39 @@ class MetricsPublisher:
         self.close()
 
 
+def fold_health(own_reasons: Iterable[str],
+                peer_health: Dict[str, Optional[Dict]], *,
+                clock: Callable[[], float] = time.time) -> Dict:
+    """Fold per-peer health documents into one fleet ``{ok, status,
+    reasons}`` answer: the front door's ``/healthz`` body, so a single
+    probe answers "is the fleet serving".
+
+    ``own_reasons`` are the door's local degradations (draining, open
+    breakers, ejected peers); ``peer_health`` maps peer name → its last
+    fetched ``/healthz`` body (None = unreachable/never fetched).  A
+    peer's own reasons fold in prefixed with its name; ``status`` is
+    ``"ok"`` only when nothing anywhere is degraded, ``"degraded"``
+    while any peer (or the door) carries a reason but the fleet can
+    still serve, and the caller may override to ``"down"`` when no
+    peers remain routable."""
+    reasons: List[str] = list(own_reasons)
+    peers_ok = 0
+    for name, doc in sorted(peer_health.items()):
+        if doc is None:
+            reasons.append(f"peer-unreachable:{name}")
+            continue
+        if doc.get("ok"):
+            peers_ok += 1
+            continue
+        peers_ok += 1  # degraded but answering — still serving
+        for r in doc.get("reasons") or ["degraded"]:
+            reasons.append(f"peer:{name}:{r}")
+    status = "ok" if not reasons else ("degraded" if peers_ok else "down")
+    return {"ok": not reasons, "status": status, "reasons": reasons,
+            "peers": len(peer_health), "peers_ok": peers_ok,
+            "t": clock()}
+
+
 # -- health hooks -----------------------------------------------------------
 
 # Named callables other planes register so /healthz can degrade honestly
@@ -889,3 +936,149 @@ def merge_spool(spool_dir: str) -> Tuple[Dict, List[Dict]]:
             latest[key] = s
     report = merge_fleet([s for _, s in best.values()])
     return report, list(latest.values())
+
+
+# -- per-request access records: read / filter / aggregate ---------------
+
+
+def read_requests(src: str, tail: Optional[int] = None) -> List[Dict]:
+    """Access records from a request-log spool: ``src`` is a directory
+    (every ``requests-*.jsonl`` member, rotations included), a single
+    ``.jsonl`` file, or a rotated member.  Records come back
+    time-ordered; a torn line (a process SIGKILLed mid-write) HEALS
+    (skipped) and COUNTS (``monitor.torn_lines``) — the spool-reader
+    rule.  ``tail`` keeps only the newest N."""
+    paths: List[str] = []
+    if os.path.isdir(src):
+        paths = sorted(glob.glob(os.path.join(src, "requests-*.jsonl*")))
+        if not paths:
+            paths = sorted(glob.glob(os.path.join(src, "*.jsonl*")))
+    else:
+        paths = [src]
+    records: List[Dict] = []
+    torn = 0
+    for path in paths:
+        try:
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        doc = json.loads(line)
+                    except ValueError:
+                        torn += 1
+                        continue
+                    if isinstance(doc, dict):
+                        records.append(doc)
+        except OSError:
+            continue
+    if torn:
+        process_timeline().count("monitor.torn_lines", torn)
+    records.sort(key=lambda r: r.get("t", 0.0))
+    if tail is not None:
+        records = records[-max(0, int(tail)):]
+    return records
+
+
+def filter_requests(records: Iterable[Dict], *,
+                    slow_ms: Optional[float] = None,
+                    status: Optional[str] = None,
+                    client: Optional[str] = None,
+                    role: Optional[str] = None,
+                    since: Optional[float] = None,
+                    until: Optional[float] = None) -> List[Dict]:
+    """The ``requests`` command's filter: keep records at least
+    ``slow_ms`` slow, matching a status (name like ``overloaded`` or
+    HTTP code like ``503``), a client, a role (door/peer/serve), and/or
+    inside a ``[since, until]`` epoch window (``--since/--until`` go
+    through :func:`blit_torch.history.parse_when`)."""
+    out = []
+    for r in records:
+        if slow_ms is not None and r.get("duration_s", 0.0) * 1e3 < slow_ms:
+            continue
+        if since is not None and float(r.get("t", 0.0)) < since:
+            continue
+        if until is not None and float(r.get("t", 0.0)) > until:
+            continue
+        if status is not None and not (
+                str(r.get("status")) == status
+                or str(r.get("code")) == status):
+            continue
+        if client is not None and r.get("client") != client:
+            continue
+        if role is not None and r.get("role") != role:
+            continue
+        out.append(r)
+    return out
+
+
+def aggregate_requests(records: Iterable[Dict],
+                       slowest: int = 5) -> Dict:
+    """One summary over a record set: counts by status/tier/role —
+    and, for catalog-addressed asks (door records carry
+    ``session``/``scan``), by ``session/scan`` — latency p50/p99/max
+    (via the bounded histogram), total bytes, and the slowest records
+    (each carrying its trace id — the page → record → trace pivot)."""
+    records = list(records)
+    by_status: Dict[str, int] = {}
+    by_tier: Dict[str, int] = {}
+    by_role: Dict[str, int] = {}
+    by_scan: Dict[str, int] = {}
+    lat = HistogramStats()
+    total_bytes = 0
+    hedges = hedge_wins = 0
+    for r in records:
+        by_status[str(r.get("status"))] = (
+            by_status.get(str(r.get("status")), 0) + 1)
+        if r.get("tier"):
+            by_tier[str(r["tier"])] = by_tier.get(str(r["tier"]), 0) + 1
+        by_role[str(r.get("role"))] = by_role.get(str(r.get("role")), 0) + 1
+        if r.get("session"):
+            key = (f"{r['session']}/{r['scan']}" if r.get("scan")
+                   else str(r["session"]))
+            by_scan[key] = by_scan.get(key, 0) + 1
+        lat.observe(float(r.get("duration_s", 0.0)))
+        total_bytes += int(r.get("bytes", 0) or 0)
+        if r.get("hedged"):
+            hedges += 1
+            if r.get("hedge_won"):
+                hedge_wins += 1
+    slow = sorted(records, key=lambda r: r.get("duration_s", 0.0),
+                  reverse=True)[:max(0, int(slowest))]
+    return {
+        "records": len(records),
+        "by_status": by_status,
+        "by_tier": by_tier,
+        "by_role": by_role,
+        "by_scan": by_scan,
+        "p50_s": round(lat.percentile(0.50), 6),
+        "p99_s": round(lat.percentile(0.99), 6),
+        "max_s": round(lat.vmax, 6),
+        "bytes": total_bytes,
+        "hedged": hedges,
+        "hedge_won": hedge_wins,
+        "slowest": [
+            {k: r.get(k) for k in ("t", "rid", "trace", "role", "client",
+                                   "fp", "tier", "peer", "status",
+                                   "session", "scan",
+                                   "duration_s") if r.get(k) is not None}
+            for r in slow
+        ],
+    }
+
+
+def render_requests(records: Iterable[Dict]) -> str:
+    """Access records as a readable table (the ``requests`` default)."""
+    lines = [f"{'when':<8} {'role':<5} {'status':<10} {'tier':<9} "
+             f"{'ms':>9} {'client':<10} {'peer':<8} trace"]
+    for r in records:
+        when = time.strftime("%H:%M:%S", time.gmtime(r.get("t", 0.0)))
+        lines.append(
+            f"{when:<8} {str(r.get('role', '-')):<5} "
+            f"{str(r.get('status', '-')):<10} "
+            f"{str(r.get('tier') or '-'):<9} "
+            f"{r.get('duration_s', 0.0) * 1e3:>9.2f} "
+            f"{str(r.get('client', '-')):<10} "
+            f"{str(r.get('peer') or '-'):<8} {r.get('trace', '-')}")
+    return "\n".join(lines)

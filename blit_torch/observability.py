@@ -52,9 +52,12 @@ pool records each dispatch as a span, ships its ``{"trace", "span"}``
 context to a remote agent, and the agent's span parents onto it.
 :func:`configure_logging` stamps host and worker into every
 ``blit_torch`` log record (:class:`HostContextFilter`), as JSON lines on
-request (:class:`JsonLineFormatter`).  The Chrome trace export, the
-pool's fleet harvest (``telemetry_snapshot``) and ``profile_trace`` are
-not ported (ROADMAP.md Queue 1 item 8).
+request (:class:`JsonLineFormatter`).  The serve plane writes one
+access record a request through :class:`RequestLog`
+(:func:`request_log_for`, ``BLIT_REQUEST_LOG``) and serves
+:func:`telemetry_snapshot` as its ``/snapshot`` body.  The Chrome trace
+export, the pool's fleet harvest over ``telemetry_snapshot`` and
+``profile_trace`` are not ported (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -131,6 +134,16 @@ _LOG2 = math.log(2.0)
 # off.
 _EXEMPLARS = os.environ.get("BLIT_EXEMPLARS", "1").lower() not in (
     "0", "false", "off", "")
+
+
+def set_exemplars(enabled: bool) -> None:
+    """Turn per-bucket trace-id exemplars on or off process-wide."""
+    global _EXEMPLARS
+    _EXEMPLARS = bool(enabled)
+
+
+def exemplars_enabled() -> bool:
+    return _EXEMPLARS
 
 # Captured once at import: this process's (epoch, monotonic) clock pair,
 # shipped beside every spool sample so readers can align processes.
@@ -573,6 +586,28 @@ def process_timeline() -> Timeline:
     return _PROCESS_TL
 
 
+def telemetry_snapshot(reset: bool = False, spans: bool = True) -> Dict:
+    """This process's telemetry as plain builtins (the ``/snapshot``
+    body): host / pid / worker, the wall anchor, the process timeline's
+    state, the fault counters and the finished spans.  ``reset=True``
+    zeroes the process timeline and drains the spans afterwards."""
+    from blit_torch import faults
+
+    out = {
+        "host": hostname(),
+        "pid": os.getpid(),
+        "worker": _WORKER,
+        "anchor": wall_anchor(),
+        "timeline": _PROCESS_TL.state(),
+        "faults": faults.counters(),
+        "spans": _TRACER.span_dicts() if spans else [],
+    }
+    if reset:
+        _PROCESS_TL.reset()
+        _TRACER.reset()
+    return out
+
+
 class StallWatchdog:
     """The progress discipline of every threaded plane: the thread that
     owns progress calls :meth:`beat` (back-pressure waits count as
@@ -804,6 +839,100 @@ def span_dicts() -> List[Dict]:
 
 
 # -- fleet report and Prometheus text ------------------------------------
+
+
+# -- per-request access records -----------------------------------------------
+
+
+class RequestLog:
+    """A bounded JSON-lines log of per-request access records: one line
+    per request (request and trace id, fingerprint, client, priority,
+    tier, queue wait, routed peer, hedge, bytes, status), which the
+    ``requests`` command tails, filters and aggregates.
+
+    When the live file passes ``max_bytes`` it rotates to ``<path>.1`` ..
+    ``<path>.<max_files-1>`` and the oldest rolls off, so a log holds at
+    most ``max_bytes * max_files``.  :meth:`record` never raises."""
+
+    def __init__(self, path: str, *, max_bytes: int = 8 << 20,
+                 max_files: int = 4):
+        self.path = path
+        self.max_bytes = max(4096, int(max_bytes))
+        self.max_files = max(1, int(max_files))
+        self._lock = threading.Lock()
+        self._f = None
+        self._size = 0
+
+    def _open(self) -> None:
+        d = os.path.dirname(self.path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._f = open(self.path, "a")
+        self._size = self._f.tell()
+
+    def _rotate_locked(self) -> None:
+        self._f.close()
+        self._f = None
+        if self.max_files == 1:
+            os.remove(self.path)
+        else:
+            for i in range(self.max_files - 1, 0, -1):
+                src = self.path if i == 1 else f"{self.path}.{i - 1}"
+                dst = f"{self.path}.{i}"
+                if os.path.exists(src):
+                    os.replace(src, dst)
+        self._open()
+
+    def record(self, **fields) -> None:
+        """Append one record, stamped with ``t``; None fields are
+        dropped."""
+        try:
+            doc = {"t": round(time.time(), 6)}
+            doc.update({k: v for k, v in fields.items() if v is not None})
+            line = json.dumps(doc) + "\n"
+            with self._lock:
+                if self._f is None:
+                    self._open()
+                self._f.write(line)
+                self._f.flush()
+                self._size += len(line)
+                if self._size >= self.max_bytes:
+                    self._rotate_locked()
+        except Exception:  # noqa: BLE001 — logging must not fail requests
+            log.warning("request log append failed", exc_info=True)
+
+    def files(self) -> List[str]:
+        """Every rotation member that exists, oldest first."""
+        out = [f"{self.path}.{i}"
+               for i in range(self.max_files - 1, 0, -1)
+               if os.path.exists(f"{self.path}.{i}")]
+        if os.path.exists(self.path):
+            out.append(self.path)
+        return out
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                with contextlib.suppress(OSError):
+                    self._f.close()
+                self._f = None
+
+
+def request_log_for(role: str, config=None) -> Optional[RequestLog]:
+    """The configured :class:`RequestLog` of a serving component
+    (``requests-<role>-<host>-<pid>.jsonl`` under the configured
+    directory), or None when request logging is off.  Also applies the
+    config's ``exemplars`` knob process-wide."""
+    from blit_torch.config import DEFAULT, request_log_defaults
+
+    d = request_log_defaults(DEFAULT if config is None else config)
+    set_exemplars(d["exemplars"])
+    if not d["dir"]:
+        return None
+    path = os.path.join(
+        d["dir"], f"requests-{role}-{hostname()}-{os.getpid()}.jsonl")
+    return RequestLog(path, max_bytes=d["max_bytes"],
+                      max_files=d["files"])
 
 
 def merge_fleet(snapshots: Iterable[Optional[Dict]],

@@ -102,6 +102,9 @@ class DedopplerReducer:
     ntap: int = 4
     nint: int = 1
     window: str = "hamming"
+    # The inner reduction's transform ("auto" | "direct" | "four_step"),
+    # as on RawReducer; part of the product fingerprint.
+    fft_method: str = "auto"
     dtype: str = "float32"
     # None → blit_torch.config.search_defaults().
     window_spectra: Optional[int] = None
@@ -117,6 +120,11 @@ class DedopplerReducer:
     output_stall_timeout_s: Optional[float] = None
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)
+
+    # Fixed facets of the search reduction (the fingerprint reads these
+    # off the reducer like any other's).
+    stokes = "I"
+    fqav_by = 1
 
     def __post_init__(self):
         if os.environ.get("BLIT_SYNC_OUTPUT"):
@@ -137,7 +145,7 @@ class DedopplerReducer:
         _check_window(self.window_spectra)
         self._red = RawReducer(
             nfft=self.nfft, ntap=self.ntap, nint=self.nint, stokes="I",
-            window=self.window, dtype=self.dtype,
+            window=self.window, fft_method=self.fft_method, dtype=self.dtype,
             chunk_frames=self.chunk_frames, prefetch_depth=self.prefetch_depth,
             out_depth=self.out_depth, async_output=self.async_output,
             output_stall_timeout_s=self.output_stall_timeout_s,

@@ -9,8 +9,9 @@ nfft 2^21 and one at nfft 6144, drives channelize's opt-in routes
 (detect_kernel="pallas", dft_order="twisted", one-pol input,
 fft_method="direct"), recovers injected ±20-bin drifts, and turns 64
 per-antenna recordings into tied-array beam power and FX visibilities
-at the array scale, all through the kernels, then drives the
-reference's own API (inventory, the reduce_raw fan-out over a worker
+at the array scale, all through the kernels, serves products through
+the serve plane (ProductService, fleet peers, fsck, the catalog), then
+drives the reference's own API (inventory, the reduce_raw fan-out over a worker
 pool, load_scan, get_data / get_kurtosis, remote agents) over one band
 of eight banks, drives the live plane (streams from a replay, a growing
 file and packets, a rejoin, the metrics publisher) and the command
@@ -296,6 +297,36 @@ Phases, in order; any failure exits non-zero:
       recover.detect_s / resume_s printed, products byte-identical; and
       python -m blit_torch scan (--sharded), chaos --workload scan and
       session (2 replay seats, one killed) as subprocesses at once.
+  (s) the serve plane, in two places.  After (r2), on (d)'s recording
+      and products: (s1) a ProductService on the card (RAM tier of
+      6 GiB) serves ProductRequest(raw, product="0000") at full width,
+      byte-equal to reducer_for_product("0000").reduce on the card, then
+      a RAM hit with zero launches; with the cache cleared, 8 identical
+      asks at once run one reduction (scheduled 1, coalesced 7, the
+      launches of one reduction); an in-process PeerServer answers the
+      binary wire twice (the second a wire hit: zero launches, its GB/s
+      printed); (s2) a kind="hits" ask at search_defaults() equal to
+      (h)'s .hits (hits_from_array) and to the direct reduction's bytes;
+      (s3) two `python -m blit_torch fleet-peer --device cuda` processes
+      (RAM tier, heartbeat leases, request logs), started together,
+      behind this process's FleetFrontDoor on the binary wire: 0002,
+      0001 and hits asks byte-equal to direct reductions (run on a
+      thread meanwhile), each repeat from the owner's RAM or wire tier;
+      the owner of 0002 SIGKILLed, ejected by its lease, 0002 re-routed
+      byte-identically; the other SIGTERMed, draining to exit 0;
+      `python -m blit_torch requests` over the logs lists every ask;
+      (s4) `python -m blit_torch fsck` over copies of (d)'s 0002 and
+      0001 products with their manifests: exit 0, then, one byte
+      flipped, exit 1 naming the product and quarantining it; when h5py
+      imports (else one line naming what is missing), the disk and cold
+      tiers, the scrubber and fsck --repair.  After (r), over (p)'s band
+      tree: (s5) a fleet-peer with --catalog-root serves a (session,
+      scan, band, bank) ask byte-equal to the explicit-path ask and the
+      direct reduction (and, with h5py, backfill of two players).  Every
+      cache asserts publish.error == 0.  Prints each ask's cold and hot
+      wall, the coalesced and scheduled counts, the peers' spawn
+      seconds, detect and re-route seconds after the kill, and phase
+      (s)'s seconds, beside the card's name and power limit.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -309,6 +340,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -940,6 +972,10 @@ EXPECTED = {
     "mesh 0000": (_plan("fused1", "tail2_detect", "tail2_detect"),
                   ("pfb_dft1", "tail2_detect")),
     "gbt search": (_plan("pallas", "dft_last"),
+                   ("pfb_dequant", "dft_last", "taylor_tree")),
+    "serve 0000": (_plan("fused1", "tail2_detect", "tail2_detect"),
+                   ("pfb_dft1", "tail2_detect")),
+    "serve hits": (_plan("pallas", "dft_last"),
                    ("pfb_dequant", "dft_last", "taylor_tree")),
 }
 
@@ -3788,7 +3824,8 @@ def phase_mesh(torch, dev, smi, tree=None):
         if any(v[0] != 0 for v in outs.values()) or not all(same):
             raise AssertionError(f"mesh command line: {outs}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not (tree and tree.get("root") == root):  # a handed tree is the caller's
+            shutil.rmtree(root, ignore_errors=True)
     log(f"mesh: phase (r) over the band tree took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -3926,6 +3963,515 @@ def phase_mesh_array(torch, dev, tmp, smi):
     return counts, []
 
 
+# (s) the serve plane: ProductService, the content-addressed cache, the
+# fleet wire and front door, the catalog, fsck.  Peers are
+# `python -m blit_torch fleet-peer` processes on the card, started together.
+SERVE_RAM_BYTES = 6 << 30       # (s1): holds the 0000 product and its wire body
+SERVE_PEERS = 2                 # (s3)
+SERVE_PEER_RAM_BYTES = 1 << 30
+SERVE_PEER_TTL = 2.0            # (s3): the door's lease TTL, seconds
+SERVE_COALESCED = 8             # (s1): identical asks submitted at once
+SERVE_TIMEOUT = 300
+
+
+def _serve_env(reqlog):
+    """Environment of a fleet-peer child: this checkout on PYTHONPATH,
+    its request log under ``reqlog``."""
+    env = dict(os.environ, BLIT_REQUEST_LOG=reqlog)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def spawn_fleet_peers(work, n, env, extra=()):
+    """Start ``n`` fleet-peer processes at once on CLI_DEVICE, RAM tier
+    only, beating leases in ``work/leases``.  Returns (procs, name → url,
+    lease dir, spawn seconds)."""
+    from blit_torch.serve.http import wait_http_ready
+
+    lease = os.path.join(work, "leases")
+    t0 = time.perf_counter()
+    procs, peers = [], {}
+    for i in range(n):
+        cmd = [sys.executable, "-m", "blit_torch", "fleet-peer",
+               "--name", f"peer{i}", "--lease-dir", lease, "--proc", str(i),
+               "--port", "0", "--port-file", os.path.join(work, f"peer{i}.port"),
+               "--beat-interval", "0.1", "--ram-bytes", str(SERVE_PEER_RAM_BYTES),
+               "--retry-seed", str(i), "--device", CLI_DEVICE, *extra]
+        log_f = open(os.path.join(work, f"peer{i}.log"), "w")
+        procs.append(subprocess.Popen(cmd, env=env, stdout=log_f,
+                                      stderr=subprocess.STDOUT))
+        log_f.close()
+    try:
+        for i in range(n):
+            pf = os.path.join(work, f"peer{i}.port")
+            deadline = time.monotonic() + SERVE_TIMEOUT
+            while not os.path.exists(pf):
+                if procs[i].poll() is not None or time.monotonic() > deadline:
+                    with open(os.path.join(work, f"peer{i}.log")) as f:
+                        raise AssertionError(f"serve: peer{i} did not come up: "
+                                             f"{f.read()[-2000:]}")
+                time.sleep(0.05)
+            with open(pf) as f:
+                url = f"http://127.0.0.1:{int(f.read())}"
+            wait_http_ready(url, timeout_s=SERVE_TIMEOUT)
+            peers[f"peer{i}"] = url
+    except BaseException:
+        stop_procs(procs)
+        raise
+    return procs, peers, lease, time.perf_counter() - t0
+
+
+def stop_procs(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait(timeout=30)
+
+
+def ask_peer(url, request, binary=True):
+    """One /product round trip to a peer → (status, tier, header, data,
+    payload bytes, seconds)."""
+    from blit_torch.serve import http as shttp
+
+    hdrs = {"Content-Type": "application/json"}
+    if binary:
+        hdrs["Accept"] = shttp.WIRE_CTYPE
+    t0 = time.perf_counter()
+    st, rh, body = shttp.http_request(
+        "POST", url, "/product",
+        body=json.dumps(shttp.wire_request(request)).encode(),
+        headers=hdrs, timeout=SERVE_TIMEOUT)
+    dt = time.perf_counter() - t0
+    if st != 200:
+        raise AssertionError(f"serve: peer answered {st}: {body[:300]!r}")
+    if rh.get("content-type", "").startswith(shttp.WIRE_CTYPE):
+        hdr, data = shttp.decode_product_wire(body)
+    else:
+        hdr, data = shttp.decode_product(json.loads(body))
+    return st, rh.get(shttp.TIER_HEADER.lower()), hdr, data, len(body), dt
+
+
+def same_product(what, got, want):
+    """Header equal and payload byte-equal, else raise."""
+    (gh, gd), (wh, wd) = got, want
+    if gh != wh:
+        raise AssertionError(f"serve {what}: header differs from the direct "
+                             f"reduction's")
+    if gd.shape != wd.shape or gd.dtype != wd.dtype or gd.tobytes() != wd.tobytes():
+        raise AssertionError(f"serve {what}: product differs from the direct "
+                             f"reduction's")
+
+
+def check_publish(what, cache):
+    st = cache.stats()
+    if st.get("publish.error", 0):
+        raise AssertionError(f"serve {what}: {st['publish.error']} failed "
+                             "publishes")
+    return st
+
+
+def phase_serve_service(torch, dev, raw_path, tmp, smi):
+    """(s1), (s2): ProductService on the card, RAM tier.  Returns the
+    launch counts of the serve paths."""
+    import numpy as np
+
+    from blit_torch.io.hits import read_hits
+    from blit_torch.observability import Timeline
+    from blit_torch.ops import channelize as tch
+    from blit_torch.pipeline import reducer_for_product
+    from blit_torch.search import DedopplerReducer, hits_from_array
+    from blit_torch.serve import (
+        PeerServer,
+        ProductCache,
+        ProductRequest,
+        ProductService,
+        Scheduler,
+    )
+
+    counts = {}
+    tl = Timeline()
+    cache = ProductCache(None, ram_bytes=SERVE_RAM_BYTES, timeline=tl)
+    svc = ProductService(cache=cache, timeline=tl, device=dev,
+                         scheduler=Scheduler(max_concurrency=2, queue_depth=16,
+                                             timeline=tl))
+    server = None
+    try:
+        # (s1) the 0000 product, cold, then against the direct reduction.
+        req = ProductRequest(raw=raw_path, product="0000")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = svc.get(req, timeout=SERVE_TIMEOUT)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts["serve 0000"] = cold = read_launches()
+        check_plan("serve 0000", tch.last_kernel_plan(), cold)
+        t0 = time.perf_counter()
+        want = reducer_for_product("0000", device=dev).reduce(raw_path)
+        direct_s = time.perf_counter() - t0
+        same_product("0000", got, want)
+        if not np.isfinite(got[1]).all():
+            raise AssertionError("serve 0000: non-finite product values")
+        del want
+        reset_launches()
+        t0 = time.perf_counter()
+        t = svc.submit(req)
+        hot = svc.result(t, timeout=10)
+        hot_s = time.perf_counter() - t0
+        if t.source != "ram" or hot[1] is not got[1] or any(read_launches().values()):
+            raise AssertionError(f"serve 0000: the repeat ask was not a RAM hit "
+                                 f"({t.source}) or launched a kernel")
+        log(f"serve (s1): 0000 through ProductService, {got[1].nbytes / 2**30:.3f} "
+            f"GiB: cold {cold_s:.3f} s (direct reduce {direct_s:.3f} s), RAM hit "
+            f"{hot_s * 1e3:.3f} ms, byte-equal to the direct reduction, launches "
+            f"{json.dumps({k: cold[k] for k in ('pfb_dft1', 'tail2_detect')})}; "
+            f"card: {smi}")
+
+        # Eight identical asks at once: one reduction.
+        cache.clear()
+        c0 = dict(svc.counts)
+        reset_launches()
+        t0 = time.perf_counter()
+        tickets = [svc.submit(req, client=f"c{i}") for i in range(SERVE_COALESCED)]
+        outs = [svc.result(tk, timeout=SERVE_TIMEOUT) for tk in tickets]
+        torch.cuda.synchronize()
+        co_s = time.perf_counter() - t0
+        launches = read_launches()
+        delta = {k: svc.counts[k] - c0[k] for k in ("scheduled", "coalesced")}
+        log(f"serve (s1): {SERVE_COALESCED} identical 0000 asks at once in "
+            f"{co_s:.3f} s: scheduled {delta['scheduled']}, coalesced "
+            f"{delta['coalesced']}, launches {json.dumps(launches)}; card: {smi}")
+        if (delta != {"scheduled": 1, "coalesced": SERVE_COALESCED - 1}
+                or launches != cold
+                or any(o[1] is not outs[0][1] for o in outs)
+                or outs[0][1].tobytes() != got[1].tobytes()):
+            raise AssertionError("serve 0000: the identical asks did not share "
+                                 "one reduction")
+        del outs, tickets
+
+        # The binary wire through an in-process peer: the first ask
+        # encodes and keeps the frame, the second is a wire hit.
+        server = PeerServer(svc, name="s1").start()
+        reset_launches()
+        _, tier1, h1, d1, nb, first_s = ask_peer(server.url, req)
+        _, tier2, h2, d2, nb2, wire_s = ask_peer(server.url, req)
+        if any(read_launches().values()):
+            raise AssertionError("serve 0000: a wire hit launched a kernel")
+        same_product("0000 wire", (h2, d2), got)
+        if tier1 != "ram" or tier2 != "ram" or cache.stats()["wire_entries"] != 1:
+            raise AssertionError(f"serve 0000: wire tiers {tier1}, {tier2}, "
+                                 f"{cache.stats()}")
+        log(f"serve (s1): 0000 over the binary wire: first {first_s:.3f} s "
+            f"(encode kept), hot wire hit {wire_s:.3f} s for {nb2 / 1e9:.3f} GB "
+            f"= {nb2 / wire_s / 1e9:.3f} GB/s, zero launches; card: {smi}")
+        del d1, d2, h1, h2
+        server.close()
+        server = None
+        cache.clear()
+        del got, hot
+        torch.cuda.empty_cache()
+
+        # (s2) a hits ask at search_defaults() against (h)'s .hits.
+        hreq = ProductRequest(raw=raw_path, kind="hits", nfft=SEARCH_NFFT, nint=1)
+        reset_launches()
+        t0 = time.perf_counter()
+        hh, hd = svc.get(hreq, timeout=SERVE_TIMEOUT)
+        torch.cuda.synchronize()
+        hits_s = time.perf_counter() - t0
+        counts["serve hits"] = hl = read_launches()
+        check_plan("serve hits", tch.last_kernel_plan(), hl)
+        _, file_hits = read_hits(os.path.join(tmp, "smoke.hits"))
+        mine = hits_from_array(hd, hh)
+        if [h.record() for h in mine] != [h.record() for h in file_hits]:
+            raise AssertionError("serve hits: the hits differ from (h)'s .hits")
+        want = DedopplerReducer(nfft=SEARCH_NFFT, nint=1, device=dev).reduce(raw_path)
+        same_product("hits", (hh, hd), want)
+        t0 = time.perf_counter()
+        t = svc.submit(hreq)
+        svc.result(t, timeout=10)
+        log(f"serve (s2): hits ask at search_defaults(): {len(mine)} hits equal "
+            f"to (h)'s .hits and the direct reduction's bytes, cold {hits_s:.3f} s, "
+            f"{t.source} hit {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+            f"taylor_tree launches {hl['taylor_tree']}; card: {smi}")
+        st = check_publish("(s1, s2)", cache)
+        log(f"serve (s1, s2): service counts {json.dumps(svc.counts)}, cache "
+            f"{json.dumps(st)}")
+    finally:
+        if server is not None:
+            server.close()
+        svc.close()
+    return counts
+
+
+def phase_serve_fleet(torch, dev, raw_path, tmp, smi):
+    """(s3): two fleet-peer processes on the card behind this process's
+    FleetFrontDoor on the binary wire; a peer SIGKILLed, the other
+    drained by SIGTERM; the requests command over their logs."""
+    from blit_torch.config import DEFAULT
+    from blit_torch.pipeline import reducer_for_product
+    from blit_torch.search import DedopplerReducer
+    from blit_torch.serve import FleetFrontDoor, ProductRequest
+
+    work = os.path.join(tmp, "fleet")
+    reqlog = os.path.join(work, "reqlog")
+    os.makedirs(work)
+    env = _serve_env(reqlog)
+    procs, peers, lease, spawn_s = spawn_fleet_peers(work, SERVE_PEERS, env)
+    door = None
+    try:
+        log(f"serve (s3): {SERVE_PEERS} fleet-peer processes on {CLI_DEVICE} up in "
+            f"{spawn_s:.2f} s; card: {smi}")
+        door = FleetFrontDoor(peers, lease_dir=lease, peer_ttl_s=SERVE_PEER_TTL,
+                              poll_s=0.05, hedge_floor_s=SERVE_TIMEOUT,
+                              request_timeout_s=SERVE_TIMEOUT,
+                              config=DEFAULT.with_(request_log_dir=reqlog)).start()
+        asks = {
+            "0002": (ProductRequest(raw=raw_path, product="0002"),
+                     lambda: reducer_for_product("0002", device=dev).reduce(raw_path)),
+            "0001": (ProductRequest(raw=raw_path, product="0001"),
+                     lambda: reducer_for_product("0001", device=dev).reduce(raw_path)),
+            "hits": (ProductRequest(raw=raw_path, kind="hits", nfft=SEARCH_NFFT,
+                                    nint=1),
+                     lambda: DedopplerReducer(nfft=SEARCH_NFFT, nint=1,
+                                              device=dev).reduce(raw_path)),
+        }
+        # The direct reductions run in this process on a thread of their
+        # own while the peers serve the same asks (0001's default 128
+        # frames a chunk makes both take tens of seconds).
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=1)
+        pending = {name: pool.submit(fn) for name, (_, fn) in asks.items()}
+        pool.shutdown(wait=False)
+        rows, direct = {}, {}
+        for name, (req, fn) in asks.items():
+            t0 = time.perf_counter()
+            got = door.get(req)
+            cold = time.perf_counter() - t0
+            direct[name] = pending[name].result(timeout=SERVE_TIMEOUT)
+            same_product(f"fleet {name}", got, direct[name])
+            t0 = time.perf_counter()
+            again = door.get(req)
+            hot = time.perf_counter() - t0
+            same_product(f"fleet {name} repeat", again, direct[name])
+            rows[name] = {"owner": door.ring.owner(req.fingerprint()),
+                          "cold_s": round(cold, 6), "hot_s": round(hot, 6),
+                          "bytes": int(got[1].nbytes)}
+        from blit_torch.monitor import read_requests
+
+        door_recs = [r for r in read_requests(reqlog) if r.get("role") == "door"]
+        tiers = [r.get("tier") for r in door_recs]
+        log(f"serve (s3): asks through the door, byte-equal to the direct "
+            f"reductions: {json.dumps(rows)}; door tiers {tiers}; card: {smi}")
+        if not all(t in ("ram", "wire") for t in tiers[1::2]):
+            raise AssertionError(f"serve fleet: a repeat ask missed the peer's "
+                                 f"RAM/wire tier: {tiers}")
+
+        # SIGKILL the owner of 0002: ejected by its lease, re-routed.
+        req = asks["0002"][0]
+        owner = rows["0002"]["owner"]
+        victim = procs[int(owner[len("peer"):])]
+        t_kill = time.perf_counter()
+        victim.kill()
+        victim.wait(timeout=30)
+        deadline = time.monotonic() + 10 * SERVE_PEER_TTL
+        while owner in door.ring and time.monotonic() < deadline:
+            time.sleep(0.01)
+        detect_s = time.perf_counter() - t_kill
+        if owner in door.ring:
+            raise AssertionError(f"serve fleet: {owner} was never ejected")
+        t0 = time.perf_counter()
+        rerouted = door.get(req)
+        reroute_s = time.perf_counter() - t0
+        same_product("fleet 0002 after the kill", rerouted, direct["0002"])
+        survivor_name = next(n for n in peers if n != owner)
+        survivor = procs[int(survivor_name[len("peer"):])]
+        log(f"serve (s3): SIGKILL {owner}: ejected after {detect_s:.3f} s "
+            f"(TTL {SERVE_PEER_TTL} s), 0002 re-routed to {survivor_name} in "
+            f"{reroute_s:.3f} s, byte-identical; card: {smi}")
+        t0 = time.perf_counter()
+        survivor.send_signal(signal.SIGTERM)
+        rc = survivor.wait(timeout=SERVE_TIMEOUT)
+        log(f"serve (s3): SIGTERM {survivor_name}: drained and exited {rc} in "
+            f"{time.perf_counter() - t0:.3f} s; card: {smi}")
+        if rc != 0:
+            raise AssertionError(f"serve fleet: the drained peer exited {rc}")
+        door.close()
+        door = None
+        out = subprocess.run([sys.executable, "-m", "blit_torch", "requests",
+                              reqlog, "--json"], capture_output=True, text=True,
+                             timeout=SERVE_TIMEOUT, env=env)
+        recs = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+        by_role = {}
+        for r in recs:
+            by_role[r.get("role")] = by_role.get(r.get("role"), 0) + 1
+        log(f"serve (s3): python -m blit_torch requests: rc {out.returncode}, "
+            f"records by role {json.dumps(by_role)}")
+        if (out.returncode != 0 or by_role.get("door") != 2 * len(asks) + 1
+                or not by_role.get("peer")
+                or any(r.get("status") != "ok" for r in recs)):
+            raise AssertionError(f"serve fleet: the request logs: {out.stderr[-2000:]}")
+        return {"spawn_s": spawn_s, "detect_s": detect_s, "reroute_s": reroute_s}
+    finally:
+        if door is not None:
+            door.close()
+        stop_procs(procs)
+
+
+def _flip_byte(path, from_end=64):
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) - from_end)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+
+def h5py_missing():
+    """None when h5py imports, else why not (the disk and cold tiers,
+    the scrubber, backfill and fsck --repair write FBH5)."""
+    try:
+        import h5py  # noqa: F401
+    except Exception as e:  # noqa: BLE001 — reported on the skip line
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def phase_serve_fsck(torch, dev, raw_path, tmp, smi):
+    """(s4): python -m blit_torch fsck over copies of (d)'s .fil products
+    and their manifests; then, when h5py imports, the disk and cold tiers,
+    the scrubber and fsck --repair on the card."""
+    env = _serve_env("")
+    tree = os.path.join(tmp, "fsck")
+    os.makedirs(tree)
+    for p in ("0002", "0001"):
+        for suffix in ("", ".manifest.json"):
+            shutil.copyfile(os.path.join(tmp, f"smoke.{p}.fil{suffix}"),
+                            os.path.join(tree, f"smoke.{p}.fil{suffix}"))
+
+    def fsck(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "blit_torch", "fsck", *args],
+                             capture_output=True, text=True, timeout=SERVE_TIMEOUT,
+                             env=env)
+        rep = json.loads(out.stdout.strip().splitlines()[-1]) if out.stdout.strip() else {}
+        return out.returncode, rep, time.perf_counter() - t0
+
+    rc0, rep0, s0 = fsck(tree)
+    _flip_byte(os.path.join(tree, "smoke.0001.fil"))
+    rc1, rep1, s1 = fsck(tree)
+    bad = [e["path"] for e in rep1.get("bad", [])]
+    quarantined = os.path.exists(os.path.join(tree, ".quarantine", "smoke.0001.fil"))
+    log(f"serve (s4): fsck over (d)'s 0002 and 0001 products: clean rc {rc0} "
+        f"({rep0.get('checked')} checked, {s0:.2f} s), one flipped byte rc {rc1}, "
+        f"bad {bad}, quarantined {quarantined}; card: {smi}")
+    if (rc0, rc1) != (0, 1) or bad != ["smoke.0001.fil"] or not quarantined:
+        raise AssertionError("serve fsck: the flipped byte was not caught")
+    why = h5py_missing()
+    if why is not None:
+        log(f"serve (s4): skipped the disk tier, the cold tier, the scrubber, "
+            f"backfill and fsck --repair: they write FBH5 and h5py does not import "
+            f"here ({why})")
+        return
+    phase_serve_disk(torch, dev, raw_path, tmp, smi, fsck)
+
+
+def phase_serve_disk(torch, dev, raw_path, tmp, smi, fsck):
+    """(s4), with h5py: 0002 and 0001 through a disk tier whose bound
+    demotes 0002 to a cold tier; the cold hit promoted and byte-equal;
+    the scrubber over the entries; one entry flipped and rebuilt by
+    fsck --repair on CLI_DEVICE."""
+    from blit_torch import integrity
+    from blit_torch.serve import ProductCache, ProductRequest, ProductService
+
+    hot = os.path.join(tmp, "serve-hot")
+    cold = os.path.join(tmp, "serve-cold")
+    reqs = {p: ProductRequest(raw=raw_path, product=p) for p in ("0002", "0001")}
+    svc = ProductService(device=dev, cache=ProductCache(hot, ram_bytes=0,
+                                                        disk_bytes=1,
+                                                        cold_dir=cold))
+    try:
+        first = {p: svc.get(r, timeout=SERVE_TIMEOUT) for p, r in reqs.items()}
+        t0 = time.perf_counter()
+        t = svc.submit(reqs["0002"])
+        again = svc.result(t, timeout=SERVE_TIMEOUT)
+        cold_s = time.perf_counter() - t0
+        same_product("0002 cold tier", again, first["0002"])
+        st = check_publish("(s4) disk", svc.cache)
+        scrub = integrity.Scrubber(svc.cache, interval_s=1.0)
+        rows = [scrub.scrub_once() for _ in svc.cache.index()]
+    finally:
+        svc.close()
+    log(f"serve (s4): disk + cold tiers: 0002 served from {t.source} in "
+        f"{cold_s:.3f} s byte-equal; cache {json.dumps(st)}; scrubber "
+        f"{[(r['ok'], r['bytes']) for r in rows if r]}; card: {smi}")
+    if t.source != "cold" or not rows or not all(r and r["ok"] for r in rows):
+        raise AssertionError("serve disk tiers: a cold hit or the scrub failed")
+    fp = svc.cache.index()[0]
+    with open(svc.cache.data_path(fp), "rb") as f:
+        want = f.read()
+    _flip_byte(svc.cache.data_path(fp))
+    rc, rep, secs = fsck(hot, "--repair", "--device", CLI_DEVICE)
+    with open(svc.cache.data_path(fp), "rb") as f:
+        same = f.read() == want
+    log(f"serve (s4): fsck --repair on {CLI_DEVICE}: rc {rc}, repaired "
+        f"{len(rep.get('repaired', []))}, entry byte-identical {same}, "
+        f"{secs:.2f} s; card: {smi}")
+    if not (rep.get("repaired") and same):
+        raise AssertionError("serve fsck --repair: the entry was not re-derived")
+
+
+def phase_serve_catalog(torch, dev, tree, smi):
+    """(s5), over (p)'s band tree: a catalog-addressed ask through a
+    fleet-peer started with --catalog-root equals the explicit-path ask
+    and the direct reduction; with h5py, backfill over two players."""
+    from blit_torch.pipeline import RawReducer
+    from blit_torch.serve import ProductRequest
+
+    root, seqs = tree["root"], tree["seqs"]
+    work = tempfile.mkdtemp(prefix="blit-smoke-serve-")
+    env = _serve_env(os.path.join(work, "reqlog"))
+    procs, peers, _, spawn_s = spawn_fleet_peers(
+        work, 1, env, extra=("--catalog-root", root))
+    try:
+        url = peers["peer0"]
+        bank = 1
+        addressed = ProductRequest(raw="", session=GBT_SESSION, scan=GBT_SCAN,
+                                   band=0, bank=bank, nfft=GBT_NFFT, nint=GBT_NINT)
+        explicit = ProductRequest(raw=tuple(seqs[bank]), nfft=GBT_NFFT,
+                                  nint=GBT_NINT)
+        _, tier_a, ha, da, _, a_s = ask_peer(url, addressed)
+        _, tier_e, he, de, _, e_s = ask_peer(url, explicit)
+        want = RawReducer(nfft=GBT_NFFT, nint=GBT_NINT, device=dev).reduce(
+            list(seqs[bank]))
+        same_product("catalog ask", (ha, da), want)
+        same_product("explicit ask", (he, de), want)
+        log(f"serve (s5): peer with --catalog-root up in {spawn_s:.2f} s; "
+            f"({GBT_SESSION}, {GBT_SCAN}, band 0, bank {bank}) {tier_a} in "
+            f"{a_s:.3f} s, the explicit-path ask {tier_e} in {e_s:.3f} s, both "
+            f"byte-equal to the direct reduction; card: {smi}")
+        if tier_a != "derive" or tier_e not in ("ram", "wire"):
+            raise AssertionError(f"serve catalog: tiers {tier_a}, {tier_e}")
+        procs[0].send_signal(signal.SIGTERM)
+        if procs[0].wait(timeout=SERVE_TIMEOUT) != 0:
+            raise AssertionError("serve catalog: the peer did not drain to 0")
+        if h5py_missing() is None:
+            out = subprocess.run(
+                [sys.executable, "-m", "blit_torch", "backfill", root,
+                 "--cache-dir", os.path.join(work, "backfill"), "--nfft",
+                 str(GBT_NFFT), "--nint", str(GBT_NINT), "--limit", "2",
+                 "--bytes-per-s", "0", "--device", CLI_DEVICE],
+                capture_output=True, text=True, timeout=SERVE_TIMEOUT, env=env)
+            rep = json.loads(out.stdout.strip().splitlines()[-1])
+            log(f"serve (s5): backfill of 2 players: rc {out.returncode}, derived "
+                f"{rep['derived']}, {rep['wall_s']} s; card: {smi}")
+            if out.returncode != 0 or rep["derived"] != 2:
+                raise AssertionError("serve backfill failed")
+    finally:
+        stop_procs(procs)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3987,6 +4533,12 @@ def main() -> int:
         t_mesh = time.perf_counter()
         launches.update(phase_mesh_recording(torch, dev, raw_path, tmp, smi))
         mesh_s = time.perf_counter() - t_mesh
+        # (s1)-(s4) the serve plane on (d)'s recording and products
+        t_serve = time.perf_counter()
+        launches.update(phase_serve_service(torch, dev, raw_path, tmp, smi))
+        fleet = phase_serve_fleet(torch, dev, raw_path, tmp, smi)
+        phase_serve_fsck(torch, dev, raw_path, tmp, smi)
+        serve_s = time.perf_counter() - t_serve
         # (o) resume, the scan, the native reader, .h5 products
         launches.update(phase_resume(torch, dev, raw_path, tmp))
         os.unlink(raw_path)
@@ -4028,9 +4580,20 @@ def main() -> int:
     # (r1), (r3), (r5), (r6): the mesh over (p)'s band tree, the pods, the
     # drills and the command line
     t_mesh = time.perf_counter()
-    launches.update(phase_mesh(torch, dev, smi, band_tree))
-    mesh_s += time.perf_counter() - t_mesh
-    log(f"mesh: phase (r) took {mesh_s:.1f} s in all")
+    try:
+        launches.update(phase_mesh(torch, dev, smi, band_tree))
+        mesh_s += time.perf_counter() - t_mesh
+        log(f"mesh: phase (r) took {mesh_s:.1f} s in all")
+        # (s5) a catalog-addressed ask over the same band tree
+        t_serve = time.perf_counter()
+        phase_serve_catalog(torch, dev, band_tree, smi)
+        serve_s += time.perf_counter() - t_serve
+    finally:
+        if band_tree.get("root"):
+            shutil.rmtree(band_tree["root"], ignore_errors=True)
+    log(f"serve: phase (s) took {serve_s:.1f} s in all (peer spawn "
+        f"{fleet['spawn_s']:.2f} s, detect {fleet['detect_s']:.3f} s, re-route "
+        f"{fleet['reroute_s']:.3f} s); card: {smi}")
 
     from blit_torch import hostmem
 

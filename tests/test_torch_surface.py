@@ -51,7 +51,13 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.stream.cursor", "blit_torch.stream.plane",
             "blit_torch.stream.session", "blit_torch.parallel.mesh",
             "blit_torch.parallel.multihost", "blit_torch.parallel.scan",
-            "blit_torch.parallel.sharded", "blit_torch.recover"} <= set(mods)
+            "blit_torch.parallel.sharded", "blit_torch.recover",
+            "blit_torch.history", "blit_torch.serve",
+            "blit_torch.serve.cache", "blit_torch.serve.catalog",
+            "blit_torch.serve.elastic", "blit_torch.serve.fleet",
+            "blit_torch.serve.http", "blit_torch.serve.ring",
+            "blit_torch.serve.scheduler",
+            "blit_torch.serve.service"} <= set(mods)
     # h5py loads only when an .h5 file is opened: no module imports it,
     # blit_torch.io.fbh5 included.
     plain = mods
@@ -168,6 +174,56 @@ def test_mesh_and_recovery_modules_import_alone_and_start_no_group(mod):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False, False]
+
+
+@pytest.mark.parametrize("mod", ["blit_torch.serve",
+                                 "blit_torch.serve.fleet",
+                                 "blit_torch.serve.http",
+                                 "blit_torch.serve.elastic",
+                                 "blit_torch.serve.catalog",
+                                 "blit_torch.history"])
+def test_serve_modules_import_alone_without_jax_blit_or_cuda(mod):
+    # Each imported alone in a fresh process: no jax, no blit, no
+    # triton, no cpp_extension, CUDA untouched (a front door runs on a
+    # host without a card; a service takes the card when it is built).
+    code = (
+        "import importlib, json, sys, torch\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'triton')) or m == 'blit' or "
+        "m.startswith('blit.') or m.startswith('torch.utils.cpp_extension'))\n"
+        "print(json.dumps([bad, torch.cuda.is_initialized()]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]
+
+
+def test_serve_all_equals_blits():
+    pytest.importorskip("jax")
+    import blit.serve as bserve
+
+    import blit_torch.serve as tserve
+
+    assert tserve.__all__ == bserve.__all__
+    for name in tserve.__all__:
+        assert hasattr(tserve, name)
+
+
+def test_serve_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    from blit_torch import integrity
+    from blit_torch.serve import ProductRequest, ProductService
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProductService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProductRequest(raw="a.raw", nfft=64).reducer()
+    # Verification alone needs no device.
+    assert integrity.fsck(str(tmp_path))["clean"]
 
 
 def test_mesh_entry_points_default_to_the_card(tmp_path):
