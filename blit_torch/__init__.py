@@ -75,6 +75,7 @@ from blit_torch.pipeline import (
     reducer_for_product,
 )
 from blit_torch.search import DedopplerReducer
+from blit_torch.version import __version__
 
 __all__ = [
     "DedopplerReducer",
@@ -85,6 +86,7 @@ __all__ = [
     "last_kernel_plan",
     "reducer_for_product",
     "resolve_device",
+    "__version__",
 ]
 
 # Submodules that load on first access (blit's lazy surface).

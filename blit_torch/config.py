@@ -127,6 +127,9 @@ class SiteConfig:
     # Where per-rig tuning profiles live (None: BLIT_TUNE_DIR, else
     # ~/.cache/blit/tune).
     tune_dir: Optional[str] = None
+    # The process-wide staging-slab pool budget (None: the built-in
+    # default; BLIT_STAGING_BYTES wins; 0 disables pooling).
+    staging_pool_bytes: Optional[int] = None
     # The metrics publisher is off unless a spool dir or a port is set
     # (port 0 binds an ephemeral one); see monitor_defaults.
     monitor_interval_s: float = 1.0
@@ -144,10 +147,32 @@ class SiteConfig:
     slo_fast_window: int = 5
     slo_slow_window: int = 30
     slo_objectives: Optional[List[Dict]] = None
-    # blit's history store and incident bundles (not ported: a publisher
-    # configured with either raises).
+    # The history store and incident bundles (blit_torch/history.py;
+    # see history_defaults): history_dir makes every publisher tick fold
+    # its interval into tiered rings (raw, minute and hour buckets of
+    # fixed slot counts, history_slot_bytes each); history_anomaly pages
+    # a robust z-score past history_anomaly_z for
+    # history_anomaly_consecutive ticks (history_anomaly_overrides: a
+    # z a metric); incident_dir bundles every page (an SLO breach, an
+    # anomaly, a fleet eject, a peer's death) with an incident_window_s
+    # history window, one a kind each incident_cooldown_s.
     history_dir: Optional[str] = None
+    history_raw_s: float = 10.0
+    history_raw_slots: int = 720
+    history_mid_s: float = 60.0
+    history_mid_slots: int = 1440
+    history_slow_s: float = 3600.0
+    history_slow_slots: int = 336
+    history_slot_bytes: int = 16384
+    history_anomaly: bool = True
+    history_anomaly_z: float = 6.0
+    history_anomaly_window: int = 120
+    history_anomaly_min_n: int = 30
+    history_anomaly_consecutive: int = 3
+    history_anomaly_overrides: Optional[Dict[str, float]] = None
     incident_dir: Optional[str] = None
+    incident_window_s: float = 900.0
+    incident_cooldown_s: float = 300.0
     # The (band, bank) mesh (see mesh_defaults): mesh_shape is the
     # logical grid of a whole site; mesh_sharded makes the scan command
     # default to the threaded sharded plane (the mesh loop and the pool
@@ -397,18 +422,72 @@ def slo_defaults(config: SiteConfig = DEFAULT) -> List[Dict]:
 
 
 def history_defaults(config: SiteConfig = DEFAULT) -> Dict:
-    """The switches of ``blit``'s history store and incident bundles:
-    ``BLIT_HISTORY_DIR`` / ``BLIT_INCIDENT_DIR`` (an empty value unsets).
-    ``enabled`` when a history dir is set."""
+    """The effective history/forensics knob set: ``config``'s
+    values with per-process ``BLIT_HISTORY_*`` / ``BLIT_INCIDENT_*``
+    environment overrides applied — the :func:`stream_defaults` pattern,
+    resolved when a :class:`blit_torch.history.HistoryStore` /
+    :class:`blit_torch.history.AnomalyDetector` / bundler is constructed.
+    ``enabled`` is derived: the store is on only when a dir is
+    configured; ``anomaly`` is additionally gated by its kill switch
+    (``BLIT_HISTORY_ANOMALY=0`` silences the baseline pager without
+    touching the store).  ``BLIT_HISTORY_SENSITIVITY`` is a
+    ``metric=z,metric=z`` list of per-metric z overrides folded over
+    ``config.history_anomaly_overrides``."""
 
     def opt_dir(env: str, fallback: Optional[str]) -> Optional[str]:
         v = os.environ.get(env)
-        return fallback if v is None else (v or None)
+        if v is None:
+            return fallback
+        return v or None
 
     d = opt_dir("BLIT_HISTORY_DIR", config.history_dir)
+    inc = opt_dir("BLIT_INCIDENT_DIR", config.incident_dir)
+    an = os.environ.get("BLIT_HISTORY_ANOMALY")
+    anomaly = (config.history_anomaly if an is None
+               else an.lower() not in ("", "0", "false", "off"))
+    overrides: Dict[str, float] = dict(config.history_anomaly_overrides
+                                       or {})
+    for part in os.environ.get("BLIT_HISTORY_SENSITIVITY", "").split(","):
+        part = part.strip()
+        if not part or "=" not in part:
+            continue
+        k, _, v = part.partition("=")
+        try:
+            overrides[k.strip()] = float(v)
+        except ValueError:
+            continue
     return {
         "dir": d,
-        "incident_dir": opt_dir("BLIT_INCIDENT_DIR", config.incident_dir),
+        "raw_s": float(os.environ.get(
+            "BLIT_HISTORY_RAW_S", config.history_raw_s)),
+        "raw_slots": int(os.environ.get(
+            "BLIT_HISTORY_RAW_SLOTS", config.history_raw_slots)),
+        "mid_s": float(os.environ.get(
+            "BLIT_HISTORY_MID_S", config.history_mid_s)),
+        "mid_slots": int(os.environ.get(
+            "BLIT_HISTORY_MID_SLOTS", config.history_mid_slots)),
+        "slow_s": float(os.environ.get(
+            "BLIT_HISTORY_SLOW_S", config.history_slow_s)),
+        "slow_slots": int(os.environ.get(
+            "BLIT_HISTORY_SLOW_SLOTS", config.history_slow_slots)),
+        "slot_bytes": int(os.environ.get(
+            "BLIT_HISTORY_SLOT_BYTES", config.history_slot_bytes)),
+        "anomaly": anomaly,
+        "anomaly_z": float(os.environ.get(
+            "BLIT_HISTORY_ANOMALY_Z", config.history_anomaly_z)),
+        "anomaly_window": int(os.environ.get(
+            "BLIT_HISTORY_ANOMALY_WINDOW", config.history_anomaly_window)),
+        "anomaly_min_n": int(os.environ.get(
+            "BLIT_HISTORY_ANOMALY_MIN_N", config.history_anomaly_min_n)),
+        "anomaly_consecutive": int(os.environ.get(
+            "BLIT_HISTORY_ANOMALY_CONSEC",
+            config.history_anomaly_consecutive)),
+        "anomaly_overrides": overrides,
+        "incident_dir": inc,
+        "incident_window_s": float(os.environ.get(
+            "BLIT_INCIDENT_WINDOW", config.incident_window_s)),
+        "incident_cooldown_s": float(os.environ.get(
+            "BLIT_INCIDENT_COOLDOWN", config.incident_cooldown_s)),
         "enabled": d is not None,
     }
 

@@ -21,8 +21,9 @@ inside every timed stream; the pool keeps them across streams.
   exactly that key, else allocates (timed into the caller's Timeline as
   ``staging.alloc``); :meth:`SlabPool.give` returns one, dropping it
   when it alone exceeds the budget and evicting the oldest shape class
-  first when the pool would.  ``BLIT_STAGING_BYTES`` overrides the
-  budget (2 GiB by default; ``0`` disables pooling, the A/B lever).
+  first when the pool would.  The budget is ``BLIT_STAGING_BYTES``, else
+  ``SiteConfig.staging_pool_bytes``, else 2 GiB (``0`` disables pooling,
+  the A/B lever).
   A dropped pinned slab goes back to torch's host allocator.
 """
 
@@ -103,8 +104,16 @@ class SlabPool:
 
     def __init__(self, budget_bytes: Optional[int] = None):
         if budget_bytes is None:
+            # BLIT_STAGING_BYTES, else SiteConfig.staging_pool_bytes, else
+            # the built-in default.
             env = os.environ.get("BLIT_STAGING_BYTES")
-            budget_bytes = _DEFAULT_BUDGET if env is None else int(env)
+            if env is not None:
+                budget_bytes = int(env)
+            else:
+                from blit_torch.config import DEFAULT
+
+                cfg = DEFAULT.staging_pool_bytes
+                budget_bytes = _DEFAULT_BUDGET if cfg is None else int(cfg)
         self.budget_bytes = budget_bytes
         self._lock = threading.Lock()
         self._free: "OrderedDict[Tuple, List[HostSlab]]" = OrderedDict()
@@ -171,6 +180,12 @@ class SlabPool:
                 "alloc_seconds": self.alloc_seconds,
                 "budget_bytes": self.budget_bytes,
             }
+
+    def clear(self) -> None:
+        """Drop every free slab (the counters stay)."""
+        with self._lock:
+            self._free.clear()
+            self._free_bytes = 0
 
 
 _POOL: Optional[SlabPool] = None

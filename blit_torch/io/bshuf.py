@@ -49,6 +49,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def default_block_size(elem_size: int) -> int:
+    """The codec's default block (elements) for ``elem_size``-byte
+    elements, as the HDF5 filter picks it for ``block_size=0``."""
+    return int(_lib().blit_bshuf_default_block_size(elem_size))
+
+
 def bitshuffle(a: np.ndarray) -> np.ndarray:
     """Bit transpose without compression; the element count must be a
     multiple of 8."""

@@ -37,6 +37,11 @@ _ERRORS: Dict[str, str] = {}
 _LOCK = threading.Lock()
 
 
+def native_dir() -> str:
+    """The directory the host libraries are built into."""
+    return os.path.abspath(BUILD_DIR)
+
+
 def lib_path(name: str) -> str:
     """The library of ``native/<name>.cc`` for this source and these flags."""
     with open(os.path.join(NATIVE_SRC, name + ".cc"), "rb") as f:
@@ -91,6 +96,8 @@ def _bind_bitshuffle(lib: ctypes.CDLL) -> None:
     lib.blit_bshuf_compress_lz4.argtypes = [ptr, ptr, size, size, size]
     lib.blit_bshuf_decompress_lz4.restype = ctypes.c_int64
     lib.blit_bshuf_decompress_lz4.argtypes = [ptr, size, ptr, size, size]
+    lib.blit_bshuf_default_block_size.restype = size
+    lib.blit_bshuf_default_block_size.argtypes = [size]
 
 
 _BIND = {"guppi": _bind_guppi, "bitshuffle": _bind_bitshuffle}

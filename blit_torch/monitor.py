@@ -1,5 +1,5 @@
-"""The metrics publisher and the SLO layer: the publisher half of
-``blit/monitor.py``.
+"""The metrics publisher, the SLO layer and the operator's readers:
+``blit/monitor.py`` on the port.
 
 - :class:`MetricsPublisher`: a thread that samples every watched
   :class:`~blit_torch.observability.Timeline` (the process timeline and
@@ -10,7 +10,11 @@
   (Prometheus text, :func:`~blit_torch.observability.render_prometheus`),
   ``/healthz`` and ``/snapshot`` over a stdlib HTTP server.  Each sample
   carries the card's memory gauges (:func:`device_gauges`, from
-  ``torch.cuda.memory_stats`` / ``torch.cuda.mem_get_info``).
+  ``torch.cuda.memory_stats`` / ``torch.cuda.mem_get_info``).  With a
+  history dir (``BLIT_HISTORY_DIR``) every tick folds into
+  :class:`blit_torch.history.HistoryStore` and the
+  :class:`~blit_torch.history.AnomalyDetector` scores it; with an
+  incident dir (``BLIT_INCIDENT_DIR``) every page writes a bundle.
 - The SLO layer: :class:`SLObjective` from
   :func:`blit_torch.config.slo_defaults`, :func:`bad_fraction` and the
   multi-window :class:`BurnRateEvaluator` over each interval's deltas
@@ -18,18 +22,18 @@
 - :func:`ensure_publisher` / :func:`install_publisher` /
   :func:`shutdown_publisher`, :func:`publishing` / :func:`published`,
   the ``/healthz`` hooks, and :func:`read_spool` / :func:`merge_spool`.
-- :func:`fold_health`, the fleet door's ``/healthz`` fold, and the
-  access-record readers of the ``requests`` command
-  (:func:`read_requests`, :func:`filter_requests`,
+- The operator's readers: :func:`render_top` / :func:`watch_loop` (the
+  ``top`` and ``telemetry --watch`` frames), :func:`parse_prometheus` /
+  :func:`parse_prometheus_exemplars`, :func:`gather_trace_sources`
+  (``trace-view --fleet``), the ``bench-diff`` gate
+  (:func:`bench_metrics`, :func:`bench_diff`, :func:`render_bench_diff`),
+  :func:`fold_health`, and the access-record readers of the
+  ``requests`` command (:func:`read_requests`, :func:`filter_requests`,
   :func:`aggregate_requests`, :func:`render_requests`).
 
-Monitoring is off unless a spool dir or a port is configured
-(``BLIT_MONITOR_SPOOL`` / ``BLIT_MONITOR_PORT``), as in ``blit``.
-``blit``'s history store, anomaly detector and incident bundles are not
-ported: a configuration that turns them on (``BLIT_HISTORY_DIR``,
-``BLIT_INCIDENT_DIR``) makes the publisher raise ``NotImplementedError``.
-``blit``'s ``top`` dashboard and ``bench-diff`` gate read the same spool
-format and are not ported either (ROADMAP.md, Queue 1 item 8).
+Monitoring is off unless a spool dir, a port or a history dir is
+configured (``BLIT_MONITOR_SPOOL`` / ``BLIT_MONITOR_PORT`` /
+``BLIT_HISTORY_DIR``), as in ``blit``.
 
 Imports only the standard library, :mod:`blit_torch.config` and
 :mod:`blit_torch.observability` at module scope, and torch never.
@@ -44,6 +48,7 @@ import glob
 import json
 import logging
 import os
+import re
 import sys
 import threading
 import time
@@ -74,21 +79,8 @@ from blit_torch.observability import (
 
 log = logging.getLogger("blit_torch.monitor")
 
-
-def _history_configured(config: SiteConfig) -> bool:
-    hd = history_defaults(config)
-    return bool(hd["enabled"] or hd["incident_dir"])
-
-
-def _refuse_history(config: SiteConfig) -> None:
-    """Raise where ``blit``'s publisher would start its history store or
-    incident bundler: the port has neither, and dropping them silently
-    would lose what the operator asked to keep."""
-    if _history_configured(config):
-        raise NotImplementedError(
-            "the history store and incident bundles (BLIT_HISTORY_DIR, "
-            "BLIT_INCIDENT_DIR) are not ported to blit_torch; unset them "
-            "(ROADMAP.md, Queue 1 item 8)")
+# Clear the terminal and home the cursor (the top / telemetry --watch loop).
+ANSI_CLEAR = "\x1b[2J\x1b[H"
 
 
 # -- SLO objectives + burn-rate evaluation ----------------------------------
@@ -459,7 +451,7 @@ class MetricsPublisher:
         self.spans = d["spans"] if spans is None else bool(spans)
         self._span_cursor = 0
         self.clock = clock
-        # Publisher-owned gauges (the card's memory) live on
+        # Publisher-owned gauges (device HBM, derived ICI rate) live on
         # their own timeline so sampling never mutates a caller's.
         self._own = Timeline()
         self._watch_lock = threading.Lock()
@@ -474,10 +466,33 @@ class MetricsPublisher:
                 slow_window=config.slo_slow_window,
                 fast_burn=config.slo_fast_burn,
                 slow_burn=config.slo_slow_burn, clock=clock)
-        # blit's history store, anomaly detector and incident bundles are
-        # not ported: configured, the publisher refuses to start rather
-        # than drop them.
-        _refuse_history(config)
+        # History & forensics plane: a durable tiered store
+        # fed per tick, a median/MAD anomaly baseline scored per tick,
+        # and the incident bundler behind every page.  All lazy and all
+        # optional — with BLIT_HISTORY_DIR unset the tick path pays one
+        # dict lookup and three Nones.
+        self._config = config
+        self.history = None
+        self.anomaly = None
+        self._bundler = None
+        hd = history_defaults(config)
+        if hd["enabled"]:
+            from blit_torch import history as _history
+
+            try:
+                self.history = _history.HistoryStore(
+                    hd["dir"], config=config, clock=clock)
+            except (OSError, ValueError):
+                log.warning("history store unavailable", exc_info=True)
+        if hd["anomaly"] and (hd["enabled"] or hd["incident_dir"]):
+            from blit_torch import history as _history
+
+            self.anomaly = _history.AnomalyDetector.for_config(
+                config, clock=clock)
+        if hd["incident_dir"]:
+            from blit_torch import history as _history
+
+            self._bundler = _history.incident_bundler(config)
         self.seq = 0
         self.last_sample: Optional[Dict] = None
         self._last_state: Optional[Dict] = None
@@ -553,8 +568,44 @@ class MetricsPublisher:
             device_gauges(self._own)
             merged = self.merged_timeline()
             delta = _delta_timeline(merged, self._last_state)
+            # ICI byte-rate, derived from the mesh.*_ici_bytes hists
+            # (each sample in those is one collective's payload).
+            ici = sum(h.total for k, h in delta.hists.items()
+                      if k.endswith("_ici_bytes"))
+            if ici:
+                self._own.gauge("mesh.ici_gbps", ici / interval / 1e9)
+                merged.gauge("mesh.ici_gbps", ici / interval / 1e9)
             alerts = self.slo.observe(delta, interval)
             now = self.clock()
+            anomaly_state: Dict[str, Dict] = {}
+            if self.anomaly is not None:
+                from blit_torch import history as _history
+
+                gauges_now = {k: g.last
+                              for k, g in merged.gauges.items() if g.n}
+                alerts = alerts + self.anomaly.observe(
+                    _history.series_values(delta, gauges_now), now)
+                anomaly_state = self.anomaly.report()
+            if self.history is not None:
+                try:
+                    self.history.append(
+                        now, interval, delta,
+                        gauges={k: g.last
+                                for k, g in merged.gauges.items() if g.n},
+                        burn=dict(self.slo.last_obs))
+                except Exception:  # noqa: BLE001 — durability is best-
+                    log.warning("history append failed", exc_info=True)
+            if self._bundler is not None:
+                for alert in alerts:
+                    kind = (f"slo:{alert['objective']}"
+                            if alert.get("objective")
+                            else f"anomaly:{alert.get('metric', '?')}")
+                    self._bundler.snapshot(
+                        kind,
+                        f"page: {kind} "
+                        f"(flight={alert.get('flight_dump', '-')})",
+                        alert=alert, publisher=self, timeline=merged,
+                        history=self.history)
             self._last_state = merged.state()
             from blit_torch import faults
 
@@ -584,6 +635,8 @@ class MetricsPublisher:
                 "slo": self.slo.report(),
                 "alerts": alerts,
             }
+            if anomaly_state:
+                sample["anomaly"] = anomaly_state
             if self.spans:
                 from blit_torch import observability
 
@@ -625,6 +678,9 @@ class MetricsPublisher:
         breached = self.slo.breached()
         for name in breached:
             reasons.append(f"slo-fast-burn:{name}")
+        if self.anomaly is not None:
+            for metric in self.anomaly.breached():
+                reasons.append(f"anomaly:{metric}")
         try:
             # Lazy import (monitor's import discipline): the pool module
             # imports no torch at module scope.
@@ -702,6 +758,8 @@ class MetricsPublisher:
             with contextlib.suppress(OSError):
                 self._spool_f.close()
             self._spool_f = None
+        if self.history is not None:
+            self.history.close()
 
     def __enter__(self):
         return self.start()
@@ -772,7 +830,7 @@ def ensure_publisher(config: SiteConfig = DEFAULT
                      ) -> Optional[MetricsPublisher]:
     """The process-wide publisher, started on first use when monitoring
     is enabled (``BLIT_MONITOR_SPOOL`` / ``BLIT_MONITOR_PORT`` or the
-    SiteConfig fields — :func:`blit_torch.config.monitor_defaults`) or a
+    SiteConfig fields — :func:`blit.config.monitor_defaults`) or a
     publisher was installed explicitly (:func:`install_publisher` — the
     CLI ``--monitor-*`` flags); ``None`` when disabled.  Every
     long-running entry point (reduce/scan/stream/serve, via
@@ -782,8 +840,11 @@ def ensure_publisher(config: SiteConfig = DEFAULT
     with _PUB_LOCK:
         if _PUB is not None:
             return _PUB
+    # BLIT_HISTORY_DIR alone also arms the loop: the
+    # durable store is fed by ticks, so a history-only config still
+    # needs the publisher running even with no spool and no port.
     if not (monitor_defaults(config)["enabled"]
-            or _history_configured(config)):
+            or history_defaults(config)["enabled"]):
         return None
     with _PUB_LOCK:
         if _PUB is None:
@@ -938,6 +999,193 @@ def merge_spool(spool_dir: str) -> Tuple[Dict, List[Dict]]:
     return report, list(latest.values())
 
 
+# -- rendering ---------------------------------------------------------------
+
+
+def _fmt_rate(gbps: float) -> str:
+    return f"{gbps:8.3f}" if gbps else f"{'-':>8}"
+
+
+def render_top(report: Dict, samples: Iterable[Dict] = (), *,
+               title: str = "blit top",
+               now: Optional[float] = None) -> str:
+    """One ``top`` frame over a fleet report (+ optional live
+    per-process samples): per-stage throughput (run-cumulative and
+    this-interval), stage-tail p50/p99, SLO burn, and host health."""
+    now = time.time() if now is None else now
+    samples = list(samples)
+    by_proc = {(s.get("host"), s.get("pid")): s for s in samples}
+    lines: List[str] = []
+    hosts = report.get("hosts") or {}
+    nproc = sum(len(e.get("workers") or []) for e in hosts.values())
+    breached = sorted({n for s in samples
+                       for n, st in (s.get("slo") or {}).items()
+                       if st.get("breached")})
+    state = (f"SLO BREACH: {', '.join(breached)}" if breached else "ok")
+    lines.append(
+        f"{title} — {time.strftime('%H:%M:%S', time.gmtime(now))} UTC | "
+        f"{len(hosts)} host(s), {nproc} process(es) | {state}")
+    for host, e in sorted(hosts.items()):
+        procs = [s for (h, _), s in sorted(by_proc.items())
+                 if h == host]
+        age = min((now - s.get("t", now) for s in procs), default=None)
+        age_s = f"  age {age:.1f}s" if age is not None else ""
+        lines.append(f"host {host} "
+                     f"({len(e.get('workers') or [])} proc){age_s}")
+        # Per-stage table: cumulative GB/s beside the newest interval's.
+        deltas: Dict[str, Dict] = {}
+        for s in procs:
+            for k, row in ((s.get("delta") or {}).get("stages")
+                           or {}).items():
+                d = deltas.setdefault(
+                    k, {"bytes": 0, "seconds": 0.0, "calls": 0})
+                d["bytes"] += row.get("bytes", 0)
+                d["seconds"] += row.get("seconds", 0.0)
+                d["calls"] += row.get("calls", 0)
+        stages = e.get("stages") or {}
+        rows = [(k, v) for k, v in stages.items()
+                if isinstance(v, dict) and "calls" in v]
+        if rows:
+            lines.append(f"  {'stage':<22} {'calls':>8} {'GB/s(run)':>10} "
+                         f"{'GB/s(now)':>10}")
+            for k, v in sorted(rows):
+                d = deltas.get(k)
+                now_gbps = (d["bytes"] / d["seconds"] / 1e9
+                            if d and d["seconds"] > 0 else 0.0)
+                lines.append(
+                    f"  {k:<22} {v.get('calls', 0):>8} "
+                    f"{_fmt_rate(v.get('gbps', 0.0))} "
+                    f"{_fmt_rate(round(now_gbps, 3))}")
+        for k, h in sorted((stages.get("hists") or {}).items()):
+            lines.append(
+                f"  tail {k:<19} n={h.get('n', 0):<7} "
+                f"p50={h.get('p50', 0)}s p99={h.get('p99', 0)}s "
+                f"max={h.get('max', 0)}s")
+        gauges = {}
+        for s in procs:
+            gauges.update(s.get("gauges") or {})
+        if not procs:
+            gauges = {k: g.get("last", 0)
+                      for k, g in (stages.get("gauges") or {}).items()}
+        if gauges:
+            shown = " ".join(f"{k}={v}" for k, v in sorted(gauges.items()))
+            lines.append(f"  gauges {shown}")
+        for k, v in sorted((e.get("faults") or {}).items()):
+            lines.append(f"  fault {k:<20} {v}")
+    for (host, pid), s in sorted(by_proc.items()):
+        slo = s.get("slo") or {}
+        if not slo:
+            continue
+        for name, st in sorted(slo.items()):
+            mark = "BREACH" if st.get("breached") else "ok"
+            lines.append(
+                f"slo {host}/{pid} {name:<20} burn "
+                f"{st.get('burn_fast', 0.0):>7.2f}/"
+                f"{st.get('burn_slow', 0.0):<7.2f} [{mark}] "
+                f"({st.get('kind')} {st.get('metric')} "
+                f"@ {st.get('threshold')})")
+    alerts = [a for s in samples for a in (s.get("alerts") or [])]
+    for a in alerts[-5:]:
+        lines.append(f"ALERT {a.get('objective')} burn_fast="
+                     f"{a.get('burn_fast')} dump="
+                     f"{a.get('flight_dump', '-')}")
+    if not hosts:
+        lines.append("(no samples yet)")
+    return "\n".join(lines)
+
+
+def watch_loop(render: Callable[[], str], interval_s: float,
+               count: Optional[int] = None, out=None,
+               clear: bool = True,
+               sleep: Callable[[float], None] = time.sleep) -> int:
+    """The shared refresh loop behind ``top`` and ``telemetry
+    --watch``: render a frame, clear the terminal (ANSI), repeat.
+    ``count`` bounds the frames (tests; None = until interrupted).
+    Returns frames rendered."""
+    out = sys.stdout if out is None else out
+    n = 0
+    try:
+        while True:
+            text = render()
+            if clear:
+                out.write(ANSI_CLEAR)
+            out.write(text if text.endswith("\n") else text + "\n")
+            out.flush()
+            n += 1
+            if count is not None and n >= count:
+                return n
+            sleep(max(0.01, interval_s))
+    except KeyboardInterrupt:
+        return n
+
+
+# -- Prometheus exposition parsing ------------------------------------------
+
+# A sample line, with an optional OpenMetrics exemplar suffix
+# (`value # {trace_id="..."} exemplar-value [timestamp]`) —
+# the exemplar is captured (group 4) but optional, so pre-exemplar
+# scrape bodies parse unchanged.
+_SAMPLE_RE = re.compile(
+    r"^([A-Za-z_:][A-Za-z0-9_:]*)(?:\{(.*?)\})?\s+(\S+)"
+    r"(?:\s+#\s+\{(.*?)\}\s+(\S+)(?:\s+(\S+))?)?$")
+_LABEL_RE = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _unescape(value: str) -> str:
+    return re.sub(r"\\(.)",
+                  lambda m: {"n": "\n"}.get(m.group(1), m.group(1)),
+                  value)
+
+
+def parse_prometheus(text: str
+                     ) -> List[Tuple[str, Dict[str, str], float]]:
+    """Parse a Prometheus exposition body into ``(name, labels, value)``
+    samples — the round-trip check behind the native-histogram
+    exposition (tests) and the CI monitor smoke's "parseable /metrics"
+    assertion.  OpenMetrics exemplar suffixes on ``_bucket`` lines
+    are tolerated and dropped — use
+    :func:`parse_prometheus_exemplars` to read them.  Raises
+    ``ValueError`` on an unparseable sample line."""
+    out: List[Tuple[str, Dict[str, str], float]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            raise ValueError(f"unparseable exposition line: {line!r}")
+        name, labels_s, value = m.groups()[:3]
+        labels = {k: _unescape(v)
+                  for k, v in _LABEL_RE.findall(labels_s or "")}
+        out.append((name, labels, float(value)))
+    return out
+
+
+def parse_prometheus_exemplars(
+        text: str) -> List[Tuple[str, Dict[str, str], Dict]]:
+    """The exemplars of an exposition body: every sample
+    line carrying an OpenMetrics ``# {...} value [ts]`` suffix, as
+    ``(metric name, labels, {"labels", "value", "t"})``."""
+    out: List[Tuple[str, Dict[str, str], Dict]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None or m.group(4) is None:
+            continue
+        name, labels_s, _, ex_labels, ex_value, ex_t = m.groups()
+        labels = {k: _unescape(v)
+                  for k, v in _LABEL_RE.findall(labels_s or "")}
+        ex = {"labels": {k: _unescape(v)
+                         for k, v in _LABEL_RE.findall(ex_labels or "")},
+              "value": float(ex_value)}
+        if ex_t is not None:
+            ex["t"] = float(ex_t)
+        out.append((name, labels, ex))
+    return out
+
+
 # -- per-request access records: read / filter / aggregate ---------------
 
 
@@ -1081,4 +1329,320 @@ def render_requests(records: Iterable[Dict]) -> str:
             f"{r.get('duration_s', 0.0) * 1e3:>9.2f} "
             f"{str(r.get('client', '-')):<10} "
             f"{str(r.get('peer') or '-'):<8} {r.get('trace', '-')}")
+    return "\n".join(lines)
+
+
+# -- fleet trace gathering ----------------------------
+
+
+def gather_trace_sources(sources: Iterable[str], *,
+                         timeout: float = 10.0
+                         ) -> Tuple[List[Dict], Dict[str, HistogramStats]]:
+    """Span dicts + merged histograms from heterogeneous fleet sources
+    — what ``trace-view --fleet`` stitches.  Each source is:
+
+    - an ``http://...`` base URL → its ``/snapshot`` body (a peer/door
+      :class:`~blit_torch.serve.http.PeerServer` or monitor endpoint);
+    - a directory → every ``*.jsonl`` monitor-spool file in it (span
+      batches per sample, newest cumulative timeline per process) plus
+      every ``*.snapshot.json`` saved snapshot;
+    - a ``.jsonl`` file → one spool file;
+    - any other file → a saved snapshot / fleet report / flight dump
+      (anything carrying ``spans`` and optionally a timeline).
+
+    Returns ``(spans, hists)`` with hists merged across processes
+    (exemplars keep the newest per bucket)."""
+    spans: List[Dict] = []
+    hists: Dict[str, HistogramStats] = {}
+
+    def fold_hists(hist_states: Optional[Dict]) -> None:
+        for name, st in (hist_states or {}).items():
+            if not isinstance(st, dict):
+                continue
+            h = HistogramStats.from_state(st)
+            if name in hists:
+                hists[name].merge(h)
+            else:
+                hists[name] = h
+
+    def fold_doc(doc: Dict) -> None:
+        if not isinstance(doc, dict):
+            return
+        spans.extend(s for s in (doc.get("spans") or [])
+                     if isinstance(s, dict))
+        tl = doc.get("timeline")
+        if isinstance(tl, dict):
+            fold_hists(tl.get("hists"))
+        fold_hists(doc.get("hists"))
+        # A merge_fleet report: per-host raw hist_state blocks.
+        for e in (doc.get("hosts") or {}).values():
+            if isinstance(e, dict):
+                fold_hists(e.get("hist_state"))
+
+    def fold_spool_file(path: str) -> None:
+        last_tl: Optional[Dict] = None
+        try:
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        sample = json.loads(line)
+                    except ValueError:
+                        continue
+                    if not isinstance(sample, dict):
+                        continue
+                    spans.extend(s for s in (sample.get("spans") or [])
+                                 if isinstance(s, dict))
+                    if isinstance(sample.get("timeline"), dict):
+                        last_tl = sample["timeline"]
+        except OSError:
+            return
+        if last_tl:
+            fold_hists(last_tl.get("hists"))
+
+    for src in sources:
+        if src.startswith("http://") or src.startswith("https://"):
+            from blit_torch.serve.http import http_json
+
+            try:
+                status, _, body = http_json(
+                    "GET", src.rstrip("/"), "/snapshot", timeout=timeout)
+            except OSError as e:
+                log.warning("trace source %s unreachable: %s", src, e)
+                continue
+            if status == 200 and isinstance(body, dict):
+                fold_doc(body)
+        elif os.path.isdir(src):
+            for path in sorted(glob.glob(os.path.join(src, "*.jsonl"))):
+                fold_spool_file(path)
+            for path in sorted(glob.glob(
+                    os.path.join(src, "*.snapshot.json"))):
+                try:
+                    with open(path) as f:
+                        fold_doc(json.load(f))
+                except (OSError, ValueError):
+                    continue
+        elif src.endswith(".jsonl"):
+            fold_spool_file(src)
+        else:
+            try:
+                with open(src) as f:
+                    fold_doc(json.load(f))
+            except (OSError, ValueError) as e:
+                log.warning("trace source %s unreadable: %s", src, e)
+    # Dedupe by span id (a /snapshot and a spool may overlap).
+    seen, unique = set(), []
+    for s in spans:
+        sid = s.get("span")
+        if sid and sid in seen:
+            continue
+        if sid:
+            seen.add(sid)
+        unique.append(s)
+    return unique, hists
+
+
+# -- bench-diff: the CI perf-regression gate --------------------------------
+
+# Higher-is-better scalar metrics worth tracking across BENCH rounds.
+_METRIC_KEY_RE = re.compile(
+    r"(_gbps|_per_s|_speedup|^async_speedup$|_efficiency|^hit_rate$"
+    r"|_hit_rate$|_attained$)",
+)
+# Lower-is-better scalars (request latency quantiles) — the noise band inverts for these.
+_LOWER_METRIC_KEY_RE = re.compile(r"_p\d+_s$")
+
+
+def metric_lower_is_better(key: str) -> bool:
+    """Is ``key`` a lower-is-better metric (a latency quantile)?  Such
+    metrics regress when the fresh value rises ABOVE the noise band."""
+    return _LOWER_METRIC_KEY_RE.search(key) is not None
+
+
+def load_bench_json(path: str) -> Dict:
+    """Load a bench record: either a plain ``bench.py`` /
+    ``ingest-bench`` JSON document, or a checked-in ``BENCH_*.json``
+    wrapper (``{"n", "cmd", "rc", "tail"}`` — the recorded stdout tail,
+    whose last JSON line is the bench record)."""
+    with open(path) as f:
+        doc = json.load(f)
+    if isinstance(doc, dict) and "tail" in doc and "cmd" in doc:
+        if isinstance(doc.get("parsed"), dict):
+            return doc["parsed"]
+        for line in reversed(str(doc["tail"]).strip().splitlines()):
+            line = line.strip()
+            if not line.startswith("{"):
+                continue
+            try:
+                return json.loads(line)
+            except ValueError:
+                continue
+        # A failed round (rc != 0, no record line) is part of history —
+        # callers skip it, it must not poison the trajectory.
+        raise ValueError(f"no JSON bench record in the tail of {path}")
+    if not isinstance(doc, dict):
+        raise ValueError(f"{path} is not a bench JSON document")
+    return doc
+
+
+def bench_metrics(doc: Dict) -> Dict[str, float]:
+    """Extract the comparable higher-is-better scalars from a bench
+    record: for ``ingest-bench`` documents the per-leg ingest rate /
+    overlap efficiency and the async speedup; for ``bench.py`` records
+    the headline ``value`` (keyed by its ``metric`` name) plus every
+    top-level ``*_gbps`` / ``*_per_s`` / speedup / efficiency scalar;
+    for serve-bench records (``serve-bench --archive-day``)
+    the flat ``metrics`` dict — fleet hit rate, wire GB/s, and the
+    request/serialize latency quantiles (``*_pNN_s``, which compare
+    lower-is-better).  ``slo-report --json`` documents ride the
+    same ``metrics`` branch (``slo.<name>_attained`` matches
+    ``_attained$``), so ``bench-diff`` gates attainment like any
+    other bench scalar."""
+    out: Dict[str, float] = {}
+
+    def num(v) -> Optional[float]:
+        return (float(v) if isinstance(v, (int, float))
+                and not isinstance(v, bool) else None)
+
+    if isinstance(doc.get("metrics"), dict):
+        for k, v in doc["metrics"].items():
+            f = num(v)
+            if f is None:
+                continue
+            if _METRIC_KEY_RE.search(k) or metric_lower_is_better(k):
+                out[k] = f
+        return out
+    if "legs" in doc:
+        for leg in doc.get("legs") or []:
+            name = "async" if leg.get("async_output") else "sync"
+            for k in ("ingest_gbps", "overlap_efficiency"):
+                v = num(leg.get(k))
+                if v is not None:
+                    out[f"{name}.{k}"] = v
+        v = num(doc.get("async_speedup"))
+        if v is not None:
+            out["async_speedup"] = v
+        v = num((doc.get("dedoppler") or {}).get("drift_rates_per_s"))
+        if v is not None:
+            out["dedoppler.drift_rates_per_s"] = v
+        # The live leg's latency tails (the --packets run is the
+        # sustained-capture gate) — *_pNN_s keys compare
+        # lower-is-better in bench_diff, like the serve quantiles.
+        live = doc.get("live") or {}
+        for k in ("chunk_to_product_p50_s", "chunk_to_product_p99_s"):
+            v = num(live.get(k))
+            if v is not None:
+                out[f"live.{k}"] = v
+        pk = live.get("packet") or {}
+        for k in ("assembly_p50_s", "assembly_p99_s"):
+            v = num(pk.get(k))
+            if v is not None:
+                out[f"packet.{k}"] = v
+        return out
+    metric = doc.get("metric")
+    for k, v in doc.items():
+        f = num(v)
+        if f is None:
+            continue
+        if k == "value" and metric:
+            out[str(metric)] = f
+        elif _METRIC_KEY_RE.search(k):
+            out[k] = f
+    return out
+
+
+def bench_rig(doc: Dict) -> Optional[str]:
+    """The rig a bench record measured (its ``config.backend``; None
+    when unrecorded — ingest-bench documents)."""
+    return (doc.get("config") or {}).get("backend")
+
+
+def bench_diff(fresh: Dict, baselines: List[Dict], *,
+               rel_tol: float = 0.35,
+               metrics: Optional[Iterable[str]] = None,
+               cross_rig: bool = False) -> Dict:
+    """Compare a fresh bench record against a baseline trajectory with
+    noise bands: per metric, the band is ``[min·(1-rel_tol),
+    max·(1+rel_tol)]`` over the trajectory — a fresh value below the
+    band REGRESSES (throughput-style scalars are higher-is-better),
+    above it IMPROVES, inside it is ok.  Latency quantiles
+    (:func:`metric_lower_is_better`) invert: rising ABOVE the band
+    regresses, dropping below it improves.  The verdict is
+    ``"regress"`` iff any tracked metric regressed.  Metrics with no
+    baseline datapoint are reported as ``"new"`` and never gate.
+
+    Baselines recorded on a DIFFERENT rig than the fresh record
+    (``config.backend`` — the checked-in trajectory mixes TPU and CPU
+    rounds) are excluded unless ``cross_rig=True``: a CPU run regressing
+    against a TPU number is noise, not signal."""
+    fresh_m = bench_metrics(fresh)
+    want = set(metrics) if metrics else None
+    rig = bench_rig(fresh)
+    skipped_rigs = 0
+    kept = []
+    for b in baselines:
+        brig = bench_rig(b)
+        if (not cross_rig and rig is not None and brig is not None
+                and brig != rig):
+            skipped_rigs += 1
+            continue
+        kept.append(b)
+    baselines = kept
+    traj: Dict[str, List[float]] = {}
+    for b in baselines:
+        for k, v in bench_metrics(b).items():
+            traj.setdefault(k, []).append(v)
+    rows: Dict[str, Dict] = {}
+    regressed = []
+    for k in sorted(fresh_m):
+        if want is not None and k not in want:
+            continue
+        v = fresh_m[k]
+        hist = traj.get(k)
+        if not hist:
+            rows[k] = {"fresh": v, "status": "new", "n": 0}
+            continue
+        lo, hi = min(hist), max(hist)
+        band_lo = lo * (1.0 - rel_tol)
+        band_hi = hi * (1.0 + rel_tol)
+        if metric_lower_is_better(k):
+            status = ("regress" if v > band_hi
+                      else "improved" if v < band_lo else "ok")
+        else:
+            status = ("regress" if v < band_lo
+                      else "improved" if v > band_hi else "ok")
+        if status == "regress":
+            regressed.append(k)
+        rows[k] = {"fresh": v, "lo": lo, "hi": hi,
+                   "band_lo": round(band_lo, 6),
+                   "band_hi": round(band_hi, 6),
+                   "status": status, "n": len(hist)}
+    return {
+        "verdict": "regress" if regressed else "pass",
+        "rel_tol": rel_tol,
+        "rig": rig,
+        "baselines": len(baselines),
+        "baselines_skipped_other_rig": skipped_rigs,
+        "regressed": regressed,
+        "metrics": rows,
+    }
+
+
+def render_bench_diff(verdict: Dict) -> str:
+    """``bench-diff``'s human table."""
+    lines = [f"bench-diff: {verdict['verdict'].upper()} "
+             f"({verdict['baselines']} baseline(s), "
+             f"noise ±{verdict['rel_tol'] * 100:.0f}%)"]
+    lines.append(f"{'metric':<44} {'fresh':>12} {'band_lo':>12} "
+                 f"{'band_hi':>12} status")
+    for k, row in verdict["metrics"].items():
+        def band(key):
+            v = row.get(key)
+            return f"{v:>12.4g}" if v is not None else f"{'-':>12}"
+
+        lines.append(
+            f"{k:<44} {row['fresh']:>12.4g} {band('band_lo')} "
+            f"{band('band_hi')} {row['status']}")
     return "\n".join(lines)

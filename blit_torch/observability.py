@@ -56,8 +56,14 @@ request (:class:`JsonLineFormatter`).  The serve plane writes one
 access record a request through :class:`RequestLog`
 (:func:`request_log_for`, ``BLIT_REQUEST_LOG``) and serves
 :func:`telemetry_snapshot` as its ``/snapshot`` body.  The Chrome trace
-export, the pool's fleet harvest over ``telemetry_snapshot`` and
-``profile_trace`` are not ported (ROADMAP.md Queue 1 item 8).
+export (:meth:`Tracer.export_chrome`, with harvested spans adopted by
+:meth:`Tracer.ingest`), the stitched-trace readers (:func:`trace_summary`,
+:func:`cross_process_pairs`, :func:`render_trace_tree`), the fleet
+report (:func:`local_fleet_report`, :func:`render_fleet_text`; the pool's
+``harvest_telemetry`` folds every worker's :func:`telemetry_snapshot`)
+and :func:`render_flight_dump` are ``blit``'s.  :func:`profile_trace` is
+a ``torch.profiler`` trace (CPU, plus CUDA on a card) where ``blit``'s is
+JAX's.
 """
 
 from __future__ import annotations
@@ -207,6 +213,17 @@ class HistogramStats:
             if self.exemplars is None:
                 self.exemplars = {}
             self.exemplars[i] = [trace_id, v, time.time()]
+
+    def tail_exemplar(self) -> Optional[Dict]:
+        """The exemplar of the HIGHEST bucket that has one — the trace
+        behind the tail latency an operator is chasing.  Returns
+        ``{"bucket", "le", "trace", "value", "t"}`` or None."""
+        if not self.exemplars:
+            return None
+        i = max(self.exemplars)
+        trace, v, t = self.exemplars[i]
+        return {"bucket": i, "le": _HIST_BASE * 2.0 ** i,
+                "trace": trace, "value": v, "t": t}
 
     def percentile(self, p: float) -> float:
         """Nearest-rank quantile (0.0 when empty): the midpoint of the
@@ -498,66 +515,165 @@ class Timeline:
         return tl
 
 
+    def log(self, logger: Optional[logging.Logger] = None) -> None:
+        (logger or logging.getLogger("blit_torch.timeline")).info(
+            "timeline %s", json.dumps(self.report())
+        )
+
+_TRACE_SEQ = itertools.count(1)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str], device=None) -> Iterator[None]:
+    """``torch.profiler`` trace around a region, written as a Chrome trace
+    (Perfetto / ``chrome://tracing`` readable) into ``logdir``:
+    ``blit-torch-<host>-<pid>-<n>.pt.trace.json``.  CPU activity always;
+    CUDA activity (kernels, copies) when ``device`` is a CUDA device, or
+    when ``device`` is None and a GPU is present.  ``logdir=None`` is a
+    no-op, so call sites need no conditionals."""
+    if logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    path = os.path.join(
+        logdir, f"blit-torch-{hostname()}-{os.getpid()}-"
+                f"{next(_TRACE_SEQ)}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+
 # -- flight recorder --------------------------------------------------------
 
 
 class FlightRecorder:
-    """A fixed-size ring of recent stage events, dumped to a
-    JSON file when a watchdog or a starved rotation trips.  Recording is
-    a deque append; dumps are rate-limited per reason class (the text
-    before the first ":" or "—") so a storm writes one incident file."""
+    """A fixed-size ring of recent span/stage/fault events, dumped to JSON
+    when something trips: a rotation stall watchdog,
+    an opened circuit breaker, a dead agent.  Recording must be cheap
+    enough to leave on (bounded deque appends, no locks — CPython deque
+    appends are atomic); dumping is rate-limited so a retry storm writes
+    one incident file, not hundreds.  ``python -m blit_torch trace-view``
+    renders a dump into an incident summary."""
+
+    # Bound on distinct rate-limit clocks: reasons
+    # carry per-instance detail, so the keyed dict must not grow without
+    # bound under adversarial reason churn.
+    _MAX_DUMP_KEYS = 64
 
     def __init__(self, capacity: int = 512, min_interval_s: float = 60.0):
         self._ring: deque = deque(maxlen=capacity)
         self.min_interval_s = min_interval_s
+        # Rate limiting is PER REASON CLASS, not
+        # one global clock: an SLO-breach dump must not starve a
+        # first-of-kind stall dump that lands seconds later.  Keys are
+        # the reason's leading "name" segment (before the first ":" or
+        # "—"), or an explicit dump(key=...).
         self._last_dump: Dict[str, float] = {}
-        self._seq = 0
-        self._lock = threading.Lock()
+        self._dump_seq = 0
+        self._dump_lock = threading.Lock()
 
-    def stage_event(self, name: str, seconds: float, nbytes: int) -> None:
-        self._ring.append({"t": time.time(), "kind": "stage", "name": name,
-                           "s": seconds, "bytes": nbytes})
+    @staticmethod
+    def _reason_key(reason: str) -> str:
+        head = reason.split("—", 1)[0].split(":", 1)[0].strip()
+        return head[:64] or "dump"
 
-    def span_event(self, sp: "Span") -> None:
+    # -- recording (hot paths) --------------------------------------------
+    def event(self, kind: str, name: str, **fields) -> None:
+        e = {"t": time.time(), "kind": kind, "name": name}
+        if fields:
+            e.update(fields)
+        self._ring.append(e)
+
+    def span_event(self, sp: Span) -> None:
         self._ring.append({"t": sp.t0, "kind": "span", "name": sp.name,
                            "dur_s": round(sp.duration_s, 6),
                            "span": sp.span_id, "parent": sp.parent_id})
 
-    def event(self, kind: str, name: str, **fields) -> None:
-        """Record a fault, mask or integrity event."""
-        e = {"t": time.time(), "kind": kind, "name": name}
-        e.update(fields)
-        self._ring.append(e)
+    def stage_event(self, name: str, seconds: float, nbytes: int) -> None:
+        self._ring.append({"t": time.time(), "kind": "stage", "name": name,
+                           "s": round(seconds, 6), "bytes": nbytes})
 
     def events(self) -> List[Dict]:
         return list(self._ring)
 
+    def clear(self) -> None:
+        self._ring.clear()
+
+    # -- dumping (incident path) ------------------------------------------
     def dump(self, reason: str, path: Optional[str] = None,
-             force: bool = False) -> Optional[str]:
-        """Write the incident (reason, recent events) to ``path`` (else a
-        file in ``BLIT_FLIGHT_DIR`` or the temp directory) and return the
-        path.  Never raises; returns None when rate-limited or when
-        ``BLIT_FLIGHT_DISABLE`` is set."""
+             force: bool = False, key: Optional[str] = None) -> Optional[str]:
+        """Write the incident JSON (ring + fault counters + process
+        timeline + recent spans) and return its path.  Never raises (the
+        caller is already mid-incident); returns None when rate-limited
+        (``force=True`` overrides) or when ``BLIT_FLIGHT_DISABLE`` is
+        set.  The rate limit is per reason CLASS (``key``, default the
+        reason's leading name segment) — distinct incident kinds never
+        starve each other."""
         if os.environ.get("BLIT_FLIGHT_DISABLE"):
             return None
         try:
-            key = reason.split("—", 1)[0].split(":", 1)[0].strip()[:64] or "dump"
             now = time.monotonic()
-            with self._lock:
-                last = self._last_dump.get(key, float("-inf"))
+            k = key if key is not None else self._reason_key(reason)
+            with self._dump_lock:
+                last = self._last_dump.get(k, float("-inf"))
                 if not force and now - last < self.min_interval_s:
                     return None
-                self._last_dump[key] = now
-                self._seq += 1
-                seq = self._seq
-            doc = {"reason": reason, "t": time.time(), "pid": os.getpid(),
-                   "events": self.events()}
-            if path is None:
-                import tempfile
+                if (k not in self._last_dump
+                        and len(self._last_dump) >= self._MAX_DUMP_KEYS):
+                    # Evict the stalest clock: new incident kinds keep
+                    # their own limiter without unbounded growth.
+                    self._last_dump.pop(
+                        min(self._last_dump, key=self._last_dump.get))
+                self._last_dump[k] = now
+            from blit_torch import faults
 
-                d = os.environ.get("BLIT_FLIGHT_DIR") or tempfile.gettempdir()
+            doc = {
+                "reason": reason,
+                "t": time.time(),
+                "host": hostname(),
+                "pid": os.getpid(),
+                "worker": _WORKER,
+                "anchor": wall_anchor(),
+                "events": self.events(),
+                "faults": faults.counters(),
+                "timeline": process_timeline().report(),
+                "spans": [s.as_dict() for s in _TRACER.spans()[-64:]],
+            }
+            # Correlate the incident with the request that tripped it:
+            # when a span is active on the dumping thread, its trace /
+            # span ids land in the dump, so a flight record and a
+            # stitched fleet trace are greppable by one token.
+            ctx = _TRACER.context()
+            if ctx:
+                doc["trace"] = ctx.get("trace")
+                doc["span"] = ctx.get("span")
+            if path is None:
+                d = os.environ.get("BLIT_FLIGHT_DIR")
+                if not d:
+                    import tempfile
+
+                    d = tempfile.gettempdir()
+                # The per-process sequence number keeps two same-second
+                # dumps (now possible: rate limiting is per REASON) from
+                # overwriting each other's file.
+                with self._dump_lock:
+                    self._dump_seq += 1
+                    seq = self._dump_seq
                 path = os.path.join(
-                    d, f"blit-torch-flight-{os.getpid()}-{int(doc['t'])}-{seq}.json")
+                    d, f"blit-flight-{hostname()}-{os.getpid()}-"
+                       f"{int(doc['t'])}-{seq}.json")
             tmp = path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(doc, f)
@@ -657,6 +773,59 @@ class StallWatchdog:
             self.trip(detail)
 
 
+def render_flight_dump(doc: Dict, tail: int = 40) -> str:
+    """A flight-recorder dump as a readable incident summary (the
+    ``python -m blit_torch trace-view`` body): what tripped, where, the fault
+    counters, and the last events before the trip."""
+    lines = []
+    t = doc.get("t", 0.0)
+    when = time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime(t)) if t else "?"
+    lines.append("=== blit flight record ===")
+    lines.append(f"reason : {doc.get('reason', '?')}")
+    lines.append(f"where  : {doc.get('host', '?')}/w{doc.get('worker', 0)} "
+                 f"pid {doc.get('pid', '?')}")
+    lines.append(f"when   : {when} UTC")
+    anchor = doc.get("anchor") or {}
+    if anchor:
+        # epoch - mono = the dumping process's monotonic origin on the
+        # wall clock — what cross-process bundle timelines align on.
+        origin = anchor.get("epoch", 0.0) - anchor.get("mono", 0.0)
+        lines.append(f"anchor : epoch={anchor.get('epoch')} "
+                     f"mono={anchor.get('mono')} "
+                     f"(mono origin {origin:.3f})")
+    if doc.get("trace"):
+        # The ambient trace at dump time: follow it into the
+        # stitched fleet trace (`blit trace-view --fleet ... --trace`).
+        lines.append(f"trace  : {doc['trace']} "
+                     f"(span {doc.get('span', '?')})")
+    faults_c = doc.get("faults") or {}
+    if faults_c:
+        lines.append("fault counters:")
+        for k, v in sorted(faults_c.items()):
+            lines.append(f"  {k:<32} {v}")
+    tl = doc.get("timeline") or {}
+    stages = {k: v for k, v in tl.items()
+              if isinstance(v, dict) and "calls" in v}
+    if stages:
+        lines.append("process timeline (stages):")
+        for k, v in sorted(stages.items()):
+            lines.append(
+                f"  {k:<20} calls={v.get('calls', 0):<8} "
+                f"s={v.get('seconds', 0.0):<12} bytes={v.get('bytes', 0)}")
+    events = doc.get("events") or []
+    lines.append(f"last {min(tail, len(events))} of {len(events)} recorded "
+                 "events (oldest first):")
+    for e in events[-tail:]:
+        ts = time.strftime("%H:%M:%S", time.gmtime(e.get("t", 0.0)))
+        kind = e.get("kind", "?")
+        name = e.get("name", "?")
+        rest = {k: v for k, v in e.items()
+                if k not in ("t", "kind", "name")}
+        detail = " ".join(f"{k}={v}" for k, v in rest.items())
+        lines.append(f"  {ts} [{kind:<5}] {name} {detail}".rstrip())
+    return "\n".join(lines)
+
+
 # -- spans ------------------------------------------------------------------
 
 _id_counter = itertools.count(1)
@@ -711,6 +880,17 @@ class Span:
         if self.attrs:
             d["attrs"] = self.attrs
         return d
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "Span":
+        sp = cls(d.get("name", "?"), d.get("trace", ""), d.get("span", ""),
+                 d.get("parent"), d.get("attrs") or None)
+        sp.t0 = float(d.get("t0", 0.0))
+        sp.duration_s = float(d.get("duration_s", 0.0))
+        sp.host = d.get("host", sp.host)
+        sp.worker = int(d.get("worker", 0))
+        sp.tid = int(d.get("tid", 0))
+        return sp
 
 
 class Tracer:
@@ -812,9 +992,66 @@ class Tracer:
             recent = recent[-new:]
         return total, [s.as_dict() for s in recent]
 
+    def ingest(self, span_dicts: Iterable[Dict]) -> None:
+        """Adopt foreign spans (a fleet harvest) into this tracer so one
+        :meth:`export_chrome` covers the caller and its workers."""
+        for d in span_dicts:
+            try:
+                sp = Span.from_dict(d)
+            except (TypeError, ValueError):  # malformed harvest entry
+                continue
+            with self._span_lock:
+                self._spans.append(sp)
+                self._total += 1
+
     def reset(self) -> None:
         with self._span_lock:
             self._spans.clear()
+
+    def export_chrome(self, path: Optional[str] = None,
+                      extra: Optional[Iterable[Dict]] = None):
+        """Render the recorded spans as Chrome trace events (Perfetto /
+        ``chrome://tracing`` loadable).  ``extra`` takes harvested span
+        dicts to merge in.  Returns the event document; writes JSON to
+        ``path`` when given and returns the path instead."""
+        spans = self.spans()
+        if extra:
+            spans = spans + [Span.from_dict(d) for d in extra]
+        # Dedupe by span id: with the in-process pool backends a harvest
+        # returns the caller's own spans, so recorded + ``extra`` overlap.
+        seen, unique = set(), []
+        for sp in spans:
+            if sp.span_id in seen:
+                continue
+            seen.add(sp.span_id)
+            unique.append(sp)
+        spans = unique
+        # Stable pid per (host, worker) so each worker renders as its own
+        # process track, named.
+        pids: Dict = {}
+        events: List[Dict] = []
+        for sp in spans:
+            key = (sp.host, sp.worker)
+            pid = pids.get(key)
+            if pid is None:
+                pid = pids[key] = len(pids) + 1
+                events.append({"ph": "M", "pid": pid, "tid": 0,
+                               "name": "process_name",
+                               "args": {"name": f"{sp.host}/w{sp.worker}"}})
+            ev = {"name": sp.name, "cat": "blit", "ph": "X",
+                  "ts": sp.t0 * 1e6, "dur": max(sp.duration_s, 1e-7) * 1e6,
+                  "pid": pid, "tid": sp.tid,
+                  "args": {"trace": sp.trace_id, "span": sp.span_id,
+                           "parent": sp.parent_id}}
+            if sp.attrs:
+                ev["args"].update(sp.attrs)
+            events.append(ev)
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        if path is None:
+            return doc
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
 
 
 _TRACER = Tracer()
@@ -984,6 +1221,103 @@ def merge_fleet(snapshots: Iterable[Optional[Dict]],
     return report
 
 
+def local_fleet_report() -> Dict:
+    """The degenerate single-process fleet report (this process only) — what a
+    run with no pool, or the tier-1 CI job, publishes."""
+    return merge_fleet([telemetry_snapshot()])
+
+
+def maybe_write_report(path: Optional[str] = None) -> Optional[str]:
+    """Write :func:`local_fleet_report` JSON to ``path`` (default: the
+    ``BLIT_TELEMETRY_OUT`` environment variable; no-op when unset).  The
+    CI artifact hook — never raises."""
+    path = path or os.environ.get("BLIT_TELEMETRY_OUT")
+    if not path:
+        return None
+    try:
+        with open(path, "w") as f:
+            json.dump(local_fleet_report(), f)
+        return path
+    except Exception:  # noqa: BLE001 — reporting must not fail the run
+        log.warning("telemetry report write to %s failed", path,
+                    exc_info=True)
+        return None
+
+
+# -- fleet trace stitching ----------------------------------------------------
+
+
+def span_process(span_id: str) -> str:
+    """The process prefix of a span/trace id (everything before the
+    counter): ids are minted as ``<pid-hex + 2 random bytes>.<n>``, so
+    two spans share a prefix iff one process recorded them."""
+    return str(span_id).split(".", 1)[0]
+
+
+def cross_process_pairs(span_dicts: Iterable[Dict]) -> int:
+    """How many parent→child span edges CROSS a process boundary — the
+    stitched-trace acceptance metric: a fleet request whose
+    peer-side spans parent onto the front-door span contributes at
+    least one."""
+    spans = list(span_dicts)
+    by_id = {s.get("span"): s for s in spans if s.get("span")}
+    pairs = 0
+    for s in spans:
+        parent = s.get("parent")
+        if not parent or parent not in by_id:
+            continue
+        if span_process(parent) != span_process(s.get("span", "")):
+            pairs += 1
+    return pairs
+
+
+def trace_summary(span_dicts: Iterable[Dict]) -> Dict:
+    """Shape of a stitched span set: totals, distinct traces/processes,
+    and the cross-process edge count."""
+    spans = list(span_dicts)
+    traces = {s.get("trace") for s in spans if s.get("trace")}
+    procs = {span_process(s.get("span", "")) for s in spans
+             if s.get("span")}
+    return {"spans": len(spans), "traces": len(traces),
+            "processes": len(procs),
+            "cross_process_pairs": cross_process_pairs(spans)}
+
+
+def render_trace_tree(span_dicts: Iterable[Dict], trace_id: str,
+                      max_spans: int = 200) -> str:
+    """One trace as an indented parent→child tree (the ``blit_torch
+    trace-view --fleet --trace`` body): every span's name, duration,
+    host/process and hedge tag, children under parents, orphans (their
+    parent aged out of a bounded buffer) at the root."""
+    spans = [s for s in span_dicts if s.get("trace") == trace_id]
+    spans.sort(key=lambda s: s.get("t0", 0.0))
+    spans = spans[:max_spans]
+    ids = {s.get("span") for s in spans}
+    children: Dict[str, List[Dict]] = {}
+    roots: List[Dict] = []
+    for s in spans:
+        parent = s.get("parent")
+        if parent and parent in ids:
+            children.setdefault(parent, []).append(s)
+        else:
+            roots.append(s)
+    lines = [f"trace {trace_id}: {len(spans)} span(s)"]
+
+    def walk(s: Dict, depth: int) -> None:
+        attrs = s.get("attrs") or {}
+        tag = " hedge=1" if attrs.get("hedge") else ""
+        where = f"{s.get('host', '?')}/{span_process(s.get('span', ''))}"
+        lines.append(
+            f"  {'  ' * depth}{s.get('name', '?'):<24} "
+            f"{s.get('duration_s', 0.0) * 1e3:9.3f} ms  [{where}]{tag}")
+        for c in children.get(s.get("span"), []):
+            walk(c, depth + 1)
+
+    for r in roots:
+        walk(r, 0)
+    return "\n".join(lines)
+
+
 def prom_escape(value) -> str:
     """Prometheus label-value escaping (backslash, quote, newline)."""
     return (str(value).replace("\\", "\\\\").replace("\n", "\\n")
@@ -1072,6 +1406,44 @@ def render_prometheus(report: Dict, *, openmetrics: bool = False) -> str:
     if openmetrics:
         lines.append("# EOF")
     return "\n".join(lines) + "\n"
+
+
+def render_fleet_text(report: Dict) -> str:
+    """A fleet report as a human-readable per-host summary (the default
+    ``python -m blit_torch telemetry`` output)."""
+    lines: List[str] = []
+    for host, e in (report.get("hosts") or {}).items():
+        workers = e.get("workers") or []
+        lines.append(f"host {host} ({len(workers)} worker"
+                     f"{'s' if len(workers) != 1 else ''})")
+        stages = e.get("stages") or {}
+        rows = [(k, v) for k, v in stages.items()
+                if isinstance(v, dict) and "calls" in v]
+        if rows:
+            lines.append(f"  {'stage':<22} {'calls':>8} {'seconds':>12} "
+                         f"{'bytes':>16} {'GB/s':>8}")
+            for k, v in sorted(rows):
+                lines.append(
+                    f"  {k:<22} {v.get('calls', 0):>8} "
+                    f"{v.get('seconds', 0.0):>12} {v.get('bytes', 0):>16} "
+                    f"{v.get('gbps', 0.0):>8}")
+        for k, h in sorted((stages.get("hists") or {}).items()):
+            lines.append(
+                f"  hist {k:<18} n={h.get('n', 0):<7} "
+                f"p50={h.get('p50', 0)} p99={h.get('p99', 0)} "
+                f"max={h.get('max', 0)}")
+        for k, v in sorted((e.get("faults") or {}).items()):
+            lines.append(f"  fault {k:<20} {v}")
+    errs = report.get("errors") or {}
+    for host, msg in sorted(errs.items()):
+        lines.append(f"host {host}: HARVEST FAILED — {msg}")
+    fleet = report.get("fleet") or {}
+    nstages = sum(1 for v in fleet.values()
+                  if isinstance(v, dict) and "calls" in v)
+    lines.append(f"fleet: {len(report.get('hosts') or {})} hosts, "
+                 f"{nstages} stages, "
+                 f"{len(report.get('spans') or [])} spans")
+    return "\n".join(lines)
 
 
 # -- structured logging -----------------------------------------------------

@@ -636,3 +636,62 @@ def _raw_tstart_mjd(hdr: dict) -> float:
     smjd = float(hdr.get("STT_SMJD", 0))
     offs = float(hdr.get("STT_OFFS", 0))
     return imjd + (smjd + offs) / 86400.0
+
+
+def detect_stokes(spec: torch.Tensor, stokes: str) -> torch.Tensor:
+    """Complex-dtype convenience wrapper over :func:`detect_stokes_planar`."""
+    return detect_stokes_planar(spec.real, spec.imag, stokes)
+
+
+def channelize_np(
+    voltages: np.ndarray,
+    coeffs: np.ndarray,
+    *,
+    nfft: int,
+    ntap: int = 4,
+    nint: int = 1,
+    stokes: str = "I",
+) -> np.ndarray:
+    """NumPy golden-reference implementation of :func:`channelize` (tests)."""
+    v = voltages.astype(np.float32)
+    z = v[..., 0] + 1j * v[..., 1]  # (nchan, ntime, npol)
+    z = np.moveaxis(z, -1, 1)  # (nchan, npol, ntime)
+    nchan, npol, ntime = z.shape
+    nblk = ntime // nfft
+    nframes = nblk - ntap + 1
+    blocks = z.reshape(nchan, npol, nblk, nfft)
+    frames = np.zeros((nchan, npol, nframes, nfft), dtype=np.complex64)
+    for k in range(ntap):
+        frames += coeffs[k] * blocks[:, :, k : k + nframes, :]
+    spec = np.fft.fftshift(np.fft.fft(frames, axis=-1), axes=-1)
+    xs, ys = (spec[:, 0], spec[:, 1]) if npol == 2 else (spec[:, 0], spec[:, 0])
+    xx = (xs.real**2 + xs.imag**2).astype(np.float32)
+    yy = (ys.real**2 + ys.imag**2).astype(np.float32)
+    if stokes == "I":
+        prods = [xx + yy] if npol == 2 else [xx]
+    elif stokes == "XX":
+        prods = [xx]
+    elif stokes == "YY":
+        prods = [yy]
+    elif stokes == "XXYY":
+        prods = [xx, yy]
+    elif stokes in ("full", "IQUV"):
+        xy = xs * np.conj(ys)
+        if stokes == "full":
+            prods = [xx, yy, xy.real.astype(np.float32), xy.imag.astype(np.float32)]
+        else:
+            prods = [
+                xx + yy,
+                xx - yy,
+                (2 * xy.real).astype(np.float32),
+                (-2 * xy.imag).astype(np.float32),
+            ]
+    else:
+        raise ValueError(stokes)
+    power = np.stack(prods, axis=1)  # (nchan, nif, nframes, nfft)
+    if nint > 1:
+        power = power.reshape(
+            nchan, power.shape[1], nframes // nint, nint, nfft
+        ).sum(axis=3)
+    out = np.transpose(power, (2, 1, 0, 3))
+    return np.ascontiguousarray(out.reshape(out.shape[0], out.shape[1], nchan * nfft))

@@ -748,3 +748,9 @@ def dft_tail(ur: torch.Tensor, ui: torch.Tensor, factors: Tuple[int, ...],
     vr = vr.transpose(-1, -2).reshape(batch + (n1 * m,))
     vi = vi.transpose(-1, -2).reshape(batch + (n1 * m,))
     return vr, vi
+
+
+def dft_np(xr: np.ndarray, xi: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """NumPy golden reference (tests)."""
+    z = np.fft.fft(xr + 1j * xi)
+    return z.real, z.imag

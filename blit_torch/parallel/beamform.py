@@ -41,6 +41,7 @@ from __future__ import annotations
 import math
 from typing import Iterable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from blit_torch.device import resolve_device
@@ -401,3 +402,16 @@ def beamform_accumulate(feed: Iterable, weights: ComplexOrPlanar, *,
     if total is None:
         raise ValueError("beamform_accumulate: feed yielded no windows")
     return total
+
+
+def beamform_np(voltages: np.ndarray, weights: np.ndarray, nint: int = 1,
+                detect: bool = True) -> np.ndarray:
+    """NumPy golden reference for :func:`beamform` (tests)."""
+    beams = np.einsum("bac,actp->bctp", weights, voltages)
+    if not detect:
+        return beams
+    p = (beams.real**2 + beams.imag**2).astype(np.float32)
+    if nint > 1:
+        b, c, t, q = p.shape
+        p = p.reshape(b, c, t // nint, nint, q).sum(axis=3)
+    return p

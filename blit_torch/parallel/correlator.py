@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
 
 from blit_torch.device import resolve_device
@@ -364,3 +365,34 @@ def _correlate_stream_mesh(feed, coeffs, *, nfft, ntap, vis_layout, tl,
         per_player = sum(a.nbytes for a in acc.value) // mesh.size
         M.record_ici(tl, "psum", M.psum_ici_bytes(per_player, nband), psum_s)
     return visr, visi
+
+
+def correlate_np(
+    voltages: np.ndarray,
+    coeffs: np.ndarray,
+    nfft: int,
+    ntap: int = 4,
+    nsegments: int = 1,
+) -> np.ndarray:
+    """NumPy golden reference for :func:`correlate` (tests).
+
+    ``nsegments`` mirrors the band-axis time sharding: each segment is
+    F-engined independently (the PFB does not run across segment
+    boundaries — ``ntap-1`` frames per boundary stay local, matching the
+    sharded semantics) and the visibilities sum over segments.
+    """
+    v = np.moveaxis(voltages, 3, 2)  # (a, c, p, t)
+    seg_len = v.shape[-1] // nsegments
+    vis = None
+    for s in range(nsegments):
+        seg = v[..., s * seg_len : (s + 1) * seg_len]
+        nblk = seg.shape[-1] // nfft
+        nframes = nblk - ntap + 1
+        blocks = seg.reshape(seg.shape[:-1] + (nblk, nfft))
+        frames = np.zeros(seg.shape[:-1] + (nframes, nfft), dtype=np.complex64)
+        for k in range(ntap):
+            frames += coeffs[k] * blocks[..., k : k + nframes, :]
+        spec = np.fft.fftshift(np.fft.fft(frames, axis=-1), axes=-1)
+        part = np.einsum("acptf,bcqtf->abcfpq", spec, np.conj(spec))
+        vis = part if vis is None else vis + part
+    return vis

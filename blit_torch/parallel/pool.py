@@ -399,6 +399,38 @@ class WorkerPool:
                     raise e
         return results
 
+    def harvest_telemetry(self, timeout: Optional[float] = None,
+                          reset: bool = False) -> Dict[str, object]:
+        """Pull every worker's telemetry (Timeline state, fault counters,
+        spans — :func:`blit_torch.observability.telemetry_snapshot`) and
+        fold it with this process's own into ONE per-host-keyed fleet
+        report.
+
+        Harvest failures degrade, never abort: a host that cannot answer
+        lands under ``report["errors"]`` and the rest of the fleet still
+        reports.  ``reset=True`` zeroes each worker's telemetry after
+        snapshotting (interval-scrape mode).  The report also carries
+        :meth:`health` so a degraded run says so in the same document."""
+        results = self.broadcast(
+            observability.telemetry_snapshot,
+            kwargs_per_worker=lambda w: {"reset": reset},
+            on_error="capture", timeout=timeout,
+        )
+        errors: Dict[str, str] = {}
+        snaps = []
+        for w, r in zip(self.workers, results):
+            if isinstance(r, WorkerError):
+                errors[w.host] = repr(r.error)
+            else:
+                snaps.append(r)
+        # This process's own telemetry rides along; with the in-process
+        # backends it is the same (host, pid) as the workers' answers and
+        # merge_fleet's dedupe counts it once.
+        snaps.append(observability.telemetry_snapshot())
+        report = observability.merge_fleet(snaps, errors=errors or None)
+        report["health"] = self.health()
+        return report
+
     def shutdown(self):
         # Drain in-flight calls BEFORE closing agents — a queued remote call
         # would otherwise respawn an agent nobody closes.

@@ -400,12 +400,6 @@ def _open_band_writers(mesh, raws, out_paths, *, h0, bases, per_bank, stokes,
     return mine, headers, writers, f0_start
 
 
-def _no_trace(trace_logdir: Optional[str]) -> None:
-    if trace_logdir is not None:
-        raise ValueError("trace_logdir (profile_trace) is not in the port yet "
-                         "(ROADMAP.md Queue 1 item 8)")
-
-
 def load_scan_mesh(raw_paths, scan: Optional[str] = None, *, inventories=None,
                    nfft: int, ntap: int = 4, nint: int = 1, stokes: str = "I",
                    fqav_by: int = 1, fft_method: str = "auto",
@@ -490,7 +484,6 @@ def reduce_scan_mesh_to_files(
     the last window every process agrees on, products identical to an
     uninterrupted run.  Returns ``{band_id: (path, header)}`` for the
     bands this process wrote."""
-    _no_trace(trace_logdir)
     band_ids, raw_paths = _resolve_grid(raw_paths, scan, inventories)
     mesh, local, raws, nchan, npol, min_samps = _open_players(raw_paths, mesh,
                                                               device)
@@ -514,7 +507,7 @@ def reduce_scan_mesh_to_files(
         compression=compression, resume=resume, wf=wf, total=total)
     done = {}
     try:
-        from blit_torch.observability import Timeline
+        from blit_torch.observability import Timeline, profile_trace
 
         tl = timeline if timeline is not None else Timeline()
 
@@ -530,25 +523,26 @@ def reduce_scan_mesh_to_files(
 
         pending = None
         f0 = f0_start
-        while f0 < total:
-            n = min(wf, total - f0)
-            ntime = (n + ntap - 1) * nfft
-            fed = len(raws) * nchan * ntime * npol * 2
-            with tl.stage("read", fed):
-                volt = _feed_window(raws, local, mesh, nchan, npol, f0 * nfft,
-                                    ntime)
-            with tl.stage("dispatch", byte_free=True):
-                out = M.band_reduce(
-                    volt, coeffs, mesh=mesh, nfft=nfft, ntap=ntap, nint=nint,
-                    stokes=stokes, fft_method=fft_method, stitch=True,
-                    despike_nfpc=despike_nfpc, fqav_by=fqav_by, dtype=dtype,
-                    timeline=tl)
+        with profile_trace(trace_logdir):
+            while f0 < total:
+                n = min(wf, total - f0)
+                ntime = (n + ntap - 1) * nfft
+                fed = len(raws) * nchan * ntime * npol * 2
+                with tl.stage("read", fed):
+                    volt = _feed_window(raws, local, mesh, nchan, npol,
+                                        f0 * nfft, ntime)
+                with tl.stage("dispatch", byte_free=True):
+                    out = M.band_reduce(
+                        volt, coeffs, mesh=mesh, nfft=nfft, ntap=ntap,
+                        nint=nint, stokes=stokes, fft_method=fft_method,
+                        stitch=True, despike_nfpc=despike_nfpc,
+                        fqav_by=fqav_by, dtype=dtype, timeline=tl)
+                if pending is not None:
+                    flush(pending)
+                pending = out
+                f0 += n
             if pending is not None:
                 flush(pending)
-            pending = out
-            f0 += n
-        if pending is not None:
-            flush(pending)
         for b in list(writers):
             writers[b].close()
             done[b] = writers.pop(b)

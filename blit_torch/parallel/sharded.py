@@ -44,7 +44,7 @@ import torch
 
 from blit_torch import faults, observability
 from blit_torch.monitor import published
-from blit_torch.observability import Timeline
+from blit_torch.observability import Timeline, profile_trace
 from blit_torch.ops.channelize import pfb_coeffs, usable_frames
 from blit_torch.outplane import record_event
 from blit_torch.parallel import mesh as M
@@ -52,7 +52,6 @@ from blit_torch.parallel.scan import (
     _despike_nfpc,
     _gapless,
     _gather_int64,
-    _no_trace,
     _open_band_writers,
     _open_players,
     _resolve_grid,
@@ -244,7 +243,6 @@ def reduce_scan_sharded_to_files(
     fault point fires at the same place."""
     from blit_torch.outplane import AsyncSink, OutputRotation, readback_extra_slots
 
-    _no_trace(trace_logdir)
     band_ids, raw_paths = _resolve_grid(raw_paths, scan, inventories)
     mesh, local, raws, nchan, npol, min_samps = _open_players(raw_paths, mesh,
                                                               device)
@@ -288,8 +286,9 @@ def reduce_scan_sharded_to_files(
                              name="blit-mesh-readback")
         for b in mine:
             sinks[b] = AsyncSink(writers[b], depth=depth, timeline=tl)
-        with observability.span("mesh.scan", nfft=nfft, nband=nband,
-                                nbank=nbank, sharded=True), tl.stage("stream"):
+        with profile_trace(trace_logdir), observability.span(
+                "mesh.scan", nfft=nfft, nband=nband, nbank=nbank,
+                sharded=True), tl.stage("stream"):
             for win in feed.windows():
                 faults.fire("mesh.window", key=f"w{win.index}")
                 if heartbeat is not None:
@@ -398,7 +397,6 @@ def search_scan_sharded_to_files(
     from blit_torch.search.dedoppler import DedopplerReducer, SearchCursor
     from blit_torch.search.hits import hits_from_packed
 
-    _no_trace(trace_logdir)
     if kernel != "auto" or interpret:
         raise ValueError("the port's search has one route (kernel='auto', "
                          f"interpret=False); got kernel={kernel!r}, "
@@ -506,8 +504,9 @@ def search_scan_sharded_to_files(
                                                   start_window, cursors[bk])
             else:
                 writers[bk] = HitsWriter(out_paths[b][k], hdrs[bk])
-        with observability.span("mesh.search", nfft=nfft, nband=nband,
-                                nbank=nbank), tl.stage("stream"):
+        with profile_trace(trace_logdir), observability.span(
+                "mesh.search", nfft=nfft, nband=nband, nbank=nbank), \
+                tl.stage("stream"):
             for win in feed.windows():
                 faults.fire("mesh.window", key=f"w{win.index}")
                 if heartbeat is not None:

@@ -61,8 +61,10 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   of the file's blocks, through the same chunk framing, so a stream of
   a completed recording is byte-identical to its batch reduction.
 - Every ``_pump`` runs under :func:`blit_torch.monitor.publishing`.
-
-``profile_trace`` is a later item (ROADMAP.md, Queue 1).
+- ``trace_logdir`` wraps :meth:`RawReducer.stream`, :meth:`RawReducer.drain`
+  and the pump in :func:`blit_torch.observability.profile_trace`: a
+  ``torch.profiler`` Chrome trace (CUDA kernels included on the card)
+  written into that directory, the products unchanged.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from blit_torch import hostmem, integrity
+from blit_torch import hostmem, integrity, observability
 from blit_torch.device import resolve_device
 from blit_torch.io.guppi import GuppiRaw, RawSource, open_raw
 from blit_torch.io.sigproc import (
@@ -90,7 +92,12 @@ from blit_torch.io.sigproc import (
     validate_slab,
     write_fil,
 )
-from blit_torch.observability import StallWatchdog, Timeline, flight_recorder
+from blit_torch.observability import (
+    StallWatchdog,
+    Timeline,
+    flight_recorder,
+    profile_trace,
+)
 from blit_torch.ops.channelize import (
     STOKES_NIF,
     channelize,
@@ -329,6 +336,9 @@ class RawReducer:
     quant_offset: float = 0.0
     device: Optional[str] = None
     timeline: Timeline = field(default_factory=Timeline)
+    # A torch.profiler trace of stream / drain / the pump, written as a
+    # Chrome trace into this directory (None: no trace).
+    trace_logdir: Optional[str] = None
     # The online tuner: a knob recommendation from the first chunks'
     # stages (tune.rec_* gauges; a profile with BLIT_TUNE_ONLINE=1).
     tune_online: bool = True
@@ -636,46 +646,53 @@ class RawReducer:
             yield slab.data
         self._retire_staging()
 
-    def stream(self, raw_src: RawSource, skip_frames: int = 0) -> Iterator[np.ndarray]:
+    def stream(self, raw: RawSource, skip_frames: int = 0) -> Iterator[np.ndarray]:
         """Yield slabs ``(nspectra, nif, nchans)`` covering the recording
         gap-free, one per chunk: float32, or the ``nbits`` integer form
         :meth:`reduce_to_file` writes.  ``skip_frames`` skips the first N
         output frames exactly.  The slabs are the caller's to keep."""
-        raw = open_raw(raw_src)
+        src = open_raw(raw)
         try:
-            yield from self._stream(raw, skip_frames)
+            with profile_trace(self.trace_logdir, self.device), \
+                    observability.span("reduce.stream", nfft=self.nfft,
+                                       path=getattr(src, "path", "")):
+                yield from self._stream(src, skip_frames)
         finally:
-            if raw is not raw_src:
-                raw.close()
+            if src is not raw:
+                src.close()
 
-    def drain(self, raw_src: RawSource) -> float:
+    def drain(self, raw: RawSource) -> float:
         """Run the streaming reduction with a device-side sink: each
         chunk's product reduces to a sum on the device, waited on once
         ``prefetch_depth - 1`` newer chunks are in flight (then its slot
-        is released).  Returns the sum over all products."""
-        raw = open_raw(raw_src)
+        is released).  Returns the sum over all products.  The last waits
+        stay inside the profiler's window."""
+        src = open_raw(raw)
         try:
-            total = 0.0
-            pending: deque = deque()
-            for chunk in self._chunks(raw):
-                with self.timeline.stage("dispatch", byte_free=True):
-                    pending.append((chunk, self._dispatch(chunk, False).sum()))
-                self._output_frames += chunk.frames
-                while len(pending) >= max(2, self.prefetch_depth):
+            with profile_trace(self.trace_logdir, self.device):
+                total = 0.0
+                pending: deque = deque()
+                for chunk in self._chunks(src):
+                    with self.timeline.stage("dispatch", byte_free=True):
+                        pending.append((chunk,
+                                        self._dispatch(chunk, False).sum()))
+                    self._output_frames += chunk.frames
+                    while len(pending) >= max(2, self.prefetch_depth):
+                        done, s = pending.popleft()
+                        with self.timeline.stage("device",
+                                                 nbytes=done.view.nbytes):
+                            total += float(s)
+                        done.release()
+                while pending:
                     done, s = pending.popleft()
                     with self.timeline.stage("device", nbytes=done.view.nbytes):
                         total += float(s)
                     done.release()
-            while pending:
-                done, s = pending.popleft()
-                with self.timeline.stage("device", nbytes=done.view.nbytes):
-                    total += float(s)
-                done.release()
-            self._retire_staging()
+                self._retire_staging()
             return total
         finally:
-            if raw is not raw_src:
-                raw.close()
+            if src is not raw:
+                src.close()
 
     def _pump(self, raw: GuppiRaw, writer, skip_frames: int = 0) -> int:
         """Drive the reduction into a slab writer and finalize it: host
@@ -687,7 +704,10 @@ class RawReducer:
         is configured)."""
         from blit_torch.monitor import publishing
 
-        with publishing(self.timeline):
+        with publishing(self.timeline), \
+                profile_trace(self.trace_logdir, self.device), \
+                observability.span("reduce.pump", nfft=self.nfft,
+                                   out=str(getattr(writer, "path", ""))):
             return self._pump_impl(raw, writer, skip_frames)
 
     def _pump_impl(self, raw: GuppiRaw, writer, skip_frames: int) -> int:

@@ -595,6 +595,20 @@ class ScanSupervisor:
         flight_recorder().dump(
             f"supervised scan peer proc{proc} {why} (detected after "
             f"{detect_s:.2f}s); aborting the attempt to degrade and resume")
+        # A supervised peer's death is an incident: a bundle while the
+        # flight ring, the request log and the history window are warm.
+        try:
+            from blit_torch.history import maybe_incident
+
+            maybe_incident(
+                "recover",
+                f"supervised scan peer proc{proc} {why} "
+                f"(detected after {detect_s:.2f}s)",
+                alert={"t": time.time(), "class": "recover",
+                       "proc": proc, "why": why,
+                       "detect_s": round(float(detect_s), 4), "rc": rc})
+        except Exception:  # noqa: BLE001 — paging must not break recover
+            log.warning("recover incident bundle failed", exc_info=True)
         return {"proc": proc, "why": why, "detect_s": round(float(detect_s), 4),
                 "rc": rc}
 

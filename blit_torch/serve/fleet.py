@@ -353,8 +353,9 @@ class FleetFrontDoor:
         if not self.ring.remove(p.name):
             return
         p.in_ring = False
-        # Sever the idle keep-alives to the departed peer: a pooled socket to a dead host would eat one
-        # failed write per request until the LIFO stack drained.
+        # Sever the idle keep-alives to the departed peer: a pooled
+        # socket to a dead host would eat one failed write per request
+        # until the LIFO stack drained.
         self.pool.evict_peer(p.url)
         self.timeline.count("fleet.eject")
         # Detection latency (the chaos drill's budget assertion): how
@@ -365,6 +366,19 @@ class FleetFrontDoor:
                                 reason=reason)
         log.warning("fleet: ejected peer %s (%s); %d peer(s) remain",
                     p.name, reason, len(self.ring))
+        # An eject is an incident: one bundle (the door's timeline, the
+        # recent requests and spans) when BLIT_INCIDENT_DIR arms it.
+        try:
+            from blit_torch.history import maybe_incident
+
+            maybe_incident(
+                "fleet-eject",
+                f"fleet ejected peer {p.name}: {reason}",
+                alert={"t": time.time(), "class": "fleet",
+                       "peer": p.name, "reason": reason},
+                timeline=self.timeline)
+        except Exception:  # noqa: BLE001 — paging must not break eject
+            log.warning("eject incident bundle failed", exc_info=True)
 
     def _rejoin(self, p: _Peer) -> None:
         if not self.ring.add(p.name):

@@ -618,7 +618,6 @@ def _history_doc(pub, path: str) -> Dict:
     over the queried window, in the fleet-merge wire shape (the door
     folds peers' answers with :func:`blit_torch.history.merge_buckets`)."""
     since, until, tier = history_query(path)
-    # The port keeps no history store (the answer says "enabled": false).
     store = getattr(pub, "history", None)
     doc = {"t0": since, "t1": until, "enabled": store is not None,
            "host": observability.hostname(), "buckets": [], "metrics": []}
@@ -630,9 +629,10 @@ def _history_doc(pub, path: str) -> Dict:
 
 def snapshot_with(timeline, name: Optional[str] = None) -> Dict:
     """This process's telemetry-snapshot wire document WITH spans — the
-    ``/snapshot`` body both the peer and the front door serve: the process timeline merged with the
-    serving component's (histogram exemplars ride the state), plus the
-    full span buffer, stitchable by ``blit trace-view --fleet``."""
+    ``/snapshot`` body both the peer and the front door serve: the
+    process timeline merged with the serving component's (histogram
+    exemplars ride the state), plus the full span buffer, stitchable by
+    ``trace-view --fleet``."""
     from blit_torch.observability import Timeline, telemetry_snapshot
 
     doc = telemetry_snapshot(spans=True)
@@ -708,12 +708,21 @@ class PeerServer:
         from blit_torch.monitor import MetricsPublisher
 
         # port=-1 / spool_dir="": explicitly OFF — this server IS the
-        # peer's endpoint; the publisher only renders its bodies.  (The
-        # history store that would make it tick is not ported: the
-        # publisher refuses a configuration that arms it.)
+        # peer's endpoint; the publisher only renders its bodies.  With
+        # the history store armed (BLIT_HISTORY_DIR) the publisher does
+        # tick on the monitor interval, so the peer's /history rings fill
+        # and its anomaly baselines score — still no second HTTP endpoint
+        # and no spool.
+        from blit_torch.config import history_defaults, monitor_defaults
+
+        history_on = bool(history_defaults(config)["enabled"])
         self._pub = MetricsPublisher(
-            interval_s=3600.0, spool_dir="", port=-1,
-            timeline=service.timeline, config=config)
+            interval_s=(monitor_defaults(config)["interval_s"]
+                        if history_on else 3600.0),
+            spool_dir="", port=-1, timeline=service.timeline,
+            config=config)
+        if history_on:
+            self._pub.start()
         self._server = _make_server(self._route, port, host)
         self.port = self._server.server_address[1]
         # The advertised URL: loopback when bound there, else the

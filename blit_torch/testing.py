@@ -146,13 +146,32 @@ def make_voltages(
     is ``tone_freq + tone_drift·t`` cycles per sample, so its phase is
     ``2π(f₀·t + ½·ḟ·t²)`` (:func:`tone_drift_for`)."""
     rng = np.random.default_rng(seed)
-    v = rng.normal(0.0, noise_rms, size=(obsnchan, ntime, npol, 2))
+    out = np.empty((obsnchan, ntime, npol, 2), np.int8)
+    tone = None
     if tone_chan is not None:
         t = np.arange(ntime, dtype=np.float64)
         ph = 2 * np.pi * (tone_freq * t + 0.5 * tone_drift * t * t)
-        v[tone_chan, :, :, 0] += tone_amp * np.cos(ph)[:, None]
-        v[tone_chan, :, :, 1] += tone_amp * np.sin(ph)[:, None]
-    return np.clip(np.round(v), -128, 127).astype(np.int8)
+        tone = (range(obsnchan)[tone_chan], tone_amp * np.cos(ph)[:, None],
+                tone_amp * np.sin(ph)[:, None])
+    # In cache-sized pieces, channel after channel, time after time: the
+    # draws are the sequence one whole-array ``rng.normal(0, noise_rms,
+    # size)`` makes (``normal`` is ``loc + scale * standard_normal``), so
+    # the values are that call's, and host memory stays at one piece.
+    step = max(1, (1 << 16) // (npol * 2))
+    buf = np.empty((step, npol, 2))
+    for c in range(obsnchan):
+        for t0 in range(0, ntime, step):
+            t1 = min(ntime, t0 + step)
+            v = buf[:t1 - t0]
+            rng.standard_normal(out=v)
+            v *= noise_rms
+            if tone is not None and c == tone[0]:
+                v[:, :, 0] += tone[1][t0:t1]
+                v[:, :, 1] += tone[2][t0:t1]
+            np.rint(v, out=v)
+            np.clip(v, -128, 127, out=v)
+            out[c, t0:t1] = v
+    return out
 
 
 def synth_raw(
@@ -326,3 +345,32 @@ def build_observation_tree(
                 raise ValueError(f"unknown kind {kind!r}")
             paths.append(p)
     return paths
+
+
+def signal_ready(outdir: str, tag) -> str:
+    """Atomically drop a readiness marker ``<outdir>/.ready<tag>`` — the
+    multi-process harness's bring-up barrier: a pod child writes it the
+    moment its process group is up, so the parent can time the work
+    phase apart from the bring-up."""
+    path = os.path.join(outdir, f".ready{tag}")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(tmp, path)
+    return path
+
+
+def sync_compare_verdict(async_path: str, sync_path: str,
+                         async_wall_s: float, sync_wall_s: float) -> Dict:
+    """The async-vs-sync acceptance of ``ingest-bench --sync-compare``:
+    the asynchronous (narrowed on the device when nbits < 32) and the
+    synchronous products of one recording must be the same file, and
+    the speedup is the sync / async wall ratio.  Compared in constant
+    memory: products can be large."""
+    import filecmp
+
+    return {
+        "async_speedup": round(sync_wall_s / max(async_wall_s, 1e-9), 3),
+        "products_identical": filecmp.cmp(async_path, sync_path,
+                                          shallow=False),
+    }

@@ -327,6 +327,30 @@ Phases, in order; any failure exits non-zero:
       wall, the coalesced and scheduled counts, the peers' spawn
       seconds, detect and re-route seconds after the kill, and phase
       (s)'s seconds, beside the card's name and power limit.
+  (t) the operator plane, on (d)'s recording after (s): (t1)
+      reducer_for_product("0000", trace_logdir=...) with its launch
+      counts set to 0 just before and read just after, the product
+      byte-identical to (d)'s, the torch.profiler trace parsed, its
+      device events naming pfb_dft1_kernel and tail2_detect_kernel,
+      the device-busy share of the traced window and the five device
+      operations that took the most time printed; (t2) `python -m
+      blit_torch ingest-bench --sync-compare` at 0000 width (64
+      channels, nfft 2^20, two chunks of 4 frames) printing
+      "products_identical": true, then at nfft 1024 with --dedoppler
+      --live --spans-compare; (t3) `telemetry --demo --workers 2
+      --backend thread --trace-out` (both reductions in the report, the
+      trace parsed) and `trace-view --fleet` over the saved report;
+      (t4) a live ingest-bench leg under BLIT_HISTORY_DIR /
+      BLIT_INCIDENT_DIR with a stream-latency SLO it must breach, then
+      `top --history`, `slo-report`, `incidents`, `incident show` and
+      `trace-view` over its flight dump; (t5) `serve-bench --fleet
+      --peers 2` (no errors, the JSON and binary wires byte-identical)
+      and `chaos --fleet --fault partition` (150 asks over 6 products:
+      every served product byte-identical to the direct reduction on
+      the card, the peer ejected and rejoined, the eject's incident
+      bundle written).
+      Every command runs with --device cuda as a subprocess; phase
+      (t)'s seconds are printed beside the card's name and power limit.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -977,6 +1001,8 @@ EXPECTED = {
                    ("pfb_dft1", "tail2_detect")),
     "serve hits": (_plan("pallas", "dft_last"),
                    ("pfb_dequant", "dft_last", "taylor_tree")),
+    "operator 0000": (_plan("fused1", "tail2_detect", "tail2_detect"),
+                      ("pfb_dft1", "tail2_detect")),
 }
 
 
@@ -3530,7 +3556,14 @@ def _wait_all(procs, what, timeout=MESH_CHILD_TIMEOUT):
         for p in procs:
             rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
             if rc != 0:
-                raise AssertionError(f"{what}: a child exited {rc}: {p.args}")
+                # The child's stderr sits beside its spec (_spawn_child).
+                err = p.args[-1].replace(".spec.json", ".err")
+                tail = ""
+                if os.path.exists(err):
+                    with open(err) as f:
+                        tail = f.read()[-3000:]
+                raise AssertionError(f"{what}: a child exited {rc}: {p.args}; "
+                                     f"its stderr: {tail}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3700,8 +3733,13 @@ def phase_mesh(torch, dev, smi, tree=None):
         running = []
         for tag, g, shape, nprocs, dpp, backend in pods:
             outp = [os.path.join(dirs[tag], f"band{b}.fil") for b in range(shape[0])]
+            # A lease dir a pod: the pods run at once, and each has a proc 0
+            # whose beats (tmp file + rename) must not race another pod's.
+            lease = os.path.join(dirs["work"], f"{tag}.leases")
+            os.makedirs(lease)
             running += _run_pod(dict(base, grid=g, out_paths=outp, mesh_shape=shape,
-                                     devices_per_proc=dpp, backend=backend),
+                                     devices_per_proc=dpp, backend=backend,
+                                     lease_dir=lease),
                                 nprocs, dirs["work"], tag)
         _wait_all(running, "mesh pods")
         pods_s = time.perf_counter() - t0
@@ -4472,6 +4510,232 @@ def phase_serve_catalog(torch, dev, tree, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- (t) the operator plane ---------------------------------------------------
+
+OPS_TIMEOUT = 900
+OPS_SERVE_REQUESTS = 36      # (t5): the fleet bench's asks
+OPS_CHAOS_REQUESTS = 150     # (t5): the partition drill's asks (blit's default)
+OPS_NFFT = 1024              # (t2)-(t5): the search's nfft
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACED_KERNELS = ("pfb_dft1_kernel", "tail2_detect_kernel")
+
+
+def trace_device_time(doc):
+    """A Chrome trace's device side: (the traced window in ms, the share
+    of it some device operation was running, {name: (ms, count)} of the
+    device operations, the names of the device kernels)."""
+    events = [e for e in doc["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not dev_ev:
+        raise AssertionError("operator: the trace holds no device events "
+                             f"(categories {sorted({e.get('cat') for e in events})})")
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, None
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in dev_ev):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    ops = {}
+    for e in dev_ev:
+        ms, n = ops.get(e["name"], (0.0, 0))
+        ops[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    kernels = {e["name"] for e in dev_ev if e.get("cat") == "kernel"}
+    return (t1 - t0) / 1e3, busy / max(t1 - t0, 1e-9), ops, kernels
+
+
+def ops_cli(env, *argv, timeout=OPS_TIMEOUT, rc=0):
+    """``python -m blit_torch <argv>`` → (stdout, seconds); raises unless
+    it exits ``rc``."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "blit_torch", *argv],
+                         capture_output=True, text=True, env=env,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != rc:
+        raise AssertionError(f"operator: blit_torch {argv[0]} exited "
+                             f"{res.returncode}, want {rc}: "
+                             f"{res.stdout[-1500:]} {res.stderr[-2500:]}")
+    return res.stdout, wall
+
+
+def last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_operator(torch, dev, raw_path, tmp, smi):
+    """(t1)-(t5): the operator plane on the card.  Returns the launch
+    counts of (t1)'s traced 0000 run."""
+    from blit_torch.ops import channelize as tch
+    from blit_torch.pipeline import reducer_for_product
+
+    t_ops = time.perf_counter()
+    work = os.path.join(tmp, "operator")
+    os.makedirs(work)
+    env = dict(os.environ, BLIT_FLIGHT_DIR=work,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (os.path.dirname(os.path.abspath(__file__)),
+                               os.environ.get("PYTHONPATH")) if p))
+
+    # (t1) a traced 0000 on the card.
+    trace_dir = os.path.join(work, "trace")
+    out = os.path.join(work, "smoke.0000.traced.fil")
+    red = reducer_for_product("0000", trace_logdir=trace_dir,
+                              **PRODUCTS["0000"])
+    reset_launches()
+    t0 = time.perf_counter()
+    red.reduce_to_file(raw_path, out)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_plan("operator 0000", tch.last_kernel_plan(), launches)
+    if not same_file(out, os.path.join(tmp, "smoke.0000.fil")):
+        raise AssertionError("operator: the traced 0000 differs from (d)'s")
+    os.unlink(out)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"operator: {len(traces)} traces written, want 1")
+    path = os.path.join(trace_dir, traces[0])
+    with open(path) as f:
+        doc = json.load(f)
+    window_ms, share, ops, kernels = trace_device_time(doc)
+    for name in TRACED_KERNELS:
+        if not any(name in k for k in kernels):
+            raise AssertionError(f"operator: the trace names no {name}; its "
+                                 f"kernels: {sorted(kernels)[:20]}")
+    log(f"operator (t1): traced 0000 in {wall:.3f} s, launches "
+        f"{json.dumps(launches)}; trace {os.path.getsize(path) / 1e6:.1f} MB, "
+        f"{len(doc['traceEvents'])} events, window {window_ms:.1f} ms, "
+        f"device busy {share:.4f} of it; card: {smi}")
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+    for name, (ms, n) in top:
+        log(f"operator (t1) top device op: {ms:.3f} ms in {n} x {name[:160]}")
+    shutil.rmtree(trace_dir)
+
+    # (t2) ingest-bench at 0000 width, then at the search's nfft.
+    text, wall = ops_cli(
+        env, "ingest-bench", "--nfft", str(NFFT), "--nchan", str(NCHAN),
+        "--chunk-frames", str(CHUNK_FRAMES), "--chunks", "2",
+        "--blocks", str(RAW_SAMPLES // BLOCK_NTIME), "--sync-compare",
+        "--device", CLI_DEVICE)
+    rep = last_json(text)
+    if rep.get("products_identical") is not True:
+        raise AssertionError(f"operator: ingest-bench products differ: {rep}")
+    legs = {("async" if g["async_output"] else "sync"):
+            {"wall_s": g["wall_s"], "ingest_gbps": g["ingest_gbps"],
+             "overlap_efficiency": g["overlap_efficiency"]}
+            for g in rep["legs"]}
+    log(f"operator (t2): ingest-bench 0000 in {wall:.1f} s: "
+        f"{json.dumps({'products_identical': rep['products_identical'], 'async_speedup': rep['async_speedup'], 'file_bytes': rep['file_bytes'], 'legs': legs})}")
+    text, wall = ops_cli(
+        env, "ingest-bench", "--nfft", str(OPS_NFFT), "--nchan", str(NCHAN),
+        "--dedoppler", "--live", "--spans-compare", "--device", CLI_DEVICE)
+    rep = last_json(text)
+    if rep["dedoppler"]["windows"] < 1 or rep["live"]["stalls"] != 0:
+        raise AssertionError(f"operator: ingest-bench search legs: {rep}")
+    log(f"operator (t2): ingest-bench nfft {OPS_NFFT} in {wall:.1f} s: "
+        f"dedoppler {json.dumps({k: rep['dedoppler'][k] for k in ('windows', 'hits', 'drift_rates_per_s', 'ingest_gbps')})}, "
+        f"live {json.dumps({k: rep['live'][k] for k in ('chunks', 'chunk_to_product_p50_s', 'chunk_to_product_p99_s')})}, "
+        f"span_overhead {rep['span_overhead']}")
+
+    # (t3) the fleet harvest and the stitched trace.
+    chrome = os.path.join(work, "telemetry.trace.json")
+    text, wall = ops_cli(env, "telemetry", "--demo", "--workers", "2",
+                         "--backend", "thread", "--trace-out", chrome,
+                         "--format", "json", "--device", CLI_DEVICE)
+    report = last_json(text)
+    (host, entry), = report["hosts"].items()
+    stages = entry["stages"]
+    pool_spans = [s for s in report["spans"] if s["name"] == "pool.reduce_raw"]
+    if stages.get("stream", {}).get("calls") != 2 or len(pool_spans) != 2:
+        raise AssertionError("operator: the harvest lacks a worker's "
+                             f"reduction: {json.dumps(stages)[:800]}")
+    with open(chrome) as f:
+        nev = len(json.load(f)["traceEvents"])
+    saved = os.path.join(work, "telemetry.json")
+    with open(saved, "w") as f:
+        json.dump(report, f)
+    text, _ = ops_cli(env, "trace-view", "--fleet", saved, "--trace",
+                      pool_spans[0]["trace"])
+    summary = json.loads(text.splitlines()[0])
+    if summary["spans"] < 2 or "pool.reduce_raw" not in text:
+        raise AssertionError(f"operator: trace-view: {text[:800]}")
+    log(f"operator (t3): telemetry --demo in {wall:.1f} s on host {host}: "
+        f"stream calls {stages['stream']['calls']}, ingest "
+        f"{stages['ingest']['bytes']} B; chrome trace {nev} events; "
+        f"trace-view {json.dumps(summary)}")
+
+    # (t4) the history store and an incident.
+    hist, inc = os.path.join(work, "history"), os.path.join(work, "incidents")
+    spool = os.path.join(work, "spool")
+    henv = dict(env, BLIT_HISTORY_DIR=hist, BLIT_INCIDENT_DIR=inc,
+                BLIT_HISTORY_RAW_S="0.5", BLIT_SLO_STREAM_P99="1e-6")
+    text, wall = ops_cli(henv, "ingest-bench", "--nfft", str(OPS_NFFT),
+                         "--nchan", str(NCHAN), "--chunks", "16", "--live",
+                         "--live-seconds", "3", "--monitor-spool", spool,
+                         "--monitor-interval", "0.1", "--device", CLI_DEVICE)
+    text, _ = ops_cli(env, "slo-report", hist, "--json")
+    slo = last_json(text)
+    obj = slo["objectives"].get("stream-latency") or {}
+    if not obj.get("total"):
+        raise AssertionError(f"operator: slo-report read nothing: {slo}")
+    text, _ = ops_cli(env, "incidents", "--dir", inc, "--json")
+    manifests = [json.loads(x) for x in text.strip().splitlines()]
+    if not any(m.get("kind") == "slo:stream-latency" for m in manifests):
+        raise AssertionError(f"operator: no SLO incident bundle: {manifests}")
+    bundle = os.path.join(inc, sorted(os.listdir(inc))[0])
+    shown, _ = ops_cli(env, "incident", "show", bundle)
+    frame, _ = ops_cli(env, "top", "--spool", spool, "--once", "--history",
+                       hist)
+    dumps = sorted(f for f in os.listdir(work) if f.startswith("blit-flight-"))
+    if not dumps:
+        raise AssertionError("operator: the breach wrote no flight dump")
+    flight, _ = ops_cli(env, "trace-view", os.path.join(work, dumps[0]))
+    if "=== blit flight record ===" not in flight or \
+            "=== blit incident bundle ===" not in shown or \
+            "history (" not in frame:
+        raise AssertionError("operator: a reader rendered nothing")
+    log(f"operator (t4): live leg under the history store in {wall:.1f} s; "
+        f"slo-report stream-latency {json.dumps(obj)}; {len(manifests)} "
+        f"incident bundle(s) ({', '.join(m.get('kind', '?') for m in manifests)}); "
+        f"{len(dumps)} flight dump(s); top --history {len(frame.splitlines())} lines")
+
+    # (t5) the fleet drills.
+    text, wall = ops_cli(env, "serve-bench", "--fleet", "--peers", "2",
+                         "--requests", str(OPS_SERVE_REQUESTS), "--distinct",
+                         "4", "--nfft", str(OPS_NFFT), "--device", CLI_DEVICE)
+    bench = last_json(text)
+    if bench["errors"] or not bench["wire"]["compat"].get("byte_identical") \
+            or bench["request_log"]["by_status"].get("ok") != OPS_SERVE_REQUESTS:
+        raise AssertionError(f"operator: serve-bench --fleet: {bench}")
+    log(f"operator (t5): serve-bench --fleet in {wall:.1f} s: "
+        f"{json.dumps({k: bench[k] for k in ('rps', 'hit_rate', 'request_p50_s', 'request_p99_s', 'slo')})}")
+    inc2 = os.path.join(work, "incidents-fleet")
+    text, wall = ops_cli(dict(env, BLIT_INCIDENT_DIR=inc2), "chaos", "--fleet",
+                         "--fault", "partition", "--peers", "3",
+                         "--fleet-requests", str(OPS_CHAOS_REQUESTS),
+                         "--fleet-distinct", "6", "--nfft", str(OPS_NFFT),
+                         "--work-dir", os.path.join(work, "chaos"),
+                         "--device", CLI_DEVICE)
+    drill = last_json(text)
+    ejects = [d for d in (os.listdir(inc2) if os.path.isdir(inc2) else [])
+              if "fleet-eject" in d]
+    if not (drill["ok"] and drill["byte_identical"] and drill["rejoined"]) \
+            or not ejects:
+        raise AssertionError(f"operator: chaos --fleet partition: {drill}; "
+                             f"bundles {ejects}")
+    log(f"operator (t5): chaos --fleet partition in {wall:.1f} s: "
+        f"{json.dumps({k: drill[k] for k in ('victim', 'detect_s', 'byte_identical', 'rejoined', 'hit_rate_post_recovery', 'failed_requests')})}, "
+        f"eject bundle {ejects[0]}")
+    log(f"operator: phase (t) took {time.perf_counter() - t_ops:.1f} s; "
+        f"card: {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4539,6 +4803,9 @@ def main() -> int:
         fleet = phase_serve_fleet(torch, dev, raw_path, tmp, smi)
         phase_serve_fsck(torch, dev, raw_path, tmp, smi)
         serve_s = time.perf_counter() - t_serve
+        # (t1)-(t5) the operator plane
+        launches["operator 0000"] = phase_operator(torch, dev, raw_path, tmp,
+                                                   smi)
         # (o) resume, the scan, the native reader, .h5 products
         launches.update(phase_resume(torch, dev, raw_path, tmp))
         os.unlink(raw_path)

@@ -208,11 +208,14 @@ def test_default_device_is_the_card(tmp_path):
 
 
 def test_only_ported_commands_are_registered():
-    for cmd in ("serve-bench", "top", "ingest-bench", "telemetry"):
-        with pytest.raises(SystemExit) as e:
-            _run(tmain, [cmd, "--help"])
-        assert e.value.code == 2  # argparse: invalid choice
-    for cmd in ("scan", "session", "chaos"):  # ported with the mesh
+    """Every command is ported now: each of the operator plane's (the
+    last to come) answers ``--help``, and an unknown one is refused."""
+    for cmd in ("serve-bench", "top", "ingest-bench", "telemetry",
+                "bench-diff", "trace-view", "incidents", "incident",
+                "slo-report", "scan", "session", "chaos"):
         with pytest.raises(SystemExit) as e:
             _run(tmain, [cmd, "--help"])
         assert e.value.code == 0
+    with pytest.raises(SystemExit) as e:
+        _run(tmain, ["no-such-command", "--help"])
+    assert e.value.code == 2  # argparse: invalid choice

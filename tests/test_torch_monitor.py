@@ -274,11 +274,28 @@ def test_health_hooks_degrade(tmp_path):
 
 @pytest.mark.parametrize("var", ["BLIT_HISTORY_DIR", "BLIT_INCIDENT_DIR"])
 def test_history_configured_raises(tmp_path, monkeypatch, var):
+    """The history dirs arm the store (and its anomaly baselines) or the
+    incident bundler, as in ``blit``: the publisher no longer raises, and
+    a history dir alone arms the process publisher as ``blit``'s does."""
     monkeypatch.setenv(var, str(tmp_path / "h"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MetricsPublisher(interval_s=999.0, spool_dir=str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError):
-        monitor.ensure_publisher()
+    pub = MetricsPublisher(interval_s=999.0, spool_dir=str(tmp_path / "s"))
+    bpub = bmonitor.MetricsPublisher(interval_s=999.0,
+                                     spool_dir=str(tmp_path / "bs"))
+    try:
+        assert (pub.history is None) == (bpub.history is None)
+        assert (pub.anomaly is None) == (bpub.anomaly is None)
+        assert (pub._bundler is None) == (bpub._bundler is None)
+        assert (pub.history is not None) == (var == "BLIT_HISTORY_DIR")
+        assert (pub._bundler is not None) == (var == "BLIT_INCIDENT_DIR")
+        pub.tick()
+    finally:
+        pub.close()
+        bpub.close()
+    try:
+        armed = monitor.ensure_publisher()
+        assert (armed is not None) == (var == "BLIT_HISTORY_DIR")
+    finally:
+        monitor.shutdown_publisher()
 
 
 def test_monitoring_off_unless_configured_and_reduce_publishes(

@@ -538,7 +538,15 @@ class TestScanCLI:
         common = ("scan", root, "AGBT22B_999_01", "0011", "-o", str(tmp_path))
         for extra, msg in ((("--search", "--resume"), "--resume"),
                            (("--search", "--fqav", "2"), "--fqav"),
-                           (("--pool", "--resume"), "--resume"),
-                           (("--trace-logdir", str(tmp_path)), "item 8")):
+                           (("--pool", "--resume"), "--resume")):
             with pytest.raises(SystemExit, match=msg):
                 self._run(capsys, *common, *extra)
+        # --trace-logdir is taken (it used to be refused): the scan runs
+        # and leaves a torch.profiler trace.
+        trace = tmp_path / "trace"
+        (tmp_path / "traced").mkdir()
+        rc, _ = self._run(capsys, "scan", root, "AGBT22B_999_01", "0011",
+                          "-o", str(tmp_path / "traced"), "--nfft", "64",
+                          "--window-frames", "4", "--trace-logdir",
+                          str(trace))
+        assert rc == 0 and list(trace.glob("*.pt.trace.json"))

@@ -57,7 +57,7 @@ def test_import_pulls_in_no_jax_blit_triton_or_cpp_extension():
             "blit_torch.serve.elastic", "blit_torch.serve.fleet",
             "blit_torch.serve.http", "blit_torch.serve.ring",
             "blit_torch.serve.scheduler",
-            "blit_torch.serve.service"} <= set(mods)
+            "blit_torch.serve.service", "blit_torch.version"} <= set(mods)
     # h5py loads only when an .h5 file is opened: no module imports it,
     # blit_torch.io.fbh5 included.
     plain = mods
@@ -128,6 +128,29 @@ def test_source_has_no_jax_or_blit_imports():
     assert offenders == []
 
 
+def test_torch_profiler_is_imported_only_inside_functions():
+    # profile_trace imports torch.profiler when a trace is asked for; no
+    # module of the port imports it at module scope.
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(root, fn)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in tree.body:
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                offenders += [f"{path}: {n}" for n in names
+                              if n.startswith("torch.profiler")]
+    assert offenders == []
+
+
 def test_live_plane_modules_import_no_jax_blit_triton_or_cpp_extension():
     # The live plane and the command line, each imported alone in a fresh
     # process: no jax, no blit, no triton, no cpp_extension, and CUDA
@@ -181,7 +204,8 @@ def test_mesh_and_recovery_modules_import_alone_and_start_no_group(mod):
                                  "blit_torch.serve.http",
                                  "blit_torch.serve.elastic",
                                  "blit_torch.serve.catalog",
-                                 "blit_torch.history"])
+                                 "blit_torch.history",
+                                 "blit_torch.observability"])
 def test_serve_modules_import_alone_without_jax_blit_or_cuda(mod):
     # Each imported alone in a fresh process: no jax, no blit, no
     # triton, no cpp_extension, CUDA untouched (a front door runs on a
