@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero:
       tiled_ms) and, at n = 8, the FFT the row kernel stands in for;
       dft_tail2 in (e), dft_stage and dft_last in (f), dft_last in (m)
       and (l) at their paths' shapes;
-  (d) main paths: a synthetic 2.95 GB RAW file (128 MiB blocks, a tone
+  (d) main paths: a 2.95 GB RAW file made on the card (128 MiB blocks, a tone
       at 0.375 of one coarse channel, on the fine grid of all three
       products) → reducer_for_product(p).reduce_to_file(.fil) on the GPU
       for p = "0000" (chunk_frames 4), "0002" (its default 2048 frames:
@@ -136,7 +136,7 @@ Phases, in order; any failure exits non-zero:
       windows of 64 spectra at nfft 1024, a tone in coarse channel 10
       drifting by tone_drift_for(1024, 64, ±20)); in both windows the
       top hit is in the tone's band at a drift within 1 of ±20.
-  (k) beamform, after (f): 64 RAW files (synth_raw, 64 channels, 32768
+  (k) beamform, after (f): 64 RAW files (made on the card, 64 channels, 32768
       samples, a tone in channel a % 64: 537 MB), delay weights for 64
       beams as bench.py makes them; the one-shot path
       (load_antennas(layout="chan") + beamform(layout="chan"), 8192
@@ -169,15 +169,16 @@ Phases, in order; any failure exits non-zero:
       it is deleted and on (k)'s and (l)'s array recordings: each product
       through reduce_to_file on the asynchronous plane (the default, which
       (d), (h) and (i) also take) and with async_output=False, in turns,
-      three times: the .fil files byte-identical and the launches equal; 0002
-      at nbits=8 (quant_scale mapping the f32 product's median to 100,
-      quant_offset 3) async against sync, byte-identical, and bitwise the
-      host narrowing of the f32 product; narrow_device on the card against
-      narrow_host at nbits 8 and 16; the search (h) async against sync,
-      three times, the .hits identical; beamform_stream and
-      correlate_stream with prefetch_depth 1 (the synchronous feed), 2 and
-      3, in turns, three times, each bitwise equal to the one-shot form,
-      the launches equal.  For each run: RAW GB/s, the stage table
+      PLANE_REPEATS times (1): the .fil files byte-identical and the
+      launches equal; 0002 at nbits=8 (quant_scale mapping the f32
+      product's median to 100, quant_offset 3) async against sync,
+      byte-identical, and bitwise the host narrowing of the f32 product;
+      narrow_device on the card against narrow_host at nbits 8 and 16;
+      the search (h) async against sync, PLANE_REPEATS times, the .hits
+      identical; beamform_stream and correlate_stream with
+      prefetch_depth 1 (the synchronous feed), 2 and 3, in turns,
+      PLANE_REPEATS times, each bitwise equal to the one-shot form, the
+      launches equal.  For each run: RAW GB/s, the stage table
       (ingest, state, dispatch, device, readback, write, stream),
       overlap_efficiency and the host staging allocations (pinned;
       seconds, count, GB); then one "plane table" line per path and mode:
@@ -258,7 +259,8 @@ Phases, in order; any failure exits non-zero:
       dir: tune (3 trials on the recording, nfft 1024, nint 2048), reduce
       --product 0002 (the profile's key in the provenance, the card's
       name in its rig identity), stream --replay-rate (the same bytes as
-      reduce) and info.
+      reduce), then info through blit_torch.__main__.main in this
+      process.
   (r) the (band, bank) mesh and the recovery plane, in three places:
       after (q), on (d)'s recording: (r2) 0000 on a (1, 2) mesh (both
       players on the card), bank 0 (d)'s recording and bank 1 a second
@@ -309,13 +311,14 @@ Phases, in order; any failure exits non-zero:
       (h)'s .hits (hits_from_array) and to the direct reduction's bytes;
       (s3) two `python -m blit_torch fleet-peer --device cuda` processes
       (RAM tier, heartbeat leases, request logs), started together,
-      behind this process's FleetFrontDoor on the binary wire: 0002,
-      0001 and hits asks byte-equal to direct reductions (run on a
-      thread meanwhile), each repeat from the owner's RAM or wire tier;
+      behind this process's FleetFrontDoor on the binary wire: 0002
+      and hits asks byte-equal to direct reductions (run on a thread
+      meanwhile; no 0001 ask: a peer derives it at blit's default 128
+      frames a chunk, 26-53 s on the card), each repeat from the owner's RAM or wire tier;
       the owner of 0002 SIGKILLed, ejected by its lease, 0002 re-routed
       byte-identically; the other SIGTERMed, draining to exit 0;
-      `python -m blit_torch requests` over the logs lists every ask;
-      (s4) `python -m blit_torch fsck` over copies of (d)'s 0002 and
+      the requests command over the logs lists every ask;
+      (s4) the fsck command over copies of (d)'s 0002 and
       0001 products with their manifests: exit 0, then, one byte
       flipped, exit 1 naming the product and quarantining it; when h5py
       imports (else one line naming what is missing), the disk and cold
@@ -336,8 +339,11 @@ Phases, in order; any failure exits non-zero:
       operations that took the most time printed; (t2) `python -m
       blit_torch ingest-bench --sync-compare` at 0000 width (64
       channels, nfft 2^20, two chunks of 4 frames) printing
-      "products_identical": true, then at nfft 1024 with --dedoppler
-      --live --spans-compare; (t3) `telemetry --demo --workers 2
+      "products_identical": true, started first because it synthesizes
+      its recording on one host core for about a minute: (t1), (t2) at
+      nfft 1024 with --dedoppler --live --spans-compare, (t3) and (t4)
+      run meanwhile, each only while that synthesis lasts, and the line
+      names any step its timed legs ran beside; (t3) `telemetry --demo --workers 2
       --backend thread --trace-out` (both reductions in the report, the
       trace parsed) and `trace-view --fleet` over the saved report;
       (t4) a live ingest-bench leg under BLIT_HISTORY_DIR /
@@ -349,8 +355,12 @@ Phases, in order; any failure exits non-zero:
       every served product byte-identical to the direct reduction on
       the card, the peer ejected and rejoined, the eject's incident
       bundle written).
-      Every command runs with --device cuda as a subprocess; phase
-      (t)'s seconds are printed beside the card's name and power limit.
+      Every command that computes runs with --device cuda as a
+      subprocess; the readers (trace-view, slo-report, incidents,
+      incident, top, and requests, fsck and info in (s) and (q)) run
+      through blit_torch.__main__.main in this process, as no process
+      of their own is needed; phase (t)'s seconds are printed beside the
+      card's name and power limit.
 (e), (f) and (m) count launches as (d) does, for each path, and hold
 the output to rtol 1e-4 and an atol of 1e-3 of the mean bin; (k) and (l)
 count them for each path the same way.  The line before the last two is
@@ -397,6 +407,7 @@ ONEPOL_FRAMES = 1024
 REF_CHANNELS_M = 4
 REALTIME_BANK_GBPS = 0.750
 SEED = 2026
+SYNTH_DEVICE = "cuda"    # where synth_on_card draws the recordings
 # The search: nfft 1024 at search_defaults() for (h), one window of 8
 # hi-res spectra for (i), ±20-bin drifts over two 64-spectrum windows
 # for (j).  Each shape of (g): (what it is, T, F).
@@ -482,6 +493,46 @@ DETECT_FLOPS = {"I": 7, "XX": 3, "YY": 3, "XXYY": 6, "full": 12, "IQUV": 16}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def cli_call(*argv, env=None):
+    """``blit_torch.__main__.main(argv)`` in this process, its standard
+    output captured, with ``env``'s variables set for the call: the
+    command line's readers (info, requests, fsck, trace-view, slo-report,
+    incidents, incident, top) need no process of their own.  Returns
+    (stdout, exit code, seconds)."""
+    import contextlib
+    import io
+
+    from blit_torch.__main__ import main as cli_main
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                code = cli_main(list(argv))
+            except SystemExit as e:
+                code = e.code
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return buf.getvalue(), code or 0, time.perf_counter() - t0
+
+
+def run_cli(*argv, env=None, rc=0):
+    """:func:`cli_call` → (stdout, seconds); raises unless the command
+    exits ``rc``."""
+    text, code, wall = cli_call(*argv, env=env)
+    if code != rc:
+        raise AssertionError(f"blit_torch {argv[0]} exited {code}, want {rc}: "
+                             f"{text[-1500:]}")
+    return text, wall
 
 
 def stage_table(tl) -> dict:
@@ -1035,14 +1086,47 @@ def read_span(raw, s0: int, n: int, per: int):
     return out
 
 
-def write_recording(tmp):
-    from blit_torch.testing import synth_raw_blocks
+def synth_on_card(path, nblocks, obsnchan, ntime_per_block, seed,
+                  tone_chan=None, tone_freq=0.25, tone_amp=20.0,
+                  noise_rms=8.0, **hdrkw):
+    """Write a seeded RAW recording of ``nblocks`` blocks, each made on the
+    card: blit_torch.testing's signal (Gaussian noise of rms ``noise_rms``,
+    a complex tone of ``tone_amp`` at ``tone_freq`` of coarse channel
+    ``tone_chan`` at absolute sample time, rounded and clipped to int8),
+    drawn by a CUDA generator.  numpy's normal draws take about 20 s a GB
+    on one host core; the card's take milliseconds, so the recordings of
+    several GB cost their write alone.  Returns the header."""
+    import torch
 
+    from blit_torch.io.guppi import write_raw
+    from blit_torch.testing import make_raw_header
+
+    dev = torch.device(SYNTH_DEVICE)
+    hdr = make_raw_header(obsnchan=obsnchan, npol=2, **hdrkw)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(ntime_per_block, device=dev, dtype=torch.float64)
+
+    def blocks():
+        for i in range(nblocks):
+            v = torch.randn((obsnchan, ntime_per_block, 2, 2), generator=gen,
+                            device=dev)
+            v *= noise_rms
+            if tone_chan is not None:
+                ph = (2 * math.pi * tone_freq) * (t + i * ntime_per_block)
+                v[tone_chan, :, :, 0] += (tone_amp * torch.cos(ph)).float()[:, None]
+                v[tone_chan, :, :, 1] += (tone_amp * torch.sin(ph)).float()[:, None]
+            yield v.round_().clamp_(-128, 127).to(torch.int8).cpu().numpy()
+
+    write_raw(path, hdr, blocks())
+    return hdr
+
+
+def write_recording(tmp):
     raw_path = os.path.join(tmp, "smoke.raw")
     t0 = time.perf_counter()
-    synth_raw_blocks(raw_path, nblocks=RAW_SAMPLES // BLOCK_NTIME, obsnchan=NCHAN,
-                     ntime_per_block=BLOCK_NTIME, seed=SEED,
-                     tone_chan=TONE_CHAN, tone_freq=TONE_FREQ)
+    synth_on_card(raw_path, nblocks=RAW_SAMPLES // BLOCK_NTIME, obsnchan=NCHAN,
+                  ntime_per_block=BLOCK_NTIME, seed=SEED,
+                  tone_chan=TONE_CHAN, tone_freq=TONE_FREQ)
     log(f"main: wrote {os.path.getsize(raw_path) / 1e9:.3f} GB RAW in "
         f"{time.perf_counter() - t0:.1f} s")
     return raw_path
@@ -1856,16 +1940,15 @@ def xe_cost(nant, nchan, npol, nframes, nfft, esize):
 
 
 def write_antennas(tmp, tag, nchan, nsamples):
-    """One RAW recording per antenna (synth_raw, two blocks, a tone in
-    channel a % nchan, as bench.py writes them)."""
-    from blit_torch.testing import synth_raw
-
+    """One RAW recording per antenna (two blocks, a tone in channel
+    a % nchan, as bench.py writes them; made on the card)."""
     t0 = time.perf_counter()
     paths = []
     for a in range(ARRAY_NANT):
         path = os.path.join(tmp, f"{tag}{a}.raw")
-        synth_raw(path, nblocks=2, obsnchan=nchan, ntime_per_block=nsamples // 2,
-                  seed=300 + a, tone_chan=a % nchan)
+        synth_on_card(path, nblocks=2, obsnchan=nchan,
+                      ntime_per_block=nsamples // 2, seed=300 + a,
+                      tone_chan=a % nchan)
         paths.append(path)
     log(f"{tag}: wrote {sum(map(os.path.getsize, paths)) / 1e9:.3f} GB RAW for "
         f"{ARRAY_NANT} antennas in {time.perf_counter() - t0:.1f} s")
@@ -2085,7 +2168,7 @@ def phase_correlator(torch, dev, tmp):
     if vis[0].shape != shape6 or not all(bool(torch.isfinite(x).all()) for x in vis):
         raise AssertionError(f"correlate: output shape {tuple(vis[0].shape)} or non-finite")
     want = correlate_plain(torch, v, h)
-    # The tone (0.25 of the coarse channel, synth_raw's default) lies in
+    # The tone (0.25 of the coarse channel, synth_on_card's default) lies in
     # fine channel nfft/2 + nfft/4 after the fftshift; the noise level is
     # the rms of the visibilities in the other fine channels.
     tone = FX_NFFT // 2 + FX_NFFT // 4
@@ -2191,7 +2274,7 @@ def phase_correlator(torch, dev, tmp):
 
 # -- (n) the asynchronous plane -----------------------------------------------
 
-PLANE_REPEATS = 3          # async and sync runs of each product, in turns
+PLANE_REPEATS = 1          # async and sync runs of each product, in turns
 PLANE_DEPTHS = (1, 2, 3)   # feed depths of the array streams (1: synchronous)
 QUANT_NBITS = 8
 QUANT_MEDIAN_TO = 100.0    # quant_scale maps the f32 product's median here
@@ -2994,7 +3077,7 @@ def phase_live(torch, dev, raw_path, tmp, batch_launches, smi):
                            assembly_p99_s=rep["assembly_p99_s"])
     rows.append(summary)
     identical = same_file(out, zref)
-    kept = BLOCK_NTIME  # synth_raw_blocks writes no overlap
+    kept = BLOCK_NTIME  # synth_on_card writes no overlap
     want = degraded_rows_of(LIVE_DROP_BLOCK * kept, (LIVE_DROP_BLOCK + 1) * kept,
                             red.nfft, red.ntap, red.nint)
     want = {r for r in want if r < hdr["nsamps"]}
@@ -3055,7 +3138,8 @@ def phase_live(torch, dev, raw_path, tmp, batch_launches, smi):
         log(f"live table: {json.dumps({k: r[k] for k in ('leg', 'product', 'source', 'wall_s', 'raw_gbps', 'chunk_to_product_p50_s', 'chunk_to_product_p99_s', 'watermark_lag_peak_s', 'masked_chunks')})}")
     log(f"live card: {smi}")
 
-    # (q6) the command line, as subprocesses on the card.
+    # (q6) the command line: the commands that compute as subprocesses on
+    # the card, the reader (info) in this process.
     tune_dir = os.path.join(tmp, "tune")
     env = dict(os.environ, BLIT_TUNE_DIR=tune_dir,
                PYTHONPATH=os.pathsep.join(
@@ -3110,7 +3194,7 @@ def phase_live(torch, dev, raw_path, tmp, batch_launches, smi):
     if not (same_file(x, y) and srep["masked_chunks"] == 0
             and srep["chunk_to_product_p99_s"] is not None):
         raise AssertionError("cli stream: not the reduce product")
-    text, wall = cli("info", y)
+    text, wall = run_cli("info", y)
     info = json.loads(text)
     log(f"cli info: {wall:.1f} s; nchans {info['nchans']}, nsamps "
         f"{info.get('nsamps')}")
@@ -3146,20 +3230,18 @@ GBT_AGENTS = 2
 
 def write_gbt_tree(root):
     """(p)'s tree: ``<root>/<session>/GUPPI/BLP0k/blc0k_guppi_..._0011.000m.raw``,
-    a tone at TONE_FREQ of coarse channel k in bank k.  Returns
-    {bank: member paths}."""
-    from blit_torch.testing import synth_raw_blocks
-
+    a tone at TONE_FREQ of coarse channel k in bank k, made on the card.
+    Returns {bank: member paths}."""
     seqs = {}
     for k in range(GBT_BANKS):
         d = os.path.join(root, GBT_SESSION, "GUPPI", f"BLP0{k}")
         os.makedirs(d, exist_ok=True)
         whole = os.path.join(d, "whole.raw")
-        synth_raw_blocks(whole, nblocks=GBT_MEMBERS * GBT_MEMBER_BLOCKS,
-                         obsnchan=NCHAN, ntime_per_block=GBT_BLOCK_NTIME,
-                         seed=SEED + k, tone_chan=k, tone_freq=TONE_FREQ,
-                         obsbw=-NCHAN * GBT_COARSE_MHZ,
-                         obsfreq=GBT_TOP_MHZ - (k + 0.5) * NCHAN * GBT_COARSE_MHZ)
+        synth_on_card(whole, nblocks=GBT_MEMBERS * GBT_MEMBER_BLOCKS,
+                      obsnchan=NCHAN, ntime_per_block=GBT_BLOCK_NTIME,
+                      seed=SEED + k, tone_chan=k, tone_freq=TONE_FREQ,
+                      obsbw=-NCHAN * GBT_COARSE_MHZ,
+                      obsfreq=GBT_TOP_MHZ - (k + 0.5) * NCHAN * GBT_COARSE_MHZ)
         seqs[k] = split_recording(whole, d, GBT_MEMBERS,
                                   stem=f"blc0{k}_guppi_59897_21221_HD_84406_{GBT_SCAN}")
         os.unlink(whole)
@@ -3469,8 +3551,6 @@ def phase_mesh_recording(torch, dev, raw_path, tmp, smi):
     from blit_torch.parallel.scan import reduce_scan_pool_to_files
     from blit_torch.parallel.sharded import reduce_scan_sharded_to_files
     from blit_torch.recover import StreamSupervisor
-    from blit_torch.testing import synth_raw_blocks
-
     import numpy as np
 
     from blit_torch.io.guppi import GuppiRaw, write_raw
@@ -4267,16 +4347,15 @@ def phase_serve_fleet(torch, dev, raw_path, tmp, smi):
         asks = {
             "0002": (ProductRequest(raw=raw_path, product="0002"),
                      lambda: reducer_for_product("0002", device=dev).reduce(raw_path)),
-            "0001": (ProductRequest(raw=raw_path, product="0001"),
-                     lambda: reducer_for_product("0001", device=dev).reduce(raw_path)),
             "hits": (ProductRequest(raw=raw_path, kind="hits", nfft=SEARCH_NFFT,
                                     nint=1),
                      lambda: DedopplerReducer(nfft=SEARCH_NFFT, nint=1,
                                               device=dev).reduce(raw_path)),
         }
         # The direct reductions run in this process on a thread of their
-        # own while the peers serve the same asks (0001's default 128
-        # frames a chunk makes both take tens of seconds).
+        # own while the peers serve the same asks.  No 0001 ask: a peer
+        # derives it at blit's default 128 frames a chunk (26-53 s on the
+        # card) through the same derive path as 0002.
         from concurrent.futures import ThreadPoolExecutor
 
         pool = ThreadPoolExecutor(max_workers=1)
@@ -4337,19 +4416,17 @@ def phase_serve_fleet(torch, dev, raw_path, tmp, smi):
             raise AssertionError(f"serve fleet: the drained peer exited {rc}")
         door.close()
         door = None
-        out = subprocess.run([sys.executable, "-m", "blit_torch", "requests",
-                              reqlog, "--json"], capture_output=True, text=True,
-                             timeout=SERVE_TIMEOUT, env=env)
-        recs = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+        text, _ = run_cli("requests", reqlog, "--json")
+        recs = [json.loads(x) for x in text.splitlines() if x.strip()]
         by_role = {}
         for r in recs:
             by_role[r.get("role")] = by_role.get(r.get("role"), 0) + 1
-        log(f"serve (s3): python -m blit_torch requests: rc {out.returncode}, "
-            f"records by role {json.dumps(by_role)}")
-        if (out.returncode != 0 or by_role.get("door") != 2 * len(asks) + 1
+        log(f"serve (s3): blit_torch requests: rc 0, records by role "
+            f"{json.dumps(by_role)}")
+        if (by_role.get("door") != 2 * len(asks) + 1
                 or not by_role.get("peer")
                 or any(r.get("status") != "ok" for r in recs)):
-            raise AssertionError(f"serve fleet: the request logs: {out.stderr[-2000:]}")
+            raise AssertionError(f"serve fleet: the request logs: {text[-2000:]}")
         return {"spawn_s": spawn_s, "detect_s": detect_s, "reroute_s": reroute_s}
     finally:
         if door is not None:
@@ -4376,10 +4453,9 @@ def h5py_missing():
 
 
 def phase_serve_fsck(torch, dev, raw_path, tmp, smi):
-    """(s4): python -m blit_torch fsck over copies of (d)'s .fil products
-    and their manifests; then, when h5py imports, the disk and cold tiers,
-    the scrubber and fsck --repair on the card."""
-    env = _serve_env("")
+    """(s4): blit_torch's fsck command, in this process, over copies of
+    (d)'s .fil products and their manifests; then, when h5py imports, the
+    disk and cold tiers, the scrubber and fsck --repair on the card."""
     tree = os.path.join(tmp, "fsck")
     os.makedirs(tree)
     for p in ("0002", "0001"):
@@ -4388,12 +4464,10 @@ def phase_serve_fsck(torch, dev, raw_path, tmp, smi):
                             os.path.join(tree, f"smoke.{p}.fil{suffix}"))
 
     def fsck(*args):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "blit_torch", "fsck", *args],
-                             capture_output=True, text=True, timeout=SERVE_TIMEOUT,
-                             env=env)
-        rep = json.loads(out.stdout.strip().splitlines()[-1]) if out.stdout.strip() else {}
-        return out.returncode, rep, time.perf_counter() - t0
+        text, code, wall = cli_call("fsck", *args,
+                                    env={"BLIT_REQUEST_LOG": ""})
+        rep = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        return code, rep, wall
 
     rc0, rep0, s0 = fsck(tree)
     _flip_byte(os.path.join(tree, "smoke.0001.fil"))
@@ -4568,9 +4642,37 @@ def last_json(text):
     return json.loads(text.strip().splitlines()[-1])
 
 
+def start_bench_0000(work, env):
+    """(t2)'s ingest-bench at 0000 width as a child, its temp dir under
+    ``work``.  Returns (the Popen, its temp dir, its stdout path)."""
+    bench_tmp = os.path.join(work, "bench0000")
+    os.makedirs(bench_tmp)
+    out = os.path.join(work, "bench0000.out")
+    with open(out, "w") as fo, open(out[:-4] + ".err", "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "blit_torch", "ingest-bench", "--nfft",
+             str(NFFT), "--nchan", str(NCHAN), "--chunk-frames",
+             str(CHUNK_FRAMES), "--chunks", "2", "--blocks",
+             str(RAW_SAMPLES // BLOCK_NTIME), "--sync-compare", "--device",
+             CLI_DEVICE],
+            stdout=fo, stderr=fe, env=dict(env, TMPDIR=bench_tmp))
+    return proc, bench_tmp, out
+
+
 def phase_operator(torch, dev, raw_path, tmp, smi):
     """(t1)-(t5): the operator plane on the card.  Returns the launch
-    counts of (t1)'s traced 0000 run."""
+    counts of (t1)'s traced 0000 run.
+
+    (t2)'s 0000 bench first synthesizes its own 2.95 GB recording on one
+    host core (about a minute, before it touches the card), so it starts
+    first and (t1), (t2)'s nfft-1024 run, (t3) and (t4) run meanwhile.
+    Each of those starts only while the bench is still synthesizing:
+    once the bench's warm-up reduction has begun, the phase waits for
+    the bench to end, so its timed legs share the card at most with the
+    one step already running, and the log names that step."""
+    import glob
+    import threading
+
     from blit_torch.ops import channelize as tch
     from blit_torch.pipeline import reducer_for_product
 
@@ -4582,46 +4684,162 @@ def phase_operator(torch, dev, raw_path, tmp, smi):
                    p for p in (os.path.dirname(os.path.abspath(__file__)),
                                os.environ.get("PYTHONPATH")) if p))
 
-    # (t1) a traced 0000 on the card.
-    trace_dir = os.path.join(work, "trace")
-    out = os.path.join(work, "smoke.0000.traced.fil")
-    red = reducer_for_product("0000", trace_logdir=trace_dir,
-                              **PRODUCTS["0000"])
-    reset_launches()
-    t0 = time.perf_counter()
-    red.reduce_to_file(raw_path, out)
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    check_plan("operator 0000", tch.last_kernel_plan(), launches)
-    if not same_file(out, os.path.join(tmp, "smoke.0000.fil")):
-        raise AssertionError("operator: the traced 0000 differs from (d)'s")
-    os.unlink(out)
-    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
-    if len(traces) != 1:
-        raise AssertionError(f"operator: {len(traces)} traces written, want 1")
-    path = os.path.join(trace_dir, traces[0])
-    with open(path) as f:
-        doc = json.load(f)
-    window_ms, share, ops, kernels = trace_device_time(doc)
-    for name in TRACED_KERNELS:
-        if not any(name in k for k in kernels):
-            raise AssertionError(f"operator: the trace names no {name}; its "
-                                 f"kernels: {sorted(kernels)[:20]}")
-    log(f"operator (t1): traced 0000 in {wall:.3f} s, launches "
-        f"{json.dumps(launches)}; trace {os.path.getsize(path) / 1e6:.1f} MB, "
-        f"{len(doc['traceEvents'])} events, window {window_ms:.1f} ms, "
-        f"device busy {share:.4f} of it; card: {smi}")
-    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
-    for name, (ms, n) in top:
-        log(f"operator (t1) top device op: {ms:.3f} ms in {n} x {name[:160]}")
-    shutil.rmtree(trace_dir)
+    bench, bench_tmp, bench_out = start_bench_0000(work, env)
+    warm = {}
 
-    # (t2) ingest-bench at 0000 width, then at the search's nfft.
-    text, wall = ops_cli(
-        env, "ingest-bench", "--nfft", str(NFFT), "--nchan", str(NCHAN),
-        "--chunk-frames", str(CHUNK_FRAMES), "--chunks", "2",
-        "--blocks", str(RAW_SAMPLES // BLOCK_NTIME), "--sync-compare",
-        "--device", CLI_DEVICE)
+    def watch():
+        while bench.poll() is None:
+            if "t" not in warm and glob.glob(
+                    os.path.join(bench_tmp, "*", "warmup.fil*")):
+                warm["t"] = time.perf_counter()
+            time.sleep(0.1)
+        warm["end"] = time.perf_counter()
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    steps = []
+
+    def step(name, fn):
+        if "t" in warm and bench.poll() is None:
+            bench.wait(timeout=OPS_TIMEOUT)
+        running = bench.poll() is None
+        fn()
+        steps.append((name, running, time.perf_counter()))
+
+    launches = {}
+
+    def t1():
+        # (t1) a traced 0000 on the card.
+        trace_dir = os.path.join(work, "trace")
+        out = os.path.join(work, "smoke.0000.traced.fil")
+        red = reducer_for_product("0000", trace_logdir=trace_dir,
+                                  **PRODUCTS["0000"])
+        reset_launches()
+        t0 = time.perf_counter()
+        red.reduce_to_file(raw_path, out)
+        wall = time.perf_counter() - t0
+        launches.update(read_launches())
+        check_plan("operator 0000", tch.last_kernel_plan(), launches)
+        if not same_file(out, os.path.join(tmp, "smoke.0000.fil")):
+            raise AssertionError("operator: the traced 0000 differs from (d)'s")
+        os.unlink(out)
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"operator: {len(traces)} traces written, want 1")
+        path = os.path.join(trace_dir, traces[0])
+        with open(path) as f:
+            doc = json.load(f)
+        window_ms, share, ops, kernels = trace_device_time(doc)
+        for name in TRACED_KERNELS:
+            if not any(name in k for k in kernels):
+                raise AssertionError(f"operator: the trace names no {name}; its "
+                                     f"kernels: {sorted(kernels)[:20]}")
+        log(f"operator (t1): traced 0000 in {wall:.3f} s, launches "
+            f"{json.dumps(launches)}; trace {os.path.getsize(path) / 1e6:.1f} MB, "
+            f"{len(doc['traceEvents'])} events, window {window_ms:.1f} ms, "
+            f"device busy {share:.4f} of it; card: {smi}")
+        top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+        for name, (ms, n) in top:
+            log(f"operator (t1) top device op: {ms:.3f} ms in {n} x {name[:160]}")
+        shutil.rmtree(trace_dir)
+
+    def t2_search():
+        # (t2) at the search's nfft.
+        text, wall = ops_cli(
+            env, "ingest-bench", "--nfft", str(OPS_NFFT), "--nchan", str(NCHAN),
+            "--dedoppler", "--live", "--spans-compare", "--device", CLI_DEVICE)
+        rep = last_json(text)
+        if rep["dedoppler"]["windows"] < 1 or rep["live"]["stalls"] != 0:
+            raise AssertionError(f"operator: ingest-bench search legs: {rep}")
+        log(f"operator (t2): ingest-bench nfft {OPS_NFFT} in {wall:.1f} s: "
+            f"dedoppler {json.dumps({k: rep['dedoppler'][k] for k in ('windows', 'hits', 'drift_rates_per_s', 'ingest_gbps')})}, "
+            f"live {json.dumps({k: rep['live'][k] for k in ('chunks', 'chunk_to_product_p50_s', 'chunk_to_product_p99_s')})}, "
+            f"span_overhead {rep['span_overhead']}")
+
+    def t3():
+        # (t3) the fleet harvest and the stitched trace.
+        chrome = os.path.join(work, "telemetry.trace.json")
+        text, wall = ops_cli(env, "telemetry", "--demo", "--workers", "2",
+                             "--backend", "thread", "--trace-out", chrome,
+                             "--format", "json", "--device", CLI_DEVICE)
+        report = last_json(text)
+        (host, entry), = report["hosts"].items()
+        stages = entry["stages"]
+        pool_spans = [s for s in report["spans"]
+                      if s["name"] == "pool.reduce_raw"]
+        if stages.get("stream", {}).get("calls") != 2 or len(pool_spans) != 2:
+            raise AssertionError("operator: the harvest lacks a worker's "
+                                 f"reduction: {json.dumps(stages)[:800]}")
+        with open(chrome) as f:
+            nev = len(json.load(f)["traceEvents"])
+        saved = os.path.join(work, "telemetry.json")
+        with open(saved, "w") as f:
+            json.dump(report, f)
+        text, _ = run_cli("trace-view", "--fleet", saved, "--trace",
+                          pool_spans[0]["trace"])
+        summary = json.loads(text.splitlines()[0])
+        if summary["spans"] < 2 or "pool.reduce_raw" not in text:
+            raise AssertionError(f"operator: trace-view: {text[:800]}")
+        log(f"operator (t3): telemetry --demo in {wall:.1f} s on host {host}: "
+            f"stream calls {stages['stream']['calls']}, ingest "
+            f"{stages['ingest']['bytes']} B; chrome trace {nev} events; "
+            f"trace-view {json.dumps(summary)}")
+
+    def t4():
+        # (t4) the history store and an incident.
+        hist, inc = os.path.join(work, "history"), os.path.join(work, "incidents")
+        spool = os.path.join(work, "spool")
+        henv = dict(env, BLIT_HISTORY_DIR=hist, BLIT_INCIDENT_DIR=inc,
+                    BLIT_HISTORY_RAW_S="0.5", BLIT_SLO_STREAM_P99="1e-6")
+        text, wall = ops_cli(henv, "ingest-bench", "--nfft", str(OPS_NFFT),
+                             "--nchan", str(NCHAN), "--chunks", "16", "--live",
+                             "--live-seconds", "3", "--monitor-spool", spool,
+                             "--monitor-interval", "0.1", "--device", CLI_DEVICE)
+        text, _ = run_cli("slo-report", hist, "--json")
+        slo = last_json(text)
+        obj = slo["objectives"].get("stream-latency") or {}
+        if not obj.get("total"):
+            raise AssertionError(f"operator: slo-report read nothing: {slo}")
+        text, _ = run_cli("incidents", "--dir", inc, "--json")
+        manifests = [json.loads(x) for x in text.strip().splitlines()]
+        if not any(m.get("kind") == "slo:stream-latency" for m in manifests):
+            raise AssertionError(f"operator: no SLO incident bundle: {manifests}")
+        bundle = os.path.join(inc, sorted(os.listdir(inc))[0])
+        shown, _ = run_cli("incident", "show", bundle)
+        frame, _ = run_cli("top", "--spool", spool, "--once", "--history", hist)
+        dumps = sorted(f for f in os.listdir(work)
+                       if f.startswith("blit-flight-"))
+        if not dumps:
+            raise AssertionError("operator: the breach wrote no flight dump")
+        flight, _ = run_cli("trace-view", os.path.join(work, dumps[0]))
+        if "=== blit flight record ===" not in flight or \
+                "=== blit incident bundle ===" not in shown or \
+                "history (" not in frame:
+            raise AssertionError("operator: a reader rendered nothing")
+        log(f"operator (t4): live leg under the history store in {wall:.1f} s; "
+            f"slo-report stream-latency {json.dumps(obj)}; {len(manifests)} "
+            f"incident bundle(s) ({', '.join(m.get('kind', '?') for m in manifests)}); "
+            f"{len(dumps)} flight dump(s); top --history {len(frame.splitlines())} lines")
+
+    try:
+        for name, fn in (("t1", t1), ("t2 nfft 1024", t2_search), ("t3", t3),
+                         ("t4", t4)):
+            step(name, fn)
+        # (t2) at 0000 width: the bench started above.
+        rc = bench.wait(timeout=OPS_TIMEOUT)
+        watcher.join(timeout=5)
+        with open(bench_out) as f:
+            text = f.read()
+        if rc != 0:
+            with open(bench_out[:-4] + ".err") as f:
+                err = f.read()
+            raise AssertionError(f"operator: ingest-bench 0000 exited {rc}: "
+                                 f"{text[-1500:]} {err[-2500:]}")
+    finally:
+        if bench.poll() is None:
+            bench.kill()
+            bench.wait()
     rep = last_json(text)
     if rep.get("products_identical") is not True:
         raise AssertionError(f"operator: ingest-bench products differ: {rep}")
@@ -4629,91 +4847,24 @@ def phase_operator(torch, dev, raw_path, tmp, smi):
             {"wall_s": g["wall_s"], "ingest_gbps": g["ingest_gbps"],
              "overlap_efficiency": g["overlap_efficiency"]}
             for g in rep["legs"]}
-    log(f"operator (t2): ingest-bench 0000 in {wall:.1f} s: "
+    t_end = warm["end"]
+    t_warm = warm.get("t", t_end)
+    shared = [n for n, running, b in steps if running and b > t_warm] or ["nothing"]
+    log(f"operator (t2): ingest-bench 0000 in {t_end - t_ops:.1f} s, its "
+        f"synthesis {t_warm - t_ops:.1f} s of it, its warm-up and timed legs "
+        f"beside {', '.join(shared)}: "
         f"{json.dumps({'products_identical': rep['products_identical'], 'async_speedup': rep['async_speedup'], 'file_bytes': rep['file_bytes'], 'legs': legs})}")
-    text, wall = ops_cli(
-        env, "ingest-bench", "--nfft", str(OPS_NFFT), "--nchan", str(NCHAN),
-        "--dedoppler", "--live", "--spans-compare", "--device", CLI_DEVICE)
-    rep = last_json(text)
-    if rep["dedoppler"]["windows"] < 1 or rep["live"]["stalls"] != 0:
-        raise AssertionError(f"operator: ingest-bench search legs: {rep}")
-    log(f"operator (t2): ingest-bench nfft {OPS_NFFT} in {wall:.1f} s: "
-        f"dedoppler {json.dumps({k: rep['dedoppler'][k] for k in ('windows', 'hits', 'drift_rates_per_s', 'ingest_gbps')})}, "
-        f"live {json.dumps({k: rep['live'][k] for k in ('chunks', 'chunk_to_product_p50_s', 'chunk_to_product_p99_s')})}, "
-        f"span_overhead {rep['span_overhead']}")
-
-    # (t3) the fleet harvest and the stitched trace.
-    chrome = os.path.join(work, "telemetry.trace.json")
-    text, wall = ops_cli(env, "telemetry", "--demo", "--workers", "2",
-                         "--backend", "thread", "--trace-out", chrome,
-                         "--format", "json", "--device", CLI_DEVICE)
-    report = last_json(text)
-    (host, entry), = report["hosts"].items()
-    stages = entry["stages"]
-    pool_spans = [s for s in report["spans"] if s["name"] == "pool.reduce_raw"]
-    if stages.get("stream", {}).get("calls") != 2 or len(pool_spans) != 2:
-        raise AssertionError("operator: the harvest lacks a worker's "
-                             f"reduction: {json.dumps(stages)[:800]}")
-    with open(chrome) as f:
-        nev = len(json.load(f)["traceEvents"])
-    saved = os.path.join(work, "telemetry.json")
-    with open(saved, "w") as f:
-        json.dump(report, f)
-    text, _ = ops_cli(env, "trace-view", "--fleet", saved, "--trace",
-                      pool_spans[0]["trace"])
-    summary = json.loads(text.splitlines()[0])
-    if summary["spans"] < 2 or "pool.reduce_raw" not in text:
-        raise AssertionError(f"operator: trace-view: {text[:800]}")
-    log(f"operator (t3): telemetry --demo in {wall:.1f} s on host {host}: "
-        f"stream calls {stages['stream']['calls']}, ingest "
-        f"{stages['ingest']['bytes']} B; chrome trace {nev} events; "
-        f"trace-view {json.dumps(summary)}")
-
-    # (t4) the history store and an incident.
-    hist, inc = os.path.join(work, "history"), os.path.join(work, "incidents")
-    spool = os.path.join(work, "spool")
-    henv = dict(env, BLIT_HISTORY_DIR=hist, BLIT_INCIDENT_DIR=inc,
-                BLIT_HISTORY_RAW_S="0.5", BLIT_SLO_STREAM_P99="1e-6")
-    text, wall = ops_cli(henv, "ingest-bench", "--nfft", str(OPS_NFFT),
-                         "--nchan", str(NCHAN), "--chunks", "16", "--live",
-                         "--live-seconds", "3", "--monitor-spool", spool,
-                         "--monitor-interval", "0.1", "--device", CLI_DEVICE)
-    text, _ = ops_cli(env, "slo-report", hist, "--json")
-    slo = last_json(text)
-    obj = slo["objectives"].get("stream-latency") or {}
-    if not obj.get("total"):
-        raise AssertionError(f"operator: slo-report read nothing: {slo}")
-    text, _ = ops_cli(env, "incidents", "--dir", inc, "--json")
-    manifests = [json.loads(x) for x in text.strip().splitlines()]
-    if not any(m.get("kind") == "slo:stream-latency" for m in manifests):
-        raise AssertionError(f"operator: no SLO incident bundle: {manifests}")
-    bundle = os.path.join(inc, sorted(os.listdir(inc))[0])
-    shown, _ = ops_cli(env, "incident", "show", bundle)
-    frame, _ = ops_cli(env, "top", "--spool", spool, "--once", "--history",
-                       hist)
-    dumps = sorted(f for f in os.listdir(work) if f.startswith("blit-flight-"))
-    if not dumps:
-        raise AssertionError("operator: the breach wrote no flight dump")
-    flight, _ = ops_cli(env, "trace-view", os.path.join(work, dumps[0]))
-    if "=== blit flight record ===" not in flight or \
-            "=== blit incident bundle ===" not in shown or \
-            "history (" not in frame:
-        raise AssertionError("operator: a reader rendered nothing")
-    log(f"operator (t4): live leg under the history store in {wall:.1f} s; "
-        f"slo-report stream-latency {json.dumps(obj)}; {len(manifests)} "
-        f"incident bundle(s) ({', '.join(m.get('kind', '?') for m in manifests)}); "
-        f"{len(dumps)} flight dump(s); top --history {len(frame.splitlines())} lines")
 
     # (t5) the fleet drills.
     text, wall = ops_cli(env, "serve-bench", "--fleet", "--peers", "2",
                          "--requests", str(OPS_SERVE_REQUESTS), "--distinct",
                          "4", "--nfft", str(OPS_NFFT), "--device", CLI_DEVICE)
-    bench = last_json(text)
-    if bench["errors"] or not bench["wire"]["compat"].get("byte_identical") \
-            or bench["request_log"]["by_status"].get("ok") != OPS_SERVE_REQUESTS:
-        raise AssertionError(f"operator: serve-bench --fleet: {bench}")
+    sbench = last_json(text)
+    if sbench["errors"] or not sbench["wire"]["compat"].get("byte_identical") \
+            or sbench["request_log"]["by_status"].get("ok") != OPS_SERVE_REQUESTS:
+        raise AssertionError(f"operator: serve-bench --fleet: {sbench}")
     log(f"operator (t5): serve-bench --fleet in {wall:.1f} s: "
-        f"{json.dumps({k: bench[k] for k in ('rps', 'hit_rate', 'request_p50_s', 'request_p99_s', 'slo')})}")
+        f"{json.dumps({k: sbench[k] for k in ('rps', 'hit_rate', 'request_p50_s', 'request_p99_s', 'slo')})}")
     inc2 = os.path.join(work, "incidents-fleet")
     text, wall = ops_cli(dict(env, BLIT_INCIDENT_DIR=inc2), "chaos", "--fleet",
                          "--fault", "partition", "--peers", "3",
