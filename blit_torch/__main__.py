@@ -409,7 +409,7 @@ def _cmd_scan(args: argparse.Namespace) -> int:
                 raise SystemExit("--max-frames is not supported with --pool "
                                  "--search (the per-player reducers search "
                                  "whole recordings)")
-            with profile_trace(args.trace_logdir, args.device):
+            with profile_trace(args.trace_logdir, args.device, timeline=tl):
                 written = _pool_scan_search(args, invs, wf, tl)
         else:
             from blit_torch.parallel.sharded import search_scan_sharded_to_files
@@ -439,7 +439,7 @@ def _cmd_scan(args: argparse.Namespace) -> int:
         if args.resume:
             raise SystemExit("--resume applies to the mesh and sharded paths; "
                              "the pool path re-runs whole reductions")
-        with profile_trace(args.trace_logdir, args.device):
+        with profile_trace(args.trace_logdir, args.device, timeline=tl):
             written = reduce_scan_pool_to_files(args.session, args.scan, **kw)
     elif sharded:
         from blit_torch.parallel.sharded import reduce_scan_sharded_to_files

@@ -11,15 +11,33 @@ the whole synchronous device call on the ``async_output=False`` path),
 ``readback`` (device→host copy of a product, bytes), ``write`` (product
 bytes written, on the sink thread) and ``staging.alloc`` (host slot and
 ring slab allocations, pinned on a CUDA device), plus ``stream`` (the
-wall clock of the whole streaming loop).  End-to-end RAW GB/s is
+wall clock of the whole streaming loop).  Its threads' waits are stages
+of their own: ``ingest.feed_wait`` (the producer waiting for the next
+block from its feed: the live assembler, or the file feed),
+``ingest.slot_wait`` (the producer waiting for a free chunk slot),
+``dispatch.chunk_wait`` (the dispatch thread waiting for a filled
+chunk) and ``dispatch.put_wait`` (the dispatch thread blocked in the
+output rotation behind readback); ``dispatch.h2d`` (the host→device
+copy call) and ``dispatch.launch`` (the channelizer's launches and the
+event) are the children of ``dispatch``.  End-to-end RAW GB/s is
 ``ingest`` bytes over ``stream`` seconds; :meth:`Timeline.overlap_efficiency`
-is the work stages' seconds over that wall.  The search adds the stages
-``search.window_fill`` (spectra copied into a window slot) and
-``search.write`` (``.hits`` lines written), and the per-window
-histograms ``search.tree_s`` (from the dispatch of the window's H2D
-copy to its packed hits on the host: the drift transform, SNR and top-k
-between; on the asynchronous plane the wait behind earlier windows too)
-and ``search.hits_per_window``.
+is the work stages' seconds over that wall.
+
+The span store (:meth:`Timeline.open_spans`, off by default) also keeps
+each ``stage()`` call as a span: the stage, the native thread id, its
+start and end in ns on the epoch clock (the clock of a
+``torch.profiler`` Chrome trace's ``ts`` plus ``baseTimeNanoseconds``),
+its bytes and the chunk's sequence number; it is bounded
+(:data:`SPAN_CAPACITY`) and counts what it drops (``spans.dropped``).
+:func:`profile_trace` with a ``timeline`` opens it and writes the spans
+into the trace it exports (category ``blit.stage``).
+
+The search adds the stages ``search.window_fill`` (spectra copied into
+a window slot) and ``search.write`` (``.hits`` lines written), and the
+per-window histograms ``search.tree_s`` (from the dispatch of the
+window's H2D copy to its packed hits on the host: the drift transform,
+SNR and top-k between; on the asynchronous plane the wait behind
+earlier windows too) and ``search.hits_per_window``.
 
 Per-event values go into log-bucketed histograms
 (:class:`HistogramStats`, ``blit``'s: 64 buckets from 1 µs, exact
@@ -325,10 +343,95 @@ class HistogramStats:
         return h
 
 
+# Records a span store keeps before it counts the rest as dropped.  A
+# live reducer at ~4 GB/s records ~7,000 a minute: a block's feed wait
+# and copy, a chunk's ten or so stages.
+SPAN_CAPACITY = 1 << 16
+
+# The Chrome-trace category of the stage spans profile_trace writes.
+STAGE_SPAN_CAT = "blit.stage"
+
+
+class SpanStore:
+    """The bounded record of a :class:`Timeline`'s stages while it is open
+    (:meth:`Timeline.open_spans`): one record a ``stage()`` call, with
+    the stage's name, the native thread id (the ``tid`` of the
+    profiler's CPU events), its start and end in ns on the epoch
+    clock (``time.time_ns()``, the clock a ``torch.profiler`` Chrome
+    trace's ``ts`` plus ``baseTimeNanoseconds`` reads), its bytes, and
+    the chunk's sequence number where the stage handles one chunk (else
+    None).  ``threads`` names each thread that recorded one: its name
+    and its ``threading.get_ident()`` (the ``pthread_t`` that a CUDA
+    runtime event's thread id derives from where the profiler traced no
+    CPU activity).  Past ``capacity`` records the rest are counted in
+    ``dropped``.  Threads append without a lock: each draws its ticket
+    from an atomic counter."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.capacity = max(0, int(capacity))
+        self.dropped = 0
+        self._records: List[tuple] = []
+        self._tickets = itertools.count()
+        self._drop_lock = threading.Lock()
+        self.threads: Dict[int, Dict] = {}
+
+    def add(self, name: str, t0_ns: int, t1_ns: int, nbytes: int,
+            seq: Optional[int]) -> None:
+        if next(self._tickets) >= self.capacity:
+            with self._drop_lock:
+                self.dropped += 1
+            return
+        tid = threading.get_native_id()
+        if tid not in self.threads:
+            self.threads[tid] = {"name": threading.current_thread().name,
+                                 "ident": threading.get_ident()}
+        self._records.append((name, tid, t0_ns, t1_ns, nbytes, seq))
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def spans(self) -> List[Dict]:
+        """The records so far as dicts, in the order they ended."""
+        return [{"name": n, "tid": tid, "t0_ns": t0, "t1_ns": t1,
+                 "bytes": b, "seq": seq}
+                for n, tid, t0, t1, b, seq in list(self._records)]
+
+
+def add_stage_spans(path: str, spans: Iterable[Dict],
+                    threads: Optional[Dict[int, Dict]] = None) -> None:
+    """Write stage spans into the Chrome trace at ``path``: each a
+    complete event of category :data:`STAGE_SPAN_CAT` on its native
+    thread, on the trace's own time base (``ts`` in µs after its
+    ``baseTimeNanoseconds``), with the thread's name where it has none
+    there."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    named = {e.get("tid") for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    for s in spans:
+        args = {"bytes": s["bytes"]}
+        if s["seq"] is not None:
+            args["seq"] = s["seq"]
+        events.append({"ph": "X", "cat": STAGE_SPAN_CAT, "name": s["name"],
+                       "pid": pid, "tid": s["tid"],
+                       "ts": (s["t0_ns"] - base) / 1e3,
+                       "dur": (s["t1_ns"] - s["t0_ns"]) / 1e3, "args": args})
+    for tid, th in sorted((threads or {}).items()):
+        if tid not in named:
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": th["name"]}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @dataclass
 class Timeline:
     """A registry of named stage timings, latency histograms and gauges
-    (one per reducer)."""
+    (one per reducer), and an optional span store
+    (:meth:`open_spans`) that also records each stage as a span."""
 
     stages: Dict[str, StageStats] = field(
         default_factory=lambda: defaultdict(StageStats))
@@ -336,6 +439,24 @@ class Timeline:
         default_factory=lambda: defaultdict(GaugeStats))
     hists: Dict[str, HistogramStats] = field(
         default_factory=lambda: defaultdict(HistogramStats))
+    # Off (None) unless open_spans() opened it.
+    spans: Optional[SpanStore] = field(default=None, repr=False,
+                                       compare=False)
+
+    def open_spans(self, capacity: int = SPAN_CAPACITY) -> SpanStore:
+        """Open the span store, or return the one already open: from now
+        on every :meth:`stage` call is also kept as a span."""
+        if self.spans is None:
+            self.spans = SpanStore(capacity)
+        return self.spans
+
+    def close_spans(self) -> Optional[SpanStore]:
+        """Close the span store and return it (None if none was open);
+        the spans it dropped are counted under ``spans.dropped``."""
+        store, self.spans = self.spans, None
+        if store is not None and store.dropped:
+            self.count("spans.dropped", store.dropped)
+        return store
 
     def observe(self, name: str, value: float) -> None:
         """Record one sample into the histogram ``name``."""
@@ -354,13 +475,21 @@ class Timeline:
         _FLIGHT.event("count", name, n=n)
 
     @contextlib.contextmanager
-    def stage(self, name: str, nbytes: int = 0,
-              byte_free: bool = False) -> Iterator[None]:
+    def stage(self, name: str, nbytes: int = 0, byte_free: bool = False,
+              seq: Optional[int] = None) -> Iterator[None]:
+        """Time the block as one call of stage ``name``; with the span
+        store open, keep it as a span too (``seq``: the chunk it
+        handles)."""
         t0 = time.perf_counter()
+        store = self.spans
+        if store is not None:
+            w0 = time.time_ns()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if store is not None:
+                store.add(name, w0, time.time_ns(), nbytes, seq)
             s = self.stages[name]
             s.calls += 1
             s.seconds += dt
@@ -524,13 +653,18 @@ _TRACE_SEQ = itertools.count(1)
 
 
 @contextlib.contextmanager
-def profile_trace(logdir: Optional[str], device=None) -> Iterator[None]:
+def profile_trace(logdir: Optional[str], device=None,
+                  timeline: Optional[Timeline] = None) -> Iterator[None]:
     """``torch.profiler`` trace around a region, written as a Chrome trace
     (Perfetto / ``chrome://tracing`` readable) into ``logdir``:
     ``blit-torch-<host>-<pid>-<n>.pt.trace.json``.  CPU activity always;
     CUDA activity (kernels, copies) when ``device`` is a CUDA device, or
-    when ``device`` is None and a GPU is present.  ``logdir=None`` is a
-    no-op, so call sites need no conditionals."""
+    when ``device`` is None and a GPU is present.  With a ``timeline``,
+    its span store is open for the region (:meth:`Timeline.open_spans`)
+    and its stages' spans land in the trace beside the profiler's events
+    (:func:`add_stage_spans`, category ``blit.stage``), so the waits of
+    the reducer's threads show next to the kernels and copies.
+    ``logdir=None`` is a no-op, so call sites need no conditionals."""
     if logdir is None:
         yield
         return
@@ -545,14 +679,25 @@ def profile_trace(logdir: Optional[str], device=None) -> Iterator[None]:
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-        if cuda:
-            torch.cuda.synchronize()
+    opened = timeline is not None and timeline.spans is None
+    store = timeline.open_spans() if timeline is not None else None
+    t_open = time.time_ns()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        if opened:
+            timeline.close_spans()
     path = os.path.join(
         logdir, f"blit-torch-{hostname()}-{os.getpid()}-"
                 f"{next(_TRACE_SEQ)}.pt.trace.json")
     prof.export_chrome_trace(path)
+    if store is not None:
+        add_stage_spans(path, [s for s in store.spans()
+                               if s["t1_ns"] >= t_open],
+                        store.threads)
     log.info("profiler trace written to %s", path)
 
 # -- flight recorder --------------------------------------------------------

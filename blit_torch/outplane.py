@@ -19,8 +19,9 @@ run at once instead of one after another.
   The output tensor stays referenced until that copy has synchronized,
   so the caching allocator cannot hand its memory to a later dispatch
   while the copy still reads it.  :meth:`OutputRotation.put` blocks
-  while ``depth`` outputs are pending; the thread blocks while every
-  ring slab is held downstream.
+  while ``depth`` outputs are pending (timed as ``dispatch.put_wait``,
+  the dispatch thread's wait); the thread blocks while every ring slab
+  is held downstream.
 - ``reuse=True`` copies into a ring of at most ``depth + 1`` host slabs
   from the staging pool (:mod:`blit_torch.hostmem`; pinned on a CUDA
   device, so the copy is a ``non_blocking`` DMA), released by the
@@ -161,13 +162,13 @@ class OutputRotation:
                         self._eof = True
                         self._cv.notify_all()
                     return
-                out, event, nbytes, payload, on_consumed, t_enq = item
+                out, event, nbytes, payload, on_consumed, t_enq, seq = item
                 del item
                 t_got = time.perf_counter()
                 self._tl.observe("out.readback_lag_s", t_got - t_enq)
                 self._wd.beat()
                 with self._tl.stage("device", nbytes=nbytes or 0,
-                                    byte_free=nbytes is None):
+                                    byte_free=nbytes is None, seq=seq):
                     if event is not None:
                         event.synchronize()
                 if on_consumed is not None:
@@ -179,7 +180,7 @@ class OutputRotation:
                         self._pending -= 1
                         self._cv.notify_all()
                     continue
-                with self._tl.stage("readback"):
+                with self._tl.stage("readback", seq=seq):
                     host, slab = self._fetch(out, event)
                     if host is None:
                         return  # closed while waiting for a ring slab
@@ -284,31 +285,35 @@ class OutputRotation:
 
     def put(self, out: Optional[torch.Tensor], *, event=None,
             nbytes: Optional[int] = None, payload=None,
-            on_consumed: Optional[Callable[[], None]] = None
-            ) -> List[OutputSlab]:
+            on_consumed: Optional[Callable[[], None]] = None,
+            seq: Optional[int] = None) -> List[OutputSlab]:
         """Hand a dispatched output to the readback thread; return the
-        slabs completed so far, blocking while ``depth`` are pending.
-        ``event`` is waited on before ``on_consumed`` and the copy (None:
-        the output is ready; any object with ``synchronize()`` serves for
-        an ordering-only put); ``nbytes`` (the dispatch's input bytes)
-        lands on the ``device`` stage.  ``out=None`` copies nothing and
-        yields no slab: the put only orders ``on_consumed`` after the
-        event and back-pressures like any other."""
-        with self._cv:
-            self._check()
-            self._pending += 1
-        self._in.put((out, event, nbytes, payload, on_consumed,
-                      time.perf_counter()))
-        ready: List[OutputSlab] = []
-        poll = self._wd.poll_s(0.2)
-        with self._cv:
-            while True:
-                while self._done:
-                    ready.append(self._done.popleft())
+        slabs completed so far, blocking while ``depth`` are pending (the
+        stage ``dispatch.put_wait``).  ``event`` is waited on before
+        ``on_consumed`` and the copy (None: the output is ready; any
+        object with ``synchronize()`` serves for an ordering-only put);
+        ``nbytes`` (the dispatch's input bytes) lands on the ``device``
+        stage; ``seq`` (the chunk's sequence number) on the spans of the
+        put and of its ``device`` and ``readback`` stages.  ``out=None``
+        copies nothing and yields no slab: the put only orders
+        ``on_consumed`` after the event and back-pressures like any
+        other."""
+        with self._tl.stage("dispatch.put_wait", byte_free=True, seq=seq):
+            with self._cv:
                 self._check()
-                if self._pending < self.depth:
-                    return ready
-                self._cv.wait(timeout=poll)
+                self._pending += 1
+            self._in.put((out, event, nbytes, payload, on_consumed,
+                          time.perf_counter(), seq))
+            ready: List[OutputSlab] = []
+            poll = self._wd.poll_s(0.2)
+            with self._cv:
+                while True:
+                    while self._done:
+                        ready.append(self._done.popleft())
+                    self._check()
+                    if self._pending < self.depth:
+                        return ready
+                    self._cv.wait(timeout=poll)
 
     def drain(self) -> Iterator[OutputSlab]:
         """End the stream: yield every remaining slab in order."""

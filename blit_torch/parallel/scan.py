@@ -523,7 +523,7 @@ def reduce_scan_mesh_to_files(
 
         pending = None
         f0 = f0_start
-        with profile_trace(trace_logdir):
+        with profile_trace(trace_logdir, timeline=tl):
             while f0 < total:
                 n = min(wf, total - f0)
                 ntime = (n + ntap - 1) * nfft

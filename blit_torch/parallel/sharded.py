@@ -286,7 +286,7 @@ def reduce_scan_sharded_to_files(
                              name="blit-mesh-readback")
         for b in mine:
             sinks[b] = AsyncSink(writers[b], depth=depth, timeline=tl)
-        with profile_trace(trace_logdir), observability.span(
+        with profile_trace(trace_logdir, timeline=tl), observability.span(
                 "mesh.scan", nfft=nfft, nband=nband, nbank=nbank,
                 sharded=True), tl.stage("stream"):
             for win in feed.windows():
@@ -504,7 +504,7 @@ def search_scan_sharded_to_files(
                                                   start_window, cursors[bk])
             else:
                 writers[bk] = HitsWriter(out_paths[b][k], hdrs[bk])
-        with profile_trace(trace_logdir), observability.span(
+        with profile_trace(trace_logdir, timeline=tl), observability.span(
                 "mesh.search", nfft=nfft, nband=nband, nbank=nbank), \
                 tl.stage("stream"):
             for win in feed.windows():

@@ -61,14 +61,26 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   of the file's blocks, through the same chunk framing, so a stream of
   a completed recording is byte-identical to its batch reduction.
 - Every ``_pump`` runs under :func:`blit_torch.monitor.publishing`.
+- The threads' waits are stages of the reducer's Timeline: the
+  producer's ``ingest.feed_wait`` (the next block from the feed) and
+  ``ingest.slot_wait`` (a free chunk slot), the dispatch thread's
+  ``dispatch.chunk_wait`` (a filled chunk) and ``dispatch.put_wait``
+  (the output rotation, behind readback); ``dispatch`` holds
+  ``dispatch.h2d`` (the copy call, and the short last chunk's trim) and
+  ``dispatch.launch`` (the channelizer's launches and the event).  The
+  stages of one chunk carry its sequence number into the Timeline's span
+  store when that is open.
 - ``trace_logdir`` wraps :meth:`RawReducer.stream`, :meth:`RawReducer.drain`
   and the pump in :func:`blit_torch.observability.profile_trace`: a
   ``torch.profiler`` Chrome trace (CUDA kernels included on the card)
-  written into that directory, the products unchanged.
+  written into that directory, with the Timeline's span store open and
+  its stage spans written into the trace (category ``blit.stage``), the
+  products unchanged.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -149,14 +161,15 @@ class _Chunk:
     Both stay valid until :meth:`release`, after which the producer may
     refill the slot."""
 
-    __slots__ = ("view", "slot", "samps", "frames", "_idx", "_free")
+    __slots__ = ("view", "slot", "samps", "frames", "seq", "_idx", "_free")
 
     def __init__(self, view: np.ndarray, slot: torch.Tensor, samps: int,
-                 frames: int, idx: int, free) -> None:
+                 frames: int, idx: int, free, seq: int) -> None:
         self.view = view
         self.slot = slot
         self.samps = samps
         self.frames = frames
+        self.seq = seq
         self._idx = idx
         self._free = free
 
@@ -478,10 +491,18 @@ class RawReducer:
         state = (ntap - 1) * nfft
         to_skip = skip_frames * nfft
         pinned = self.device.type == "cuda"
+        tl = self.timeline
         cur: Optional[int] = None
         prev: Optional[int] = None
         filled = 0
-        for hdr, nt, read_into in feed:
+        seq = 0  # the chunk being filled, in stream order
+        feed = iter(feed)
+        while True:
+            with tl.stage("ingest.feed_wait", byte_free=True):
+                item = next(feed, None)
+            if item is None:
+                break
+            hdr, nt, read_into = item
             if to_skip >= nt:
                 to_skip -= nt
                 continue
@@ -492,8 +513,10 @@ class RawReducer:
             npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
             while nt > 0:
                 if cur is None:
-                    # Waiting for a free slot is back-pressure, not ingest.
-                    cur = rot.acquire()
+                    # Waiting for a free slot is back-pressure, timed apart
+                    # from ingest.
+                    with tl.stage("ingest.slot_wait", byte_free=True, seq=seq):
+                        cur = rot.acquire()
                     if cur is None:
                         return  # the consumer abandoned the stream
                     if bufs[cur] is None:
@@ -508,15 +531,16 @@ class RawReducer:
                                 key[0], np.int8, pinned=pinned,
                                 timeline=self.timeline)
                     if prev is not None:
-                        with self.timeline.stage(
-                                "state", nbytes=nchan * state * npol * 2):
+                        with tl.stage("state", nbytes=nchan * state * npol * 2,
+                                      seq=seq):
                             bufs[cur].array[:, :state] = \
                                 bufs[prev].array[:, advance:]
                         filled = state
                     else:
                         filled = 0
                 take = min(nt, chunk_samps - filled)
-                with self.timeline.stage("ingest", nbytes=nchan * take * npol * 2):
+                with tl.stage("ingest", nbytes=nchan * take * npol * 2,
+                              seq=seq):
                     read_into(bufs[cur].array[:, filled:], t0, take)
                 filled += take
                 t0 += take
@@ -524,6 +548,7 @@ class RawReducer:
                 if filled == chunk_samps:
                     rot.emit(cur, (self.chunk_frames, chunk_samps))
                     prev, cur = cur, None
+                    seq += 1
         if cur is not None and filled > (state if prev is not None else 0):
             # Flush: whole frames left, rounded down to the integration.
             frames = usable_frames(filled, nfft, ntap, nint)
@@ -547,13 +572,21 @@ class RawReducer:
             self._fill_rotation(feed, skip_frames, bufs, r)
 
         rot = BufferRotation(nbufs, fill, name="blit-ingest")
-        with self.timeline.stage("stream"):
+        tl = self.timeline
+        with tl.stage("stream"):
             try:
-                for idx, (frames, samps) in rot.slots():
+                slots = rot.slots()
+                for seq in itertools.count():
+                    with tl.stage("dispatch.chunk_wait", byte_free=True,
+                                  seq=seq):
+                        item = next(slots, None)
+                    if item is None:
+                        break
+                    idx, (frames, samps) = item
                     view = bufs[idx].array[:, :samps]
-                    self.timeline.stages["stream"].bytes += view.nbytes
+                    tl.stages["stream"].bytes += view.nbytes
                     yield _Chunk(view, bufs[idx].tensor, samps, frames, idx,
-                                 rot.release)
+                                 rot.release, seq)
             finally:
                 rot.close()
                 # Keep the (faulted, pinned) slots for the next stream.
@@ -568,27 +601,35 @@ class RawReducer:
         self._buf_cache = []
 
     # -- device step -------------------------------------------------------
-    def _dispatch(self, chunk: _Chunk, narrow: bool) -> torch.Tensor:
+    def _dispatch(self, chunk: _Chunk, narrow: bool, event: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
         """Copy the chunk to the device (``non_blocking`` from its pinned
         slot; the short last chunk uploads its whole slot and is trimmed
-        on the device) and launch the channelizer (and, with ``narrow``,
-        the quantization).  Returns without waiting."""
-        v = chunk.slot.to(self.device, non_blocking=True)
-        if chunk.samps < chunk.slot.shape[1]:
-            v = v[:, :chunk.samps].contiguous()
-        out = channelize(v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
-                         nint=self.nint, stokes=self.stokes,
-                         fft_method=self.fft_method, dtype=self.dtype,
-                         fqav_by=self.fqav_by, device=self.device)
-        if narrow and self.nbits < 32:
-            out = narrow_device(out, self.nbits, self.quant_scale,
-                                self.quant_offset)
-        return out
+        on the device; stage ``dispatch.h2d``) and launch the channelizer
+        (and, with ``narrow``, the quantization; with ``event``, record
+        an event after the launches; stage ``dispatch.launch``).  Returns
+        the output and the event (None without ``event``), without
+        waiting."""
+        tl, seq = self.timeline, chunk.seq
+        with tl.stage("dispatch.h2d", nbytes=chunk.slot.nbytes, seq=seq):
+            v = chunk.slot.to(self.device, non_blocking=True)
+            if chunk.samps < chunk.slot.shape[1]:
+                v = v[:, :chunk.samps].contiguous()
+        with tl.stage("dispatch.launch", byte_free=True, seq=seq):
+            out = channelize(v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
+                             nint=self.nint, stokes=self.stokes,
+                             fft_method=self.fft_method, dtype=self.dtype,
+                             fqav_by=self.fqav_by, device=self.device)
+            if narrow and self.nbits < 32:
+                out = narrow_device(out, self.nbits, self.quant_scale,
+                                    self.quant_offset)
+            ev = record_event(out) if event else None
+        return out, ev
 
     def _run_chunk(self, chunk: _Chunk) -> np.ndarray:
         """The synchronous device step: dispatch and read back."""
         with self.timeline.stage("device", nbytes=chunk.view.nbytes):
-            return self._dispatch(chunk, narrow=False).cpu().numpy()
+            return self._dispatch(chunk, narrow=False)[0].cpu().numpy()
 
     def _narrow_host(self, slab: np.ndarray) -> np.ndarray:
         if self.nbits == 32:
@@ -613,14 +654,14 @@ class RawReducer:
         try:
             extra = readback_extra_slots(depth, self.prefetch_depth)
             for chunk in self._chunks(raw, skip_frames, extra_slots=extra):
-                with self.timeline.stage("dispatch", byte_free=True):
-                    out = self._dispatch(chunk, narrow)
-                    ev = record_event(out)
+                with self.timeline.stage("dispatch", byte_free=True,
+                                         seq=chunk.seq):
+                    out, ev = self._dispatch(chunk, narrow, event=True)
                 self._output_frames += chunk.frames
                 if tuner is not None:
                     tuner.observe_chunk()
                 slabs = rot.put(out, event=ev, nbytes=chunk.view.nbytes,
-                                on_consumed=chunk.release)
+                                on_consumed=chunk.release, seq=chunk.seq)
                 del out
                 yield from slabs
             # The readback tail is streaming wall time too.
@@ -653,7 +694,8 @@ class RawReducer:
         output frames exactly.  The slabs are the caller's to keep."""
         src = open_raw(raw)
         try:
-            with profile_trace(self.trace_logdir, self.device), \
+            with profile_trace(self.trace_logdir, self.device,
+                               timeline=self.timeline), \
                     observability.span("reduce.stream", nfft=self.nfft,
                                        path=getattr(src, "path", "")):
                 yield from self._stream(src, skip_frames)
@@ -669,13 +711,15 @@ class RawReducer:
         stay inside the profiler's window."""
         src = open_raw(raw)
         try:
-            with profile_trace(self.trace_logdir, self.device):
+            with profile_trace(self.trace_logdir, self.device,
+                               timeline=self.timeline):
                 total = 0.0
                 pending: deque = deque()
                 for chunk in self._chunks(src):
-                    with self.timeline.stage("dispatch", byte_free=True):
+                    with self.timeline.stage("dispatch", byte_free=True,
+                                             seq=chunk.seq):
                         pending.append((chunk,
-                                        self._dispatch(chunk, False).sum()))
+                                        self._dispatch(chunk, False)[0].sum()))
                     self._output_frames += chunk.frames
                     while len(pending) >= max(2, self.prefetch_depth):
                         done, s = pending.popleft()
@@ -705,7 +749,8 @@ class RawReducer:
         from blit_torch.monitor import publishing
 
         with publishing(self.timeline), \
-                profile_trace(self.trace_logdir, self.device), \
+                profile_trace(self.trace_logdir, self.device,
+                              timeline=self.timeline), \
                 observability.span("reduce.pump", nfft=self.nfft,
                                    out=str(getattr(writer, "path", ""))):
             return self._pump_impl(raw, writer, skip_frames)

@@ -23,6 +23,9 @@ append, ``stream.chunk_to_product_s`` (the arrival of the newest sample a
 product row depends on, to that row handed to its writer) into the
 reducer's Timeline histogram; the feed samples the
 ``stream.watermark_lag_s`` gauge; ``stream.chunk.*`` count the repairs.
+The producer's wait on the feed (this assembler's reordering and the
+source's ``get``) is the reducer's ``ingest.feed_wait`` stage, timed
+around each step of ``feed_blocks()``.
 
 Entry points: :func:`stream_reduce` (``.fil`` / ``.h5``, ``nbits``,
 ``resume=True`` rejoin through a
