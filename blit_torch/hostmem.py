@@ -25,18 +25,39 @@ inside every timed stream; the pool keeps them across streams.
   ``SiteConfig.staging_pool_bytes``, else 2 GiB (``0`` disables pooling,
   the A/B lever).
   A dropped pinned slab goes back to torch's host allocator.
+- :class:`BlockRegistry` page-locks a live feed's recycled host blocks in
+  place (a recorder's RAM ring is a fixed set of buffers), so the card
+  can read a block's rows straight into its chunk (:func:`copy_rows`)
+  with no copy into a slab.  It keys a block by its buffer's address and
+  length and registers it on its **second** sighting, timed as the stage
+  ``ingest.register``: a source that hands a fresh array every block
+  never registers anything.  Memory already page-locked counts as
+  registered, with no call.  A registration the runtime refuses leaves
+  the block on the copy path, is counted (``ingest.register_failed``)
+  and logged once; a fault of the build or of the runtime raises, as
+  the kernels' do.  A sighting ends with its array: a finalizer unregisters the
+  block when the last array seen over it dies; whoever queues a DMA from
+  a block holds the array until the DMA has completed.  The registry
+  owns no memory; :func:`host_blocks` is the process-wide one.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from blit_torch import kernels
+
+log = logging.getLogger("blit_torch.hostmem")
 
 _ALIGN = 4096  # the page size
 
@@ -200,3 +221,218 @@ def slab_pool() -> SlabPool:
         if _POOL is None:
             _POOL = SlabPool()
         return _POOL
+
+
+# -- recycled host blocks, read by the card in place ----------------------
+
+def _dma_lib() -> ctypes.CDLL:
+    """``csrc/host_dma.cu``, built on first use."""
+    lib = kernels.load("host_dma")
+    if lib.blit_copy_rows.argtypes is None:
+        vp, sz = ctypes.c_void_p, ctypes.c_size_t
+        lib.blit_host_register.argtypes = [vp, sz]
+        lib.blit_host_unregister.argtypes = [vp]
+        lib.blit_host_is_pinned.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+        lib.blit_copy_rows.argtypes = [vp, sz, vp, sz, sz, sz, ctypes.c_int, vp]
+        lib.blit_zero_rows.argtypes = [vp, sz, sz, sz, ctypes.c_int, vp]
+        for fn in (lib.blit_host_register, lib.blit_host_unregister,
+                   lib.blit_host_is_pinned, lib.blit_zero_rows,
+                   lib.blit_copy_rows):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class CudaHostRegistrar:
+    """Page-locking through the CUDA runtime (:class:`BlockRegistry`'s
+    default): ``is_pinned(ptr, nbytes)``, ``register(ptr, nbytes)`` (0 or
+    the CUDA error code) and ``unregister(ptr)``."""
+
+    def is_pinned(self, ptr: int, nbytes: int) -> bool:
+        lib = _dma_lib()
+        for p in (ptr, ptr + nbytes - 1):
+            out = ctypes.c_int(0)
+            kernels.check(lib, lib.blit_host_is_pinned(p, ctypes.byref(out)),
+                          "is_pinned")
+            if not out.value:
+                return False
+        return True
+
+    def register(self, ptr: int, nbytes: int) -> int:
+        return _dma_lib().blit_host_register(ptr, nbytes)
+
+    def unregister(self, ptr: int) -> None:
+        _dma_lib().blit_host_unregister(ptr)
+
+
+_SEEN, _BUSY, _REGISTERED, _PINNED, _FAILED = range(5)
+
+
+class _Sighting:
+    __slots__ = ("state", "owners")
+
+    def __init__(self):
+        self.state = _SEEN
+        self.owners: Dict[int, weakref.finalize] = {}
+
+
+class BlockRegistry:
+    """The registry of recycled host blocks (module docstring).
+
+    Thread-safe: every bank's producer sights its blocks concurrently,
+    and a finalizer runs on whichever thread drops an array's last
+    reference."""
+
+    def __init__(self, registrar=None):
+        self._registrar = registrar
+        self._lock = threading.RLock()
+        self._entries: Dict[Tuple[int, int], _Sighting] = {}
+        self.registered = 0
+        self.pinned = 0
+        self.failed = 0
+        self.unregistered = 0
+
+    @property
+    def registrar(self):
+        if self._registrar is None:
+            self._registrar = CudaHostRegistrar()
+        return self._registrar
+
+    def _own(self, e: _Sighting, key: Tuple[int, int], block) -> None:
+        fin = weakref.finalize(block, self._release, key, id(block))
+        fin.atexit = False  # the process's end frees the memory anyway
+        e.owners[id(block)] = fin
+
+    def sight(self, block: np.ndarray, timeline=None) -> bool:
+        """Note a sighting of ``block`` (a C-contiguous array); True when
+        its bytes are page-locked, so a DMA may read them in place."""
+        key = (block.ctypes.data, block.nbytes)
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                e = self._entries[key] = _Sighting()
+                self._own(e, key, block)
+                return False
+            if id(block) not in e.owners:
+                self._own(e, key, block)
+            if e.state != _SEEN:
+                return e.state in (_REGISTERED, _PINNED)
+            e.state = _BUSY
+        t0 = time.perf_counter()
+        err = 0
+        try:
+            if self.registrar.is_pinned(*key):
+                state = _PINNED
+            else:
+                err = self.registrar.register(*key)
+                state = _REGISTERED if err == 0 else _FAILED
+        except BaseException:
+            with self._lock:
+                e.state = _SEEN  # a build or CUDA fault raises, as kernels do
+            raise
+        dt = time.perf_counter() - t0
+        with self._lock:
+            e.state = state
+            if state == _REGISTERED:
+                self.registered += 1
+            elif state == _PINNED:
+                self.pinned += 1
+            else:
+                self.failed += 1
+                first = self.failed == 1
+        if timeline is not None:
+            st = timeline.stages["ingest.register"]
+            st.calls += 1
+            st.seconds += dt
+            if state == _FAILED:
+                timeline.count("ingest.register_failed")
+        if state == _FAILED and first:
+            log.warning("page-locking a %d-byte host block failed (CUDA "
+                        "error %d); blocks that fail stay on the copy path",
+                        key[1], err)
+        return state != _FAILED
+
+    def _release(self, key: Tuple[int, int], oid: int) -> None:
+        """Finalizer of an array seen over ``key``: the last one to die
+        ends the sighting and unregisters what this registry locked."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None or e.owners.pop(oid, None) is None or e.owners:
+                return
+            del self._entries[key]
+            owned = e.state == _REGISTERED
+            if owned:
+                self.unregistered += 1
+        if owned:
+            self.registrar.unregister(key[0])
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"blocks": len(self._entries),
+                    "registered": self.registered, "pinned": self.pinned,
+                    "failed": self.failed, "unregistered": self.unregistered}
+
+
+_BLOCKS: Optional[BlockRegistry] = None
+
+
+def host_blocks() -> BlockRegistry:
+    """The process-wide block registry."""
+    global _BLOCKS
+    with _POOL_LOCK:
+        if _BLOCKS is None:
+            _BLOCKS = BlockRegistry()
+        return _BLOCKS
+
+
+def _rows(a: Union[np.ndarray, torch.Tensor], t: int, n: int):
+    """(address of sample ``t`` of row 0, row pitch, bytes a sample) of a
+    ``(rows, samples, ...)`` array or tensor whose rows are dense,
+    checking that samples ``[t, t+n)`` exist."""
+    if isinstance(a, torch.Tensor):
+        es = a.element_size()
+        ptr, shape, strides = a.data_ptr(), tuple(a.shape), [s * es for s in a.stride()]
+    else:
+        es = a.itemsize
+        ptr, shape, strides = a.ctypes.data, a.shape, list(a.strides)
+    sample, dense = es, len(shape) >= 2
+    for k in range(len(shape) - 1, 1, -1):
+        dense = dense and (shape[k] == 1 or strides[k] == sample)
+        sample *= shape[k]
+    if not dense or strides[1] != sample or t < 0 or t + n > shape[1]:
+        raise ValueError(f"copy_rows: samples [{t}, {t + n}) of an array of "
+                         f"shape {tuple(shape)}, strides {strides}")
+    return ptr + t * sample, strides[0], sample
+
+
+def copy_rows(dst: torch.Tensor, dst_t: int, src, src_t: int, n: int) -> None:
+    """Copy samples ``[src_t, src_t+n)`` of every row of ``src`` (a host
+    array, page-locked, or a device tensor) to samples ``[dst_t,
+    dst_t+n)`` of the device tensor ``dst``, one ``cudaMemcpy2DAsync`` on
+    ``dst``'s current stream.  Rows are the first axis (coarse channels)
+    and must agree; so must the bytes a sample."""
+    dp, dpitch, ds = _rows(dst, dst_t, n)
+    sp, spitch, ss = _rows(src, src_t, n)
+    if ds != ss or dst.shape[0] != src.shape[0]:
+        raise ValueError(f"copy_rows: {tuple(src.shape)} into {tuple(dst.shape)}")
+    if n == 0 or dst.shape[0] == 0:
+        return
+    lib = _dma_lib()
+    ctx, stream = kernels.launch_stream(dst.device)
+    with ctx:
+        rc = lib.blit_copy_rows(dp, dpitch, sp, spitch, n * ds, dst.shape[0],
+                                dst.device.index or 0, stream)
+    kernels.check(lib, rc, "copy_rows")
+
+
+def zero_rows(dst: torch.Tensor, dst_t: int, n: int) -> None:
+    """Zero samples ``[dst_t, dst_t+n)`` of every row of the device tensor
+    ``dst``, one ``cudaMemset2DAsync`` on its current stream."""
+    dp, dpitch, ds = _rows(dst, dst_t, n)
+    if n == 0 or dst.shape[0] == 0:
+        return
+    lib = _dma_lib()
+    ctx, stream = kernels.launch_stream(dst.device)
+    with ctx:
+        rc = lib.blit_zero_rows(dp, dpitch, n * ds, dst.shape[0],
+                                dst.device.index or 0, stream)
+    kernels.check(lib, rc, "zero_rows")

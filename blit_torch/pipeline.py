@@ -19,12 +19,14 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
   integration are dropped, as rawspec does.
 - Ingest is pipelined (:class:`BufferRotation`): a producer thread fills
   a rotation of chunk slots from the file while the device works on
-  earlier chunks.  Each slot's first ``(ntap-1)*nfft`` samples are
+  earlier chunks; every byte is read from disk once, into its final
+  place.  On the CPU each slot's first ``(ntap-1)*nfft`` samples are
   copied from the previous slot's tail (the filter state, on the
-  producer thread); every other byte is read from disk once, into its
-  final place.  Slots come from the staging pool
-  (:mod:`blit_torch.hostmem`), pinned on a CUDA device, so the
-  host→device copy is a ``non_blocking`` DMA.
+  producer thread).  On a CUDA device the producer emits a
+  :class:`ChunkPlan` a chunk and the dispatch thread assembles it on
+  the card: the filter state copied on the device from the previous
+  chunk's tail, then one 2-D DMA a segment from the slot's pinned slab
+  (slots come from the staging pool, :mod:`blit_torch.hostmem`).
 - Output is asynchronous by default (:mod:`blit_torch.outplane`): each
   chunk is dispatched, an event recorded after its launches, and the
   output handed to a readback thread that waits on the event, frees the
@@ -59,17 +61,27 @@ a one-pol recording through the FIR in torch ops + the DFT kernels.
 - A source with ``feed_blocks()`` (the live
   :class:`blit_torch.stream.LiveRawStream`) feeds the producer in place
   of the file's blocks, through the same chunk framing, so a stream of
-  a completed recording is byte-identical to its batch reduction.
+  a completed recording is byte-identical to its batch reduction.  On a
+  CUDA device the producer does not copy a live block the block
+  registry has page-locked (:class:`blit_torch.hostmem.BlockRegistry`:
+  a recorder's recycled ring buffer, locked on its second sighting):
+  the plan's segment points at the block, and the dispatch thread
+  copies its channel rows straight into the device chunk.  The plan
+  holds the block's stream chunk until the chunk is consumed, so a
+  recycling source refills the buffer only after the card read it.
 - Every ``_pump`` runs under :func:`blit_torch.monitor.publishing`.
 - The threads' waits are stages of the reducer's Timeline: the
   producer's ``ingest.feed_wait`` (the next block from the feed) and
   ``ingest.slot_wait`` (a free chunk slot), the dispatch thread's
   ``dispatch.chunk_wait`` (a filled chunk) and ``dispatch.put_wait``
   (the output rotation, behind readback); ``dispatch`` holds
-  ``dispatch.h2d`` (the copy call, and the short last chunk's trim) and
+  ``dispatch.h2d`` (the copy calls, and the short last chunk's trim) and
   ``dispatch.launch`` (the channelizer's launches and the event).  The
-  stages of one chunk carry its sequence number into the Timeline's span
-  store when that is open.
+  direct path adds ``ingest.direct`` (the bytes the card reads in place,
+  apart from ``ingest``'s host reads; it times a plan's appends) and
+  ``ingest.register`` (page-locking a block).  The stages of one chunk
+  carry its sequence number into the Timeline's span store when that is
+  open.
 - ``trace_logdir`` wraps :meth:`RawReducer.stream`, :meth:`RawReducer.drain`
   and the pump in :func:`blit_torch.observability.profile_trace`: a
   ``torch.profiler`` Chrome trace (CUDA kernels included on the card)
@@ -155,20 +167,78 @@ class ReductionStats:
         return self.input_bytes / self.wall_seconds / 1e9 if self.wall_seconds else 0.0
 
 
+class ChunkPlan:
+    """A chunk as the producer leaves it on a CUDA device: where each
+    span of its samples comes from, for the dispatch thread to assemble
+    on the card (:meth:`RawReducer._assemble`).
+
+    - ``shape``: the device chunk, ``(nchan, chunk_samps, npol, 2)`` int8;
+    - ``overlap``: its first ``(ntap-1)*nfft`` samples are the previous
+      chunk's last ones (the PFB state), copied on the device;
+    - ``segments``: ``(src, t0, take, dst)``, samples ``[t0, t0+take)`` of
+      the host array ``src`` go to samples ``[dst, dst+take)``: ``src`` is
+      a page-locked recorder block (read in place), or the chunk slot's
+      pinned slab the producer read a block into (then ``t0 == dst``),
+      or None for zeros (a masked block).
+
+    A block read in place is held (its stream chunk's
+    :meth:`~blit_torch.stream.source.StreamChunk.hold`) until
+    :meth:`release`, once the card has read the chunk."""
+
+    __slots__ = ("shape", "overlap", "segments", "_held")
+
+    def __init__(self, shape: Tuple[int, ...], overlap: bool):
+        self.shape = shape
+        self.overlap = overlap
+        self.segments: List[Tuple[Optional[np.ndarray], int, int, int]] = []
+        self._held: List = []
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def add(self, src: Optional[np.ndarray], t0: int, take: int,
+            dst: int, hold=None) -> None:
+        """Append a segment, merged into the last one where both continue
+        each other (a slab filled by several blocks: one copy); ``hold``,
+        the stream chunk ``src`` belongs to, is held until :meth:`release`."""
+        if hold is not None:
+            hold.hold()
+            self._held.append(hold)
+        if self.segments:
+            s, a, n, d = self.segments[-1]
+            if s is src and d + n == dst and (src is None or a + n == t0):
+                self.segments[-1] = (s, a, n + take, d)
+                return
+        self.segments.append((src, t0, take, dst))
+
+    def release(self) -> None:
+        """Nothing reads the plan's blocks any more (idempotent)."""
+        held, self._held = self._held, []
+        self.segments = []
+        for c in held:
+            c.release()
+
+
 class _Chunk:
-    """A filled chunk slot handed to the consumer: ``view`` (numpy) is
-    its first ``samps`` samples, ``slot`` the whole slot's torch tensor.
-    Both stay valid until :meth:`release`, after which the producer may
-    refill the slot."""
+    """A filled chunk handed to the consumer: on the CPU ``slot``, the
+    whole chunk slot's torch tensor, of which the first ``samps`` samples
+    are the chunk; on a CUDA device ``plan`` (a :class:`ChunkPlan`,
+    ``slot`` None), assembled on the card.  Both stay valid until
+    :meth:`release`, after which the producer may refill the slot and a
+    source its blocks; ``nbytes`` is the chunk's bytes."""
 
-    __slots__ = ("view", "slot", "samps", "frames", "seq", "_idx", "_free")
+    __slots__ = ("slot", "plan", "samps", "frames", "nbytes", "seq", "_idx",
+                 "_free")
 
-    def __init__(self, view: np.ndarray, slot: torch.Tensor, samps: int,
-                 frames: int, idx: int, free, seq: int) -> None:
-        self.view = view
+    def __init__(self, slot: Optional[torch.Tensor], plan: Optional[ChunkPlan],
+                 samps: int, frames: int, nbytes: int, idx: int, free,
+                 seq: int) -> None:
         self.slot = slot
+        self.plan = plan
         self.samps = samps
         self.frames = frames
+        self.nbytes = nbytes
         self.seq = seq
         self._idx = idx
         self._free = free
@@ -176,6 +246,9 @@ class _Chunk:
     def release(self) -> None:
         if self._free is not None:
             free, self._free = self._free, None
+            plan, self.plan = self.plan, None
+            if plan is not None:
+                plan.release()
             free(self._idx)
 
 
@@ -283,6 +356,18 @@ class BufferRotation:
                 yield slot, payload
         finally:
             self.close()
+
+    def leftovers(self) -> List:
+        """After :meth:`close`: the payloads emitted and never yielded,
+        for the fill's owner to let go of."""
+        out = []
+        while True:
+            try:
+                item = self._filled.get_nowait()
+            except queue.Empty:
+                return out
+            if item is not None and item[0] is not _ROT_ERR:
+                out.append(item[1])
 
     def close(self, join_timeout_s: float = 10.0) -> None:
         """Stop the producer and join it (idempotent), bounded: a producer
@@ -399,6 +484,9 @@ class RawReducer:
         # Chunk slots kept across streams of this reducer; retired to the
         # staging pool after a stream that ended synchronized.
         self._buf_cache: List[hostmem.HostSlab] = []
+        # The last assembled chunk's PFB overlap on the device (the live
+        # feed on a CUDA device), for the next chunk's head.
+        self._tail: Optional[torch.Tensor] = None
 
     def _tune_fingerprint_kw(self) -> Dict:
         """What this reduction's tuning profile is keyed under
@@ -457,8 +545,9 @@ class RawReducer:
     @property
     def stats(self) -> ReductionStats:
         st = self.timeline.stages
+        direct = st["ingest.direct"].bytes if "ingest.direct" in st else 0
         return ReductionStats(
-            input_bytes=st["ingest"].bytes,
+            input_bytes=st["ingest"].bytes + direct,
             output_frames=self._output_frames,
             device_seconds=st["device"].seconds,
             wall_seconds=st["stream"].seconds,
@@ -475,85 +564,132 @@ class RawReducer:
         return hdr
 
     # -- ingest ------------------------------------------------------------
+    def _slot(self, bufs: List[Optional[hostmem.HostSlab]], j: int,
+              shape: Tuple[int, ...]) -> hostmem.HostSlab:
+        """Chunk slot ``j``'s slab, taken on first use from the slots kept
+        across streams, else from the staging pool (pinned on a CUDA
+        device)."""
+        if bufs[j] is None:
+            key = (shape, np.dtype(np.int8).str, self.device.type == "cuda")
+            for i, b in enumerate(self._buf_cache):
+                if b.key == key:
+                    bufs[j] = self._buf_cache.pop(i)
+                    break
+            else:
+                bufs[j] = hostmem.slab_pool().take(
+                    shape, np.int8, pinned=key[2], timeline=self.timeline)
+        return bufs[j]
+
     def _fill_rotation(self, feed, skip_frames: int,
                        bufs: List[Optional[hostmem.HostSlab]],
-                       rot: BufferRotation) -> None:
-        """Fill the chunk rotation from ``(header, kept_samples,
-        read_into)`` triples (producer thread).  Slot ``j``'s first
-        ``(ntap-1)*nfft`` samples are copied from the previously filled
-        slot's tail; the rest is read once, into place
-        (``read_into(dst, t0, n)`` copies samples ``[t0, t0+n)`` of the
-        block into ``dst[:, :n]``).  ``skip_frames`` skips the first
-        frames exactly: frame N's window starts at sample ``N*nfft``."""
+                       rot: BufferRotation,
+                       blocks: Optional[hostmem.BlockRegistry] = None) -> None:
+        """Fill the chunk rotation from the feed's ``(header,
+        kept_samples, read_into)`` items (producer thread): each block is
+        read once, into place (``read_into(dst, t0, n)`` copies samples
+        ``[t0, t0+n)`` of the block into ``dst[:, :n]``; stage
+        ``ingest``).  ``skip_frames`` skips the first frames exactly:
+        frame N's window starts at sample ``N*nfft``.
+
+        Without ``blocks`` (the CPU) slot ``j``'s first ``(ntap-1)*nfft``
+        samples are copied from the previously filled slot's tail and the
+        slot is the chunk.  With ``blocks`` (a CUDA device) each chunk is
+        emitted as a :class:`ChunkPlan` with the same framing, its
+        overlap taken on the card.  A live item carries its stream chunk
+        as a fourth element (None for a masked seat, a zero segment): a
+        block the registry has page-locked is a segment read in place,
+        held until the chunk is consumed (stage ``ingest.direct`` times
+        the append, apart from ``ingest``); any other block is read into
+        the slot's pinned slab, which the plan points at."""
         nfft, ntap, nint = self.nfft, self.ntap, self.nint
         chunk_samps = (self.chunk_frames + ntap - 1) * nfft
         advance = self.chunk_frames * nfft
         state = (ntap - 1) * nfft
         to_skip = skip_frames * nfft
-        pinned = self.device.type == "cuda"
         tl = self.timeline
         cur: Optional[int] = None
         prev: Optional[int] = None
+        plan: Optional[ChunkPlan] = None
         filled = 0
         seq = 0  # the chunk being filled, in stream order
         feed = iter(feed)
-        while True:
-            with tl.stage("ingest.feed_wait", byte_free=True):
-                item = next(feed, None)
-            if item is None:
-                break
-            hdr, nt, read_into = item
-            if to_skip >= nt:
-                to_skip -= nt
-                continue
-            t0, nt = to_skip, nt - to_skip
-            to_skip = 0
-            nchan = hdr["OBSNCHAN"]
-            self._note_stream_nchan(nchan)
-            npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
-            while nt > 0:
-                if cur is None:
-                    # Waiting for a free slot is back-pressure, timed apart
-                    # from ingest.
-                    with tl.stage("ingest.slot_wait", byte_free=True, seq=seq):
-                        cur = rot.acquire()
+        try:
+            while True:
+                with tl.stage("ingest.feed_wait", byte_free=True):
+                    item = next(feed, None)
+                if item is None:
+                    break
+                hdr, nt, read_into = item[:3]
+                if to_skip >= nt:
+                    to_skip -= nt
+                    continue
+                t0, nt = to_skip, nt - to_skip
+                to_skip = 0
+                nchan = hdr["OBSNCHAN"]
+                self._note_stream_nchan(nchan)
+                npol = 2 if hdr["NPOL"] > 2 else hdr["NPOL"]
+                shape = (nchan, chunk_samps, npol, 2)
+                live = item[3] if len(item) > 3 else None
+                zero = blocks is not None and len(item) > 3 and live is None
+                block = live.data if live is not None else None
+                direct = (blocks is not None and block is not None
+                          and block.dtype == np.int8
+                          and block.flags.c_contiguous and block.ndim == 4
+                          and block.shape[0] == nchan
+                          and block.shape[2:] == (npol, 2)
+                          and blocks.sight(block, tl))
+                while nt > 0:
                     if cur is None:
-                        return  # the consumer abandoned the stream
-                    if bufs[cur] is None:
-                        key = ((nchan, chunk_samps, npol, 2),
-                               np.dtype(np.int8).str, pinned)
-                        for j, b in enumerate(self._buf_cache):
-                            if b.key == key:
-                                bufs[cur] = self._buf_cache.pop(j)
-                                break
-                        else:
-                            bufs[cur] = hostmem.slab_pool().take(
-                                key[0], np.int8, pinned=pinned,
-                                timeline=self.timeline)
-                    if prev is not None:
-                        with tl.stage("state", nbytes=nchan * state * npol * 2,
+                        # Waiting for a free slot is back-pressure, timed
+                        # apart from ingest.
+                        with tl.stage("ingest.slot_wait", byte_free=True,
                                       seq=seq):
-                            bufs[cur].array[:, :state] = \
-                                bufs[prev].array[:, advance:]
-                        filled = state
+                            cur = rot.acquire()
+                        if cur is None:
+                            return  # the consumer abandoned the stream
+                        filled = state if prev is not None else 0
+                        if blocks is not None:
+                            plan = ChunkPlan(shape, prev is not None)
+                        elif prev is not None:
+                            slab = self._slot(bufs, cur, shape)
+                            with tl.stage("state",
+                                          nbytes=nchan * state * npol * 2,
+                                          seq=seq):
+                                slab.array[:, :state] = \
+                                    bufs[prev].array[:, advance:]
+                    take = min(nt, chunk_samps - filled)
+                    nbytes = nchan * take * npol * 2
+                    if direct:
+                        with tl.stage("ingest.direct", nbytes=nbytes, seq=seq):
+                            plan.add(block, t0, take, filled, hold=live)
+                    elif zero:
+                        with tl.stage("ingest", nbytes=nbytes, seq=seq):
+                            plan.add(None, t0, take, filled)
                     else:
-                        filled = 0
-                take = min(nt, chunk_samps - filled)
-                with tl.stage("ingest", nbytes=nchan * take * npol * 2,
-                              seq=seq):
-                    read_into(bufs[cur].array[:, filled:], t0, take)
-                filled += take
-                t0 += take
-                nt -= take
-                if filled == chunk_samps:
-                    rot.emit(cur, (self.chunk_frames, chunk_samps))
-                    prev, cur = cur, None
-                    seq += 1
-        if cur is not None and filled > (state if prev is not None else 0):
-            # Flush: whole frames left, rounded down to the integration.
-            frames = usable_frames(filled, nfft, ntap, nint)
-            if frames > 0:
-                rot.emit(cur, (frames, (frames + ntap - 1) * nfft))
+                        dst = self._slot(bufs, cur, shape).array
+                        with tl.stage("ingest", nbytes=nbytes, seq=seq):
+                            read_into(dst[:, filled:], t0, take)
+                        if plan is not None:
+                            plan.add(dst, filled, take, filled)
+                    filled += take
+                    t0 += take
+                    nt -= take
+                    if filled == chunk_samps:
+                        rot.emit(cur, (self.chunk_frames, chunk_samps, plan))
+                        prev, cur, plan = cur, None, None
+                        seq += 1
+            if cur is not None and filled > (state if prev is not None else 0):
+                # Flush: whole frames left, rounded down to the integration.
+                frames = usable_frames(filled, nfft, ntap, nint)
+                if frames > 0:
+                    rot.emit(cur, (frames, (frames + ntap - 1) * nfft, plan))
+                    plan = None
+        finally:
+            if plan is not None:  # never emitted: its blocks are free
+                plan.release()
+            close = getattr(feed, "close", None)
+            if close is not None:
+                close()
 
     def _chunks(self, raw: GuppiRaw, skip_frames: int = 0,
                 extra_slots: int = 0) -> Iterator[_Chunk]:
@@ -562,17 +698,20 @@ class RawReducer:
         ``extra_slots`` widens the rotation beyond ``prefetch_depth`` for
         the chunks the output plane keeps in flight.  A source with
         ``feed_blocks()`` (a live stream) feeds the producer in place of
-        its file's blocks."""
+        its file's blocks; on a CUDA device every chunk is a
+        :class:`ChunkPlan`, assembled on the card."""
         nbufs = max(2, self.prefetch_depth) + max(0, extra_slots)
         bufs: List[Optional[hostmem.HostSlab]] = [None] * nbufs
+        live = hasattr(raw, "feed_blocks")
+        blocks = hostmem.host_blocks() if self.device.type == "cuda" else None
 
         def fill(r):
-            feed = (raw.feed_blocks() if hasattr(raw, "feed_blocks")
-                    else raw_block_feed(raw))
-            self._fill_rotation(feed, skip_frames, bufs, r)
+            feed = raw.feed_blocks() if live else raw_block_feed(raw)
+            self._fill_rotation(feed, skip_frames, bufs, r, blocks)
 
         rot = BufferRotation(nbufs, fill, name="blit-ingest")
         tl = self.timeline
+        self._tail = None
         with tl.stage("stream"):
             try:
                 slots = rot.slots()
@@ -582,13 +721,19 @@ class RawReducer:
                         item = next(slots, None)
                     if item is None:
                         break
-                    idx, (frames, samps) = item
-                    view = bufs[idx].array[:, :samps]
-                    tl.stages["stream"].bytes += view.nbytes
-                    yield _Chunk(view, bufs[idx].tensor, samps, frames, idx,
-                                 rot.release, seq)
+                    idx, (frames, samps, plan) = item
+                    shape = plan.shape if plan is not None else bufs[idx].array.shape
+                    nbytes = shape[0] * samps * shape[2] * shape[3]
+                    tl.stages["stream"].bytes += nbytes
+                    yield _Chunk(None if plan is not None else bufs[idx].tensor,
+                                 plan, samps, frames, nbytes, idx, rot.release,
+                                 seq)
             finally:
                 rot.close()
+                for _, _, plan in rot.leftovers():
+                    if plan is not None:
+                        plan.release()
+                self._tail = None
                 # Keep the (faulted, pinned) slots for the next stream.
                 self._buf_cache = [b for b in bufs if b is not None][:nbufs]
 
@@ -601,19 +746,40 @@ class RawReducer:
         self._buf_cache = []
 
     # -- device step -------------------------------------------------------
+    def _assemble(self, plan: ChunkPlan) -> torch.Tensor:
+        """The device chunk of ``plan``, on the current stream: the PFB
+        overlap from the previous chunk's tail (a device-to-device copy),
+        then one ``cudaMemcpy2DAsync`` (or memset) a segment; the tail of
+        this chunk is kept for the next one."""
+        v = torch.empty(plan.shape, dtype=torch.int8, device=self.device)
+        state = (self.ntap - 1) * self.nfft
+        if plan.overlap:
+            hostmem.copy_rows(v, 0, self._tail, 0, state)
+        for src, t0, take, dst in plan.segments:
+            if src is None:
+                hostmem.zero_rows(v, dst, take)
+            else:
+                hostmem.copy_rows(v, dst, src, t0, take)
+        tail = torch.empty((plan.shape[0], state) + plan.shape[2:],
+                           dtype=torch.int8, device=self.device)
+        hostmem.copy_rows(tail, 0, v, plan.shape[1] - state, state)
+        self._tail = tail
+        return v
+
     def _dispatch(self, chunk: _Chunk, narrow: bool, event: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-        """Copy the chunk to the device (``non_blocking`` from its pinned
-        slot; the short last chunk uploads its whole slot and is trimmed
-        on the device; stage ``dispatch.h2d``) and launch the channelizer
-        (and, with ``narrow``, the quantization; with ``event``, record
-        an event after the launches; stage ``dispatch.launch``).  Returns
-        the output and the event (None without ``event``), without
-        waiting."""
-        tl, seq = self.timeline, chunk.seq
-        with tl.stage("dispatch.h2d", nbytes=chunk.slot.nbytes, seq=seq):
-            v = chunk.slot.to(self.device, non_blocking=True)
-            if chunk.samps < chunk.slot.shape[1]:
+        """Put the chunk on the device (on the card assembled from its
+        plan, on the CPU its slot as it is; the short last chunk is
+        trimmed on the device; stage ``dispatch.h2d``) and launch the
+        channelizer (and, with ``narrow``, the quantization; with
+        ``event``, record an event after the launches; stage
+        ``dispatch.launch``).  Returns the output and the event (None
+        without ``event``), without waiting."""
+        tl, seq, plan = self.timeline, chunk.seq, chunk.plan
+        nbytes = chunk.slot.nbytes if plan is None else plan.nbytes
+        with tl.stage("dispatch.h2d", nbytes=nbytes, seq=seq):
+            v = chunk.slot if plan is None else self._assemble(plan)
+            if chunk.samps < v.shape[1]:
                 v = v[:, :chunk.samps].contiguous()
         with tl.stage("dispatch.launch", byte_free=True, seq=seq):
             out = channelize(v, self.coeffs, nfft=self.nfft, ntap=self.ntap,
@@ -628,7 +794,7 @@ class RawReducer:
 
     def _run_chunk(self, chunk: _Chunk) -> np.ndarray:
         """The synchronous device step: dispatch and read back."""
-        with self.timeline.stage("device", nbytes=chunk.view.nbytes):
+        with self.timeline.stage("device", nbytes=chunk.nbytes):
             return self._dispatch(chunk, narrow=False)[0].cpu().numpy()
 
     def _narrow_host(self, slab: np.ndarray) -> np.ndarray:
@@ -660,7 +826,7 @@ class RawReducer:
                 self._output_frames += chunk.frames
                 if tuner is not None:
                     tuner.observe_chunk()
-                slabs = rot.put(out, event=ev, nbytes=chunk.view.nbytes,
+                slabs = rot.put(out, event=ev, nbytes=chunk.nbytes,
                                 on_consumed=chunk.release, seq=chunk.seq)
                 del out
                 yield from slabs
@@ -724,12 +890,12 @@ class RawReducer:
                     while len(pending) >= max(2, self.prefetch_depth):
                         done, s = pending.popleft()
                         with self.timeline.stage("device",
-                                                 nbytes=done.view.nbytes):
+                                                 nbytes=done.nbytes):
                             total += float(s)
                         done.release()
                 while pending:
                     done, s = pending.popleft()
-                    with self.timeline.stage("device", nbytes=done.view.nbytes):
+                    with self.timeline.stage("device", nbytes=done.nbytes):
                         total += float(s)
                     done.release()
                 self._retire_staging()

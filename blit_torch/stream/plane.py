@@ -4,8 +4,8 @@ Counterpart of ``blit/stream/plane.py``.  :class:`LiveRawStream` sits
 between a :class:`~blit_torch.stream.source.ChunkSource` and the
 reducers: it reorders arrivals within the lateness budget, drops
 duplicates and post-mask stragglers, and offers the result as
-``feed_blocks()``, the ``(header, kept_samples, read_into)`` triples the
-reducer's producer consumes in place of the file's blocks
+``feed_blocks()``, the ``(header, kept_samples, read_into, chunk)`` items
+the reducer's producer consumes in place of the file's blocks
 (:meth:`blit_torch.pipeline.RawReducer._fill_rotation`).  Both paths feed
 the same gap-free samples through the same chunk framing, so a stream of
 a completed recording is byte-identical to its batch reduction.
@@ -144,6 +144,7 @@ class LiveRawStream:
         if act is not None:
             if act.mode == "drop":
                 log.warning("injected drop of stream chunk %d", c.seq)
+                c.release()
                 return True
             if act.mode == "dup":
                 copies = 2
@@ -160,6 +161,8 @@ class LiveRawStream:
             self.timeline.count("stream.chunk.dup")
             observability.flight_recorder().event(
                 "stream", "chunk.dup", seq=c.seq)
+            if self._pending.get(c.seq) is not c:  # not a second admission
+                c.release()
             return
         if c.seq < self._next:
             # The watermark already masked this seat: the chunk is LATE —
@@ -172,6 +175,7 @@ class LiveRawStream:
             self._incident(
                 f"stream chunk {c.seq} of {self.path} arrived after its "
                 f"{self.lateness_s}s lateness budget (already masked)")
+            c.release()
             return
         c.t_arrival = now
         self._pending[c.seq] = c
@@ -235,6 +239,7 @@ class LiveRawStream:
                 # drop any now-available data as late.
                 c = self._pending.pop(self._next, None)
                 if c is not None:
+                    c.release()
                     self.late_chunks += 1
                     self.timeline.count("stream.chunk.late")
                     observability.flight_recorder().event(
@@ -298,47 +303,59 @@ class LiveRawStream:
 
     def feed_blocks(self):
         """The producer feed (:func:`blit_torch.pipeline.raw_block_feed`'s
-        live twin): ``(header, kept_samples, read_into)`` triples in
-        stream order.  The overlap-trim rule is the batch one — every
+        live twin): ``(header, kept_samples, read_into, chunk)`` in stream
+        order, ``chunk`` the :class:`StreamChunk` (None for a masked
+        seat).  The feed releases a chunk when the producer asks for the
+        next item; a reducer on a CUDA device that reads ``chunk.data``
+        in place later holds it (:meth:`StreamChunk.hold`) until the card
+        has read it.  The overlap-trim rule is the batch one — every
         block but the stream's LAST drops its trailing ``OVERLAP``
         samples — so blocks with overlap are held until their successor
         (or end-of-stream) proves which side of the rule they fall on;
         overlap-free blocks feed with zero added latency."""
         self.header(0)
-        held: Optional[StreamChunk] = None
-        for c in self._ordered():
-            if held is not None:
-                yield self._feed_one(held, last=False)
-            if c.header.get("OVERLAP", 0):
-                held = c
-            else:
-                held = None
-                yield self._feed_one(c, last=False)
-        if held is not None:
-            yield self._feed_one(held, last=True)
+        owned: List[StreamChunk] = []  # taken in order, not yet fed
+        try:
+            for c in self._ordered():
+                owned.append(c)
+                if len(owned) > 1:
+                    yield from self._feed_one(owned.pop(0), last=False)
+                if not c.header.get("OVERLAP", 0):
+                    yield from self._feed_one(owned.pop(0), last=False)
+            if owned:
+                yield from self._feed_one(owned.pop(0), last=True)
+        finally:
+            for c in owned + list(self._pending.values()):
+                c.release()
+            self._pending.clear()
 
     def _feed_one(self, c: StreamChunk, last: bool):
-        hdr = c.header
-        nt = block_ntime(hdr)
-        if not last:
-            nt -= hdr.get("OVERLAP", 0)
-        now = self._clock()
-        self.timeline.gauge("stream.watermark_lag_s", now - c.t_arrival)
-        a = self._cum
-        self._cum += nt
-        self._marks.append((self._cum, c.t_arrival))
-        if c.masked:
-            self.masked_spans.append((a, self._cum))
-            self._masked_log.append((c.seq, a, self._cum))
-        if c.masked:
-            def read_into(dst, t0, take):
-                dst[:, :take] = 0
-                return take
-        else:
-            def read_into(dst, t0, take, data=c.data):
-                dst[:, :take] = data[:, t0:t0 + take]
-                return take
-        return hdr, nt, read_into
+        """Feed ``c`` as one item; ``c`` is released when the producer
+        moves on."""
+        try:
+            hdr = c.header
+            nt = block_ntime(hdr)
+            if not last:
+                nt -= hdr.get("OVERLAP", 0)
+            now = self._clock()
+            self.timeline.gauge("stream.watermark_lag_s", now - c.t_arrival)
+            a = self._cum
+            self._cum += nt
+            self._marks.append((self._cum, c.t_arrival))
+            if c.masked:
+                self.masked_spans.append((a, self._cum))
+                self._masked_log.append((c.seq, a, self._cum))
+            if c.masked:
+                def read_into(dst, t0, take):
+                    dst[:, :take] = 0
+                    return take
+            else:
+                def read_into(dst, t0, take, data=c.data):
+                    dst[:, :take] = data[:, t0:t0 + take]
+                    return take
+            yield hdr, nt, read_into, None if c.masked else c
+        finally:
+            c.release()
 
     # -- latency lookup (sink side) ----------------------------------------
     def arrival_for(self, sample: int) -> Optional[float]:

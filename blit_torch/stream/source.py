@@ -20,7 +20,11 @@ The contract is pull-based: ``get(timeout)`` returns the next chunk or
 ``None``; ``finished`` turns True once everything was delivered, and
 ``total`` then gives the chunk count when the source knows it.  Order,
 gaps and duplicates are the assembler's to repair
-(:class:`blit_torch.stream.plane.LiveRawStream`).
+(:class:`blit_torch.stream.plane.LiveRawStream`).  A source that
+recycles its buffers (a recorder's RAM ring) gives each chunk an
+``on_release`` hook (:class:`StreamChunk`) and refills a buffer only
+once it fired: the assembler releases a chunk it drops at once and a
+fed one once the reducer is done with it.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from __future__ import annotations
 import logging
 import os
 import queue
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,19 +53,49 @@ class StreamChunk:
     ``t_arrival`` (monotonic-clock) is stamped by the assembler at
     receipt — the timestamp every latency/watermark decision keys on.
     ``masked`` chunks are watermark placeholders for data that never
-    arrived: ``data`` is None and the feed zero-fills their samples."""
+    arrived: ``data`` is None and the feed zero-fills their samples.
 
-    __slots__ = ("seq", "header", "data", "t_arrival", "masked")
+    ``on_release(chunk)`` is a recycling source's hook: it fires once,
+    when nothing reads ``data`` any more, and only then may the source
+    refill the buffer.  The delivery is one hold; a reader that keeps
+    reading ``data`` after its holder let go (a reducer's chunk plan,
+    until the card has read it) takes one more with :meth:`hold`, and
+    every hold ends with one :meth:`release`."""
+
+    __slots__ = ("seq", "header", "data", "t_arrival", "masked",
+                 "_on_release", "_holds")
 
     def __init__(self, seq: int, header: Dict,
                  data: Optional[np.ndarray],
                  t_arrival: Optional[float] = None,
-                 masked: bool = False) -> None:
+                 masked: bool = False,
+                 on_release: Optional[Callable[["StreamChunk"], None]] = None
+                 ) -> None:
         self.seq = seq
         self.header = header
         self.data = data
         self.t_arrival = t_arrival
         self.masked = masked
+        self._on_release = on_release
+        self._holds = 1
+
+    def hold(self) -> None:
+        with _HOLDS:
+            if self._holds <= 0:
+                raise RuntimeError(f"stream chunk {self.seq} was released")
+            self._holds += 1
+
+    def release(self) -> None:
+        with _HOLDS:
+            self._holds -= 1
+            if self._holds != 0:
+                return
+            hook, self._on_release = self._on_release, None
+        if hook is not None:
+            hook(self)
+
+
+_HOLDS = threading.Lock()
 
 
 class ChunkSource:
